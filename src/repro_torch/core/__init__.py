@@ -1,0 +1,28 @@
+"""HPDR core in PyTorch (counterpart of ``repro.core``).
+
+Layers, bottom-up: device adapters (`adapters`), block views (`machine`,
+`abstractions`), the CMM (`context`), the ZFP pipeline (`zfp`, `bitstream`)
+behind the codec registry (`codecs`) and stage graph (`stages`), and the
+high-level API (`api`: spec → plan → execute, with the `container` byte
+format).
+"""
+
+from . import (  # noqa: F401
+    abstractions,
+    adapters,
+    api,
+    bitstream,
+    codecs,
+    container,
+    context,
+    machine,
+    zfp,
+)
+from .api import (  # noqa: F401
+    Compressed,
+    ContainerError,
+    ReductionPlan,
+    ReductionSpec,
+    compress,
+    decompress,
+)

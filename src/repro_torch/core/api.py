@@ -1,0 +1,246 @@
+"""Public HPDR compression API in PyTorch — codec registry + plan architecture.
+
+Counterpart of ``repro.core.api`` (the subset the ported codecs need):
+
+  1. **Specify** — :class:`ReductionSpec`: method, shape, dtype, parameters
+     and backend; its ``key()`` is the CMM context key.
+  2. **Plan** — :func:`get_plan` builds the codec's :class:`ReductionPlan`
+     once per spec and keeps it in the global CMM.
+  3. **Execute** — :func:`encode`/:func:`decode` run the plan and produce /
+     consume :class:`Compressed` containers, byte-identical to the
+     reference's.
+
+Entry points run on the CUDA card (backend ``auto`` = ``cuda``) unless the
+caller passes ``backend="torch"``, which runs the plain versions on the CPU.
+:func:`decode` returns a tensor on the plan's device.
+
+Not yet ported: pytree entry points, streams, the engine, and every method
+but ``zfp`` (see :mod:`repro_torch.core.codecs`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import numpy as np
+import torch
+
+from . import adapters
+from .codecs import available_methods, get_codec  # noqa: F401
+from .codecs.base import Codec, ReductionPlan, ReductionSpec  # noqa: F401
+from .container import Compressed, ContainerError  # noqa: F401
+from .context import GLOBAL_CMM, ReductionContext
+from .stages.base import CallEnv, TransferStats
+
+# numpy dtype names of the torch dtypes (container meta uses numpy's names)
+_NP_NAMES = {
+    torch.float16: "float16", torch.bfloat16: "bfloat16", torch.float32: "float32",
+    torch.float64: "float64", torch.int8: "int8", torch.uint8: "uint8",
+    torch.int16: "int16", torch.int32: "int32", torch.int64: "int64",
+    torch.bool: "bool",
+}
+# the reference runs JAX with 64-bit types off: its ``jnp.asarray`` narrows
+_CANONICAL = {"float64": "float32", "int64": "int32", "uint64": "uint32"}
+
+
+def dtype_name(data: Any) -> str:
+    """numpy name of ``data``'s dtype (``"float32"``, ``"bfloat16"``, ...)."""
+    dtype = data.dtype
+    return _NP_NAMES[dtype] if isinstance(dtype, torch.dtype) else str(np.dtype(dtype))
+
+
+def as_tensor(data: Any) -> torch.Tensor:
+    """``data`` as a tensor with the reference's canonical dtype.
+
+    The reference's ``compress`` goes through ``jnp.asarray``, so a float64
+    input is compressed (and recorded) as float32; the port does the same.
+    """
+    if not isinstance(data, torch.Tensor):
+        arr = np.asarray(data)
+        data = torch.from_numpy(arr if arr.flags.writeable else arr.copy())
+    name = _CANONICAL.get(dtype_name(data))
+    if name is not None:
+        data = data.to(getattr(torch, name))
+    return data
+
+
+# ---------------------------------------------------------------------------
+# spec / plan resolution (CMM-backed)
+# ---------------------------------------------------------------------------
+
+
+def make_spec(data: Any, method: str, **params: Any) -> ReductionSpec:
+    """Build the canonical spec for compressing ``data`` with ``method``."""
+    codec = get_codec(method)
+    return codec.make_spec(tuple(data.shape), dtype_name(data), **params)
+
+
+def _build_context(key, codec: Codec, spec: ReductionSpec) -> ReductionContext:
+    plan = codec.plan(spec)
+    return ReductionContext(key=key, plan=plan, buffers=plan.workspace)
+
+
+def get_plan(spec: ReductionSpec) -> ReductionPlan:
+    """CMM-cached plan for ``spec``; built by the codec on the first miss."""
+    codec = get_codec(spec.method)
+    key = spec.key()
+    ctx = GLOBAL_CMM.get_or_create(key, lambda: _build_context(key, codec, spec))
+    return ctx.plan
+
+
+def encode(spec: ReductionSpec, data: Any) -> Compressed:
+    """Compress ``data`` according to ``spec`` (plan reused via the CMM)."""
+    return get_codec(spec.method).encode(get_plan(spec), as_tensor(data))
+
+
+def encode_profiled(
+    spec: ReductionSpec, data: Any
+) -> tuple[Compressed, dict[str, float], TransferStats]:
+    """Encode with per-stage wall seconds and host↔device transfer bytes."""
+    codec = get_codec(spec.method)
+    plan = get_plan(spec)
+    env = CallEnv(plan)
+    profile: dict[str, float] = {}
+    c = codec.encode(plan, as_tensor(data), env=env, profile=profile)
+    return c, profile, env.transfers
+
+
+def _decode_plan(c: Compressed, backend: str | None) -> tuple[Codec, ReductionPlan]:
+    codec = get_codec(c.method)
+    spec = codec.decode_spec(c)
+    if backend is not None:
+        spec = dataclasses.replace(spec, backend=adapters.resolve_backend(backend))
+    return codec, get_plan(spec)
+
+
+def decode(c: Compressed, backend: str | None = None) -> torch.Tensor:
+    """Decompress a container into a tensor on the decode plan's device.
+
+    Any backend decodes any stream; ``backend`` defaults to ``auto``
+    (``cuda``).
+    """
+    codec, plan = _decode_plan(c, backend)
+    return codec.decode(plan, c)
+
+
+def decode_profiled(
+    c: Compressed, backend: str | None = None
+) -> tuple[torch.Tensor, dict[str, float], TransferStats]:
+    """Decode with per-stage wall seconds and host↔device transfer bytes."""
+    codec, plan = _decode_plan(c, backend)
+    env = CallEnv(plan)
+    profile: dict[str, float] = {}
+    out = codec.decode(plan, c, env=env, profile=profile)
+    return out, profile, env.transfers
+
+
+# ---------------------------------------------------------------------------
+# compress / decompress — thin wrappers over the registry
+# ---------------------------------------------------------------------------
+
+
+def compress(
+    data: Any,
+    method: str = "zfp",
+    *,
+    error_bound: float = 1e-2,
+    relative: bool = True,
+    rate: int = 16,
+    dict_size: int = 4096,
+    tiers: int = 3,
+    tier_ratio: float = 8.0,
+    backend: str | None = None,
+    adapter: str | None = None,
+) -> Compressed:
+    """Compress ``data`` (a tensor or array) with the selected method.
+
+    Takes the reference's keywords so calls written for it run unchanged;
+    those the method does not use are dropped.  The default method is
+    ``zfp`` (the reference's is ``mgard``, which is not yet ported).
+    ``backend`` (alias: ``adapter``) binds the plan: ``auto`` (``cuda``),
+    ``cuda`` or ``torch``.
+    """
+    data = as_tensor(data)
+    spec = make_spec(
+        data, method,
+        error_bound=error_bound, relative=relative, rate=rate,
+        dict_size=dict_size, tiers=tiers, tier_ratio=tier_ratio,
+        backend=backend or adapter or adapters.AUTO,
+    )
+    return encode(spec, data)
+
+
+def decompress(c: Compressed, backend: str | None = None) -> torch.Tensor:
+    return decode(c, backend)
+
+
+# ---------------------------------------------------------------------------
+# leaf policy helpers (shared by checkpoint + serving layers)
+# ---------------------------------------------------------------------------
+
+
+def as_blocked_3d(flat: torch.Tensor) -> torch.Tensor:
+    """Flat → (n, 32, 32) (edge-padded to 1024-multiples): ZFP blocks become
+    4³ so the per-block emax header is amortised over 64 values."""
+    x = flat.reshape(-1)
+    pad = (-x.numel()) % 1024
+    if pad:
+        x = torch.cat([x, x[-1:].expand(pad)])
+    return x.reshape(-1, 32, 32)
+
+
+def leaf_policy(
+    arr: Any, method: str, params: dict | None = None
+) -> tuple[torch.Tensor, str, dict]:
+    """Shared shape/dtype policy: ``(tensor, method, params)`` to compress.
+
+    The ZFP branch of the reference's policy: floating inputs are cast to
+    float32 and re-blocked to (n, 32, 32).  The other branches belong to
+    codecs that are not yet ported.
+    """
+    params = dict(params or {})
+    if method != "zfp":
+        get_codec(method)  # raises: not yet ported
+        raise ValueError(f"leaf policy for {method!r} is not yet ported")
+    if isinstance(arr, torch.Tensor):
+        x = arr
+        if x.dtype != torch.float32 and x.dtype.is_floating_point:
+            x = x.to(torch.float32)
+    else:
+        a = np.asarray(arr)
+        if a.dtype != np.float32 and a.dtype.kind in ("f", "V"):
+            a = a.astype(np.float32)
+        x = torch.from_numpy(a if a.flags.writeable else a.copy())
+    return as_blocked_3d(x), method, params
+
+
+def finish_leaf_meta(c: Compressed, arr: Any) -> Compressed:
+    """Record the pre-policy dtype/shape for :func:`decompress_leaf`."""
+    c.meta["orig_dtype"] = dtype_name(arr)
+    c.meta["orig_shape"] = [int(n) for n in arr.shape]
+    return c
+
+
+def compress_leaf(arr: Any, method: str, **params: Any) -> Compressed:
+    """Compress one tensor with the shared shape/dtype policy."""
+    if not isinstance(arr, torch.Tensor):
+        arr = np.asarray(arr)
+    x, pol_method, pol_params = leaf_policy(arr, method, params)
+    c = compress(x, pol_method, **pol_params)
+    return finish_leaf_meta(c, arr)
+
+
+def restore_leaf(out: torch.Tensor, c: Compressed) -> torch.Tensor:
+    """Undo :func:`leaf_policy` on a decoded tensor: original dtype + shape."""
+    shape = tuple(c.meta["orig_shape"])
+    n = math.prod(shape) if shape else 1
+    dtype = getattr(torch, c.meta["orig_dtype"])
+    return out.reshape(-1)[:n].to(dtype).reshape(shape)
+
+
+def decompress_leaf(c: Compressed, backend: str | None = None) -> torch.Tensor:
+    """Inverse of :func:`compress_leaf`: original dtype and shape, on the
+    decode plan's device."""
+    return restore_leaf(decode(c, backend), c)

@@ -1,0 +1,50 @@
+"""HPDR codec registry (counterpart of ``repro.core.codecs``).
+
+Every compression method is a :class:`~repro_torch.core.codecs.base.Codec`
+registered under its public name with :func:`register_codec`; the API layer
+dispatches ``compress``/``decompress`` through this registry and stores each
+codec's plan in the CMM.
+
+Only ``zfp`` is ported so far.  The reference's other methods are named in
+:data:`NOT_YET_PORTED`, and asking for one raises a ``ValueError`` that says
+so.
+"""
+
+from __future__ import annotations
+
+from .base import Codec, ReductionPlan, ReductionSpec  # noqa: F401
+
+_REGISTRY: dict[str, Codec] = {}
+
+NOT_YET_PORTED = ("huffman", "huffman-bytes", "mgard", "mgard-progressive")
+
+
+def register_codec(name: str):
+    """Class decorator: instantiate ``cls(name)`` and register it."""
+
+    def deco(cls):
+        _REGISTRY[name] = cls(name)
+        return cls
+
+    return deco
+
+
+def get_codec(name: str) -> Codec:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        if name in NOT_YET_PORTED:
+            raise ValueError(
+                f"method {name!r} is not yet ported to repro_torch; "
+                f"ported: {available_methods()}"
+            ) from None
+        raise ValueError(
+            f"unknown method {name!r}; expected one of {available_methods()}"
+        ) from None
+
+
+def available_methods() -> tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+from . import zfp_codec  # noqa: E402,F401  (self-registers on import)

@@ -1,0 +1,185 @@
+"""Codec protocol + plan objects for the HPDR codec registry (counterpart of
+``repro.core.codecs.base``).
+
+  * :class:`ReductionSpec` — the hashable description of a reduction
+    (method, shape, dtype, method parameters, backend).  Its
+    :meth:`ReductionSpec.key` is the CMM hash key.
+  * :class:`ReductionPlan` — what planning produces: the stage pipeline
+    bound to the spec's static arguments, plus the device-resident tables
+    (permutations, scale tables) that repeated calls reuse.
+  * :class:`Codec` — the protocol every registered compressor implements:
+    ``plan(spec)``, ``encode(plan, data)``, ``decode(plan, c)``.
+
+Codecs are stateless; all per-(shape, dtype, params) state lives in the plan,
+which the API layer stores in the global CMM.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from dataclasses import dataclass, field
+from typing import Any
+
+import torch
+
+from .. import adapters
+from ..container import Compressed
+from ..context import context_key
+
+
+@dataclass(frozen=True)
+class ReductionSpec:
+    """Hashable description of one reduction: method + data characteristics.
+
+    ``backend`` names the device adapter the plan is bound to
+    (``auto`` | ``torch`` | ``cuda``); ``auto`` resolves to ``cuda``.
+    """
+
+    method: str
+    shape: tuple[int, ...]
+    dtype: str
+    params: tuple[tuple[str, Any], ...] = ()
+    backend: str = adapters.AUTO
+
+    @classmethod
+    def create(
+        cls,
+        method: str,
+        shape: tuple[int, ...],
+        dtype: Any,
+        backend: str = adapters.AUTO,
+        **params: Any,
+    ) -> "ReductionSpec":
+        return cls(
+            method=method,
+            shape=tuple(int(n) for n in shape),
+            dtype=str(dtype),
+            params=tuple(sorted(params.items())),
+            backend=str(backend),
+        )
+
+    def param(self, name: str, default: Any = None) -> Any:
+        for k, v in self.params:
+            if k == name:
+                return v
+        return default
+
+    def resolved(self) -> "ReductionSpec":
+        """This spec with ``backend`` bound to a concrete, runnable backend."""
+        concrete = adapters.resolve_backend(self.backend)
+        if concrete == self.backend:
+            return self
+        return dataclasses.replace(self, backend=concrete)
+
+    def key(self) -> tuple:
+        """Canonical CMM hash key for this spec (backend-resolved)."""
+        return context_key(
+            self.method, self.shape, self.dtype,
+            backend=adapters.resolve_backend(self.backend),
+            **dict(self.params),
+        )
+
+
+@dataclass
+class ReductionPlan:
+    """A built plan: the compiled stage pipeline + persistent device tensors.
+
+    ``device`` is where the plan's tensors live and its kernels run (the
+    CPU for ``torch``, the current CUDA device for ``cuda``).  ``workspace``
+    holds the data-independent tables the kernels read — the paper's
+    persistent context allocations.
+    """
+
+    spec: ReductionSpec
+    device: torch.device
+    workspace: dict[str, Any] = field(default_factory=dict)
+    meta: dict[str, Any] = field(default_factory=dict)
+    pipeline: Any = field(default=None, repr=False, compare=False)
+
+    def nbytes(self) -> int:
+        return sum(int(getattr(b, "nbytes", 0)) for b in self.workspace.values())
+
+
+class Codec:
+    """Base class for registered codecs (see :mod:`repro_torch.core.codecs`).
+
+    Subclasses set :attr:`spec_defaults` — the parameter names that belong
+    in this codec's :class:`ReductionSpec`, with their default values — and
+    implement :meth:`plan`, :meth:`build_stages`, :meth:`finish_container`,
+    :meth:`decode_state` and :meth:`decode_spec`.
+    """
+
+    spec_defaults: dict[str, Any] = {}
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def make_spec(self, shape: tuple[int, ...], dtype: Any, **kwargs: Any) -> ReductionSpec:
+        """Build a canonical spec from loose kwargs (irrelevant ones dropped,
+        missing ones defaulted, ``backend`` resolved)."""
+        backend = adapters.resolve_backend(kwargs.pop("backend", None))
+        params = {k: kwargs.get(k, d) for k, d in self.spec_defaults.items()}
+        return ReductionSpec.create(self.name, shape, dtype, backend=backend, **params)
+
+    # -- protocol ------------------------------------------------------------
+
+    def plan(self, spec: ReductionSpec) -> ReductionPlan:
+        """Build the persistent plan for ``spec`` (called once per CMM miss)."""
+        raise NotImplementedError
+
+    def encode(
+        self,
+        plan: ReductionPlan,
+        data: Any,
+        *,
+        env: Any = None,
+        profile: dict | None = None,
+    ) -> Compressed:
+        """Run the stage pipeline, then serialise the sections."""
+        from ..stages.base import LeafView  # local: codecs ↔ stages layering
+
+        state, env = plan.pipeline.run({"data": data}, env=env, profile=profile)
+        t0 = time.perf_counter()
+        c = self.finish_container(plan, env, LeafView(state, env))
+        if profile is not None:  # the sections' copy to host memory
+            profile["fetch"] = profile.get("fetch", 0.0) + time.perf_counter() - t0
+        return c
+
+    def decode(
+        self,
+        plan: ReductionPlan,
+        c: Compressed,
+        *,
+        env: Any = None,
+        profile: dict | None = None,
+    ) -> torch.Tensor:
+        """Run the inverse pipeline on the container's sections."""
+        from ..stages.base import CallEnv  # local: codecs ↔ stages layering
+
+        state, _ = plan.pipeline.invert(
+            self.decode_state(plan, c), env=env or CallEnv(plan), profile=profile
+        )
+        return state["data"]
+
+    def decode_spec(self, c: Compressed) -> ReductionSpec:
+        """Spec keying the decode-side plan, recovered from container meta."""
+        raise NotImplementedError
+
+    def decode_state(self, plan: ReductionPlan, c: Compressed) -> dict[str, Any]:
+        """The inverse pipeline's initial state, from the container's sections."""
+        raise NotImplementedError
+
+    # -- stage graph ---------------------------------------------------------
+
+    def build_stages(self, spec: ReductionSpec):
+        """Return this codec's :class:`StageGraph`."""
+        raise NotImplementedError
+
+    def _attach_pipeline(self, plan: ReductionPlan) -> ReductionPlan:
+        plan.pipeline = self.build_stages(plan.spec).compile(plan)
+        return plan
+
+    def finish_container(self, plan: ReductionPlan, env: Any, view: Any) -> Compressed:
+        """Serialise one leaf's pipeline state into a container."""
+        raise NotImplementedError

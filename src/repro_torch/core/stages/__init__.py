@@ -1,0 +1,13 @@
+"""Stage-graph codec pipeline (see :mod:`repro_torch.core.stages.base`)."""
+
+from __future__ import annotations
+
+from .base import (  # noqa: F401
+    CallEnv,
+    CompiledPipeline,
+    LeafView,
+    Stage,
+    StageGraph,
+    TransferStats,
+)
+from .library import ZfpBlockTransform  # noqa: F401

@@ -1,0 +1,11 @@
+"""Hand-written Hopper kernels of the port, one package per op.
+
+Each kernel package has:
+  csrc/*.cu — the CUDA C++ source (sm_90a), a plain C interface
+  kernel.py — ctypes launch wrappers: checks, allocation, launch counter
+  ref.py    — the plain PyTorch version: CPU path and the kernel's oracle
+  ops.py    — adapter dispatch (torch | cuda)
+
+Kernels:
+  zfp_block — ZFP-X per-4^d-block compress/decompress
+"""
