@@ -5,32 +5,49 @@ Run from the root of a checkout, on a machine with an H100 (sm_90a) and nvcc:
 
     python3 chip_smoke.py
 
-It builds the kernels from the sources in the checkout (into ``build/``),
-then runs five phases and exits non-zero if any fails:
+It builds the kernels from the sources in the checkout (into ``build/``, one
+nvcc per source, all at once), then runs five phases and exits non-zero if
+any fails:
 
   1. the card's name and power limit (``nvidia-smi``);
-  2. every kernel against its plain PyTorch version on the card: dims 1-4,
-     rates {1, 7, 16, 32}, odd shapes, special blocks (all zero, subnormal,
-     absmax below 2^-98, near FLT_MAX, inf, NaN) — payload and emax
-     byte-identical, decoded values bit-identical (tolerance 0);
-  3. the main path at a real size: ``api.compress``/``decompress`` of a
-     512^3 float32 field (the size of SDRBench's Nyx fields, 512 MiB) at
-     rate 16 and ``compress_leaf``/``decompress_leaf`` of a 4096x4096
-     float32 tensor, on the ``cuda`` backend.  Checks the ratio, the round
-     trip error (max |error| <= 5e-3 of the value range; about 8e-4 is
-     typical at rate 16), the kernels' results against the plain versions
-     (run in chunks of 2^16 blocks; tolerance 0), and that the launch
-     counters, zeroed just before, are above 0;
-  4. the container bytes round trip on the card: ``to_bytes`` ->
-     ``from_bytes`` -> decode, bit-identical;
-  5. timings with CUDA events after warm-up, median of 10 runs: kernel ms,
-     the plain versions' ms, the torch pad/block-view ms, end-to-end ms,
-     GB/s, and the least time the card could take (bytes at 3.35 TB/s,
-     operations at 67 T/s), each printed with the card's name and power
-     limit.
+  2. every kernel against its plain PyTorch version on the card, tolerance
+     0.  ZFP: dims 1-4, rates {1, 7, 16, 32}, odd shapes, special blocks
+     (all zero, subnormal, absmax below 2^-98, near FLT_MAX, inf, NaN).
+     Huffman: alphabets of 1, 2, 256, 4096 and 65536 keys and a
+     Fibonacci-frequency alphabet whose codes reach 32 bits, key counts
+     that are no multiple of a block (1, 1001, 100003), an empty stream,
+     chunk sizes 256 and 4096 (the whole decoded ``(chunks, chunk_size)``
+     output, padding included);
+  3. the main paths at a real size, on the ``cuda`` backend, each driven
+     with every launch counter set to 0 just before and read just after:
+     ZFP — ``api.compress``/``decompress`` of a 512^3 float32 field (the
+     size of SDRBench's Nyx fields, 512 MiB) at rate 16 and
+     ``compress_leaf``/``decompress_leaf`` of a 4096x4096 float32 tensor;
+     checks the ratio, the round trip error (max |error| <= 5e-3 of the
+     value range; about 8e-4 is typical at rate 16) and the kernels'
+     results against the plain versions (tolerance 0).  Huffman —
+     ``compress_leaf``/``decompress_leaf`` of a 4096x4096 float32 weight
+     tensor with ``huffman-bytes`` (an exact checkpoint leaf: 2^26 byte
+     keys) and of a (512, 512, 256) int32 key array with ``huffman``
+     (2^26 discrete-Laplace keys around 2048 in MGARD's 4096-key
+     alphabet); checks the exact round trip, the container bytes against
+     those the ``torch`` backend (the plain versions, on the CPU) writes,
+     and each kernel against its plain version at these shapes;
+  4. the container bytes round trip on the card (one ZFP, one Huffman
+     container): ``to_bytes`` -> ``from_bytes`` -> decode, bit-identical;
+  5. timings with CUDA events after warm-up, median of 10 runs (one run for
+     the plain Huffman decode, a Python loop over the chunk's symbols that
+     takes seconds; phase 3 ran it once already): kernel
+     ms, the plain versions' ms, the PyTorch library call's ms where one
+     computes the same function, the plain ``pack_stream`` and the host
+     codebook build, end-to-end ms and the least time the card could take
+     (bytes at 3.35 TB/s, operations at 67 T/s), each printed with the
+     card's name and power limit.
 
-The last two lines are one JSON object per kernel (``{"kernels": [...]}``)
-and ``{"ok": true, "device": {...}}``.
+The last two lines are one JSON object per kernel (``{"kernels": [...]}``;
+the Huffman kernels' times are those of the ``huffman-bytes`` leaf, their
+launches the sum over both Huffman runs) and ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -59,11 +76,29 @@ OPS_PER_S = 67e12           # H100 SXM, float32 outside the tensor cores
 CHECK_SHAPES = [(1001,), (33, 47), (33, 47, 65), (5, 6, 7, 9)]
 CHECK_RATES = (1, 7, 16, 32)
 
+HUFF_LEAF_SHAPE = (4096, 4096)      # float32 weights: 2^26 byte keys
+HUFF_KEYS_SHAPE = (512, 512, 256)   # int32 keys: 2^26 keys
+DICT_SIZE = 4096                    # MGARD's default dict_size
+LAPLACE_SCALE = 16.0                # the keys' discrete-Laplace scale
+CHECK_ALPHABETS = (1, 2, 256, 4096, 65536)
+CHECK_COUNTS = (1, 1001, 100_003)
+CHECK_CHUNKS = (256, 4096)
+
 KERNELS = {
     "compress_blocks": "src/repro/kernels/zfp_block/kernel.py:78",
     "decompress_blocks": "src/repro/kernels/zfp_block/kernel.py:114",
 }
 KERNEL_SOURCE = "src/repro_torch/kernels/zfp_block/csrc/zfp_block.cu"
+HUFF_KERNELS = {  # name: (TPU kernel it replaces, CUDA source)
+    "histogram.histogram": ("src/repro/kernels/histogram/kernel.py:39",
+                            "src/repro_torch/kernels/histogram/csrc/histogram.cu"),
+    "huffman_encode.encode_lookup": (
+        "src/repro/kernels/huffman_encode/kernel.py:31",
+        "src/repro_torch/kernels/huffman_encode/csrc/huffman_encode.cu"),
+    "huffman_decode.decode_chunks": (
+        "src/repro/kernels/huffman_decode/kernel.py:58",
+        "src/repro_torch/kernels/huffman_decode/csrc/huffman_decode.cu"),
+}
 
 
 class PhaseError(RuntimeError):
@@ -106,6 +141,17 @@ def max_abs_err(a, b) -> float:
     both_nan = torch.isnan(a64) & torch.isnan(b64)
     diff = torch.where(both_nan, torch.zeros_like(a64), (a64 - b64).abs())
     return float(diff.nan_to_num(math.inf).max())
+
+
+def int_err(a, b) -> float:
+    """Largest |a - b| of two integer tensors (inf if the shapes differ)."""
+    import torch
+
+    if a.shape != b.shape:
+        return math.inf
+    if a.numel() == 0:
+        return 0.0
+    return float((a.to(torch.int64) - b.to(a.device, torch.int64)).abs().max())
 
 
 def median_ms(fn, runs: int = TIMED_RUNS, warmup: int = 2) -> float:
@@ -230,6 +276,330 @@ def phase_kernels_vs_plain(device) -> None:
         f"(shape, rate) cases, special blocks included (tolerance 0)")
 
 
+# ---------------------------------------------------------------------------
+# Huffman
+# ---------------------------------------------------------------------------
+
+
+def kernel_modules() -> dict:
+    from repro_torch.kernels.histogram import kernel as hist
+    from repro_torch.kernels.huffman_decode import kernel as dec
+    from repro_torch.kernels.huffman_encode import kernel as enc
+    from repro_torch.kernels.zfp_block import kernel as zfp
+
+    return {"zfp_block": zfp, "histogram": hist, "huffman_encode": enc, "huffman_decode": dec}
+
+
+def reset_counts() -> None:
+    for mod in kernel_modules().values():
+        mod.reset_launches()
+
+
+def read_counts() -> dict[str, int]:
+    return {f"{pkg}.{name}": n for pkg, mod in kernel_modules().items()
+            for name, n in mod.launches.items()}
+
+
+def skewed_keys(num_bins: int, n: int, device, seed: int) -> "torch.Tensor":
+    """Skewed int32 keys in [0, num_bins), every key present when n allows."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    u = torch.rand(n, generator=g, device=device)
+    keys = (u ** 4 * num_bins).to(torch.int32).clamp_(max=num_bins - 1)
+    m = min(n, num_bins)
+    keys[:m] = torch.arange(m, dtype=torch.int32, device=device)
+    return keys[torch.randperm(n, generator=g, device=device)].contiguous()
+
+
+def laplace_keys(shape: tuple, device) -> "torch.Tensor":
+    """Discrete-Laplace int32 keys around DICT_SIZE / 2, clipped into the
+    alphabet, with its two ends present (the alphabet spans DICT_SIZE)."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(SEED + 3)
+    u = torch.rand(shape, generator=g, device=device) - 0.5
+    x = DICT_SIZE // 2 - LAPLACE_SCALE * torch.sign(u) * torch.log1p(-2 * u.abs())
+    keys = x.round().clamp(0, DICT_SIZE - 1).to(torch.int32)
+    keys.view(-1)[0] = 0
+    keys.view(-1)[-1] = DICT_SIZE - 1
+    return keys
+
+
+def fibonacci_freq(n: int = 40):
+    import numpy as np
+
+    fib = [1, 1]
+    while len(fib) < n:
+        fib.append(fib[-1] + fib[-2])
+    return np.array(fib, np.int64)
+
+
+def plain_stream(keys, book, chunk_size: int):
+    """Words, chunk offsets and padded decode tables of ``keys`` under
+    ``book``, built with the plain versions where the keys lie."""
+    import torch
+
+    from repro_torch.core import bitstream as bs
+    from repro_torch.core import huffman
+    from repro_torch.kernels.huffman_encode import ref as enc_ref
+
+    device = keys.device
+    codes_t, lens_t = huffman.codebook_tables(book, device)
+    codes, lens = enc_ref.encode_lookup(keys, codes_t, lens_t)
+    num_words = max(1, bs.words_needed(int(lens.to(torch.int64).sum())))
+    if keys.numel():
+        words, offsets = enc_ref.pack_stream(codes, lens, num_words, chunk_size)
+    else:
+        words = torch.zeros(num_words, dtype=torch.int32, device=device)
+        offsets = torch.zeros(0, dtype=torch.int32, device=device)
+    tables = huffman.padded_tables(huffman.decode_tables(book.lengths, device))
+    return words, offsets, tables
+
+
+def check_decode(what: str, keys, words, offsets, tables, chunk_size: int) -> float:
+    """decode_chunks kernel == plain version on the whole output; the keys
+    come back."""
+    import torch
+
+    from repro_torch.kernels.huffman_decode import kernel as dec_kernel
+    from repro_torch.kernels.huffman_decode import ref as dec_ref
+
+    max_len = int(tables[0].shape[0]) - 1
+    got = dec_kernel.decode_chunks(words, offsets, *tables, chunk_size, max_len)
+    torch.cuda.synchronize()
+    err = int_err(got, dec_ref.decode_chunks(words, offsets, *tables, chunk_size, max_len))
+    if err or not torch.equal(got.reshape(-1)[: keys.numel()], keys):
+        raise PhaseError(f"decode_chunks differs from its plain version or the keys: {what}, "
+                         f"chunk {chunk_size}, max |err| {err}")
+    return err
+
+
+def phase_huffman_kernels_vs_plain(device) -> None:
+    """Phase 2, Huffman: histogram, encode_lookup and decode_chunks against
+    their plain versions on the card (tolerance 0)."""
+    import torch
+
+    from repro_torch.core import huffman
+    from repro_torch.kernels.histogram import kernel as hist_kernel
+    from repro_torch.kernels.histogram import ref as hist_ref
+    from repro_torch.kernels.huffman_encode import kernel as enc_kernel
+    from repro_torch.kernels.huffman_encode import ref as enc_ref
+
+    checked = 0
+    cases = [(nb, n, None) for nb in CHECK_ALPHABETS for n in CHECK_COUNTS]
+    cases.append((40, CHECK_COUNTS[-1], fibonacci_freq()))
+    for nb, n, freq in cases:
+        what = f"{nb} keys, {n} symbols" + (", Fibonacci frequencies" if freq is not None else "")
+        keys = skewed_keys(nb, n, device, SEED + nb + n)
+        probe = keys.clone()
+        probe[::97] = -3        # out of range: counted nowhere, clamped by the gather
+        probe[1::101] = nb
+        hk = hist_kernel.histogram(probe, nb)
+        book = huffman.build_codebook(
+            hist_ref.histogram(keys, nb).cpu().numpy() if freq is None else freq)
+        if freq is not None and book.max_len != 32:
+            raise PhaseError(f"the Fibonacci alphabet's codes reach {book.max_len} bits, not 32")
+        ek = enc_kernel.encode_lookup(probe, *huffman.codebook_tables(book, device))
+        torch.cuda.synchronize()
+        ep = enc_ref.encode_lookup(probe, *huffman.codebook_tables(book, device))
+        errs = {"histogram": int_err(hk, hist_ref.histogram(probe, nb)),
+                "codes": int_err(ek[0], ep[0]), "lengths": int_err(ek[1], ep[1])}
+        if any(errs.values()):
+            raise PhaseError(f"Huffman kernels differ from their plain versions: {what}: {errs}")
+        if n == CHECK_COUNTS[-1]:
+            for chunk in CHECK_CHUNKS:
+                check_decode(what, keys, *plain_stream(keys, book, chunk), chunk)
+        checked += 1
+    empty = torch.zeros(0, dtype=torch.int32, device=device)
+    if int_err(hist_kernel.histogram(empty, 7), torch.zeros(7, dtype=torch.int32)):
+        raise PhaseError("histogram of an empty stream is not all zero")
+    book = huffman.build_codebook(torch.zeros(4, dtype=torch.int64).numpy())
+    for chunk in CHECK_CHUNKS:
+        check_decode("empty stream", empty, *plain_stream(empty, book, chunk), chunk)
+    log(f"phase 2 ok: histogram, encode_lookup == plain versions on the card for {checked} "
+        f"(alphabet, count) cases, out-of-range keys included; decode_chunks == plain version "
+        f"(whole output) at chunks {CHECK_CHUNKS}, codes up to 32 bits, empty stream "
+        "(tolerance 0)")
+
+
+def policy_keys(x, method: str):
+    """The int32 key stream the codec's first stage makes of ``x``."""
+    import torch
+
+    from repro_torch.core.codecs.huffman_codec import byte_view
+
+    if method == "huffman-bytes":
+        return byte_view(x).reshape(-1).to(torch.int32)
+    return x.reshape(-1).to(torch.int32)
+
+
+def run_huffman_path(name: str, x, method: str, api, device) -> dict:
+    """One Huffman main-path run (counters zeroed just before, read just
+    after), then its checks: round trip, bytes against the plain versions,
+    each kernel against its plain version at this run's shapes."""
+    import torch
+
+    from repro_torch.core import huffman
+    from repro_torch.kernels.histogram import kernel as hist_kernel
+    from repro_torch.kernels.histogram import ref as hist_ref
+    from repro_torch.kernels.huffman_encode import kernel as enc_kernel
+    from repro_torch.kernels.huffman_encode import ref as enc_ref
+
+    torch.cuda.synchronize()
+    reset_counts()
+    c = api.compress_leaf(x, method)
+    out = api.decompress_leaf(c)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"phase 3 launches on the Huffman main path ({name}): {counts}")
+    for k in HUFF_KERNELS:
+        if counts[k] <= 0:
+            raise PhaseError(f"{name}: kernel {k} never launched on the main path: {counts}")
+    if out.device != device or out.dtype != x.dtype or tuple(out.shape) != tuple(x.shape):
+        raise PhaseError(f"{name}: decoded {out.device} {out.dtype} {tuple(out.shape)}")
+    same = torch.equal(out.view(torch.int32), x.view(torch.int32))
+    if not same:
+        raise PhaseError(f"{name}: the round trip is not exact")
+    t0 = time.perf_counter()
+    plain = api.compress_leaf(x.cpu(), method, backend="torch")
+    plain_s = time.perf_counter() - t0
+    if plain.to_bytes() != c.to_bytes():
+        raise PhaseError(f"{name}: container bytes differ from the torch backend's")
+
+    keys = policy_keys(x, method)
+    nb = int(c.meta["num_keys"]) if c.method == "huffman" else 256
+    chunk = int(c.meta["chunk_size"])
+    freq = hist_kernel.histogram(keys, nb)
+    book = huffman.build_codebook(freq.cpu().numpy())
+    codes_t, lens_t = huffman.codebook_tables(book, device)
+    codes, lens = enc_kernel.encode_lookup(keys, codes_t, lens_t)
+    pc, pl = enc_ref.encode_lookup(keys, codes_t, lens_t)
+    words = torch.from_numpy(c.arrays["words"].view("int32")).to(device)
+    offsets = torch.from_numpy(c.arrays["chunk_offsets"]).to(device)
+    tables = huffman.padded_tables(huffman.decode_tables(c.arrays["length_table"], device))
+    errs = {
+        "histogram.histogram": int_err(freq, hist_ref.histogram(keys, nb)),
+        "huffman_encode.encode_lookup": max(int_err(codes, pc), int_err(lens, pl)),
+        "huffman_decode.decode_chunks": check_decode(name, keys, words, offsets, tables, chunk),
+    }
+    if any(errs.values()):
+        raise PhaseError(f"{name}: kernels differ from their plain versions: {errs}")
+    ratio = x.numel() * x.element_size() / c.nbytes()
+    log(f"phase 3 ok: {name} ({method}): {keys.numel()} keys, alphabet {nb}, "
+        f"{c.meta['total_bits'] / keys.numel():.4f} bits/key, longest code {book.max_len}, "
+        f"ratio {ratio:.6f}; exact round trip; bytes == torch backend's (its CPU encode took "
+        f"{plain_s:.1f} s); kernels == plain versions (tolerance 0)")
+    return {"name": name, "x": x, "method": method, "c": c, "out": out, "counts": counts,
+            "errs": errs, "keys": keys, "num_bins": nb, "chunk": chunk, "book": book,
+            "freq": freq, "codes_t": codes_t, "lens_t": lens_t, "codes": codes, "lens": lens,
+            "words": words, "offsets": offsets, "tables": tables}
+
+
+def phase_huffman_main_path(device, api) -> list[dict]:
+    """Phase 3, Huffman: the checkpoint leaf and the MGARD-like key array."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(SEED + 2)
+    leaf = torch.randn(HUFF_LEAF_SHAPE, generator=g, device=device) * 0.02
+    keys = laplace_keys(HUFF_KEYS_SHAPE, device)
+    return [
+        run_huffman_path(f"{HUFF_LEAF_SHAPE} float32 weights", leaf, "huffman-bytes", api, device),
+        run_huffman_path(f"{HUFF_KEYS_SHAPE} int32 keys", keys, "huffman", api, device),
+    ]
+
+
+def phase_huffman_timings(api, run: dict, card: str) -> list[dict]:
+    """Phase 5, Huffman: one main-path run's kernels, plain versions,
+    library calls, pack_stream, codebook and end to end."""
+    import torch
+
+    from repro_torch.core import huffman
+    from repro_torch.kernels.histogram import kernel as hist_kernel
+    from repro_torch.kernels.histogram import ref as hist_ref
+    from repro_torch.kernels.huffman_decode import kernel as dec_kernel
+    from repro_torch.kernels.huffman_decode import ref as dec_ref
+    from repro_torch.kernels.huffman_encode import kernel as enc_kernel
+    from repro_torch.kernels.huffman_encode import ref as enc_ref
+
+    keys, nb, chunk = run["keys"], run["num_bins"], run["chunk"]
+    codes_t, lens_t, codes, lens = run["codes_t"], run["lens_t"], run["codes"], run["lens"]
+    words, offsets, tables = run["words"], run["offsets"], run["tables"]
+    c, x, method = run["c"], run["x"], run["method"]
+    n = keys.numel()
+    n_chunks = offsets.numel()
+    max_len = int(tables[0].shape[0]) - 1
+    num_words = words.numel()
+    bits_per_key = c.meta["total_bits"] / n
+
+    ms = {
+        "histogram.histogram": median_ms(lambda: hist_kernel.histogram(keys, nb)),
+        "huffman_encode.encode_lookup": median_ms(
+            lambda: enc_kernel.encode_lookup(keys, codes_t, lens_t)),
+        "huffman_decode.decode_chunks": median_ms(
+            lambda: dec_kernel.decode_chunks(words, offsets, *tables, chunk, max_len)),
+    }
+    plain_ms = {
+        "histogram.histogram": median_ms(lambda: hist_ref.histogram(keys, nb)),
+        "huffman_encode.encode_lookup": median_ms(
+            lambda: enc_ref.encode_lookup(keys, codes_t, lens_t)),
+        "huffman_decode.decode_chunks": median_ms(
+            lambda: dec_ref.decode_chunks(words, offsets, *tables, chunk, max_len),
+            runs=1, warmup=0),
+    }
+    library_ms = {
+        "histogram.histogram": median_ms(lambda: torch.bincount(keys, minlength=nb)),
+        "huffman_encode.encode_lookup": median_ms(lambda: (codes_t[keys], lens_t[keys])),
+        "huffman_decode.decode_chunks": None,
+    }
+    pack_ms = median_ms(lambda: enc_ref.pack_stream(codes, lens, num_words, chunk))
+    freq_np = run["freq"].cpu().numpy()
+    codebook_ms = median_wall_ms(lambda: huffman.build_codebook(freq_np))
+    e2e_compress = median_wall_ms(lambda: api.compress_leaf(x, method))
+    e2e_decompress = median_wall_ms(lambda: api.decompress_leaf(c))
+
+    table_bytes = 4 * sum(int(t.numel()) for t in tables)
+    moved = {  # each input read once, each output written once
+        "histogram.histogram": 4 * n + 4 * nb,
+        "huffman_encode.encode_lookup": 12 * n + 8 * nb,
+        "huffman_decode.decode_chunks": 4 * n_chunks * chunk + 4 * num_words + 4 * n_chunks
+                                        + table_bytes,
+    }
+    ops = {  # integer operations on this run's data
+        "histogram.histogram": 4 * n,             # range check, match, popcount, add
+        "huffman_encode.encode_lookup": 4 * n,    # clamp, two probes, store
+        "huffman_decode.decode_chunks": int(n_chunks * chunk * (14 + 4 * bits_per_key)),
+    }
+    out = []
+    for name, (replaces, source) in HUFF_KERNELS.items():
+        b_ms = moved[name] / HBM_BYTES_PER_S * 1e3
+        o_ms = ops[name] / OPS_PER_S * 1e3
+        bound_ms = max(b_ms, o_ms)
+        lib = library_ms[name]
+        log(f"phase 5 [{card}] {run['name']} {name}: kernel {ms[name]:.4f} ms "
+            f"({moved[name] / ms[name] / 1e6:.1f} GB/s), plain version {plain_ms[name]:.4f} ms, "
+            f"library {'none' if lib is None else f'{lib:.4f} ms'}, bound {bound_ms:.4f} ms "
+            f"(bytes {b_ms:.4f} ms, operations {o_ms:.4f} ms), "
+            f"{bound_ms / ms[name]:.1%} of the bound")
+        out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                    "ms": ms[name], "plain_ms": plain_ms[name], "bound_ms": bound_ms,
+                    "bound_by": "bytes" if b_ms >= o_ms else "operations", "library_ms": lib})
+    xp, policy_method, _ = api.leaf_policy(x, method)
+    _, enc_stages, enc_moved = api.encode_profiled(api.make_spec(xp, policy_method), xp)
+    _, dec_stages, dec_moved = api.decode_profiled(c)
+    log(f"phase 5 [{card}] {run['name']}: plain pack_stream {pack_ms:.4f} ms, host codebook "
+        f"build {codebook_ms:.4f} ms (wall, alphabet {nb})")
+    log(f"phase 5 [{card}] {run['name']} one profiled call: encode stages {enc_stages} s, "
+        f"transfers {enc_moved.as_dict()}; decode stages {dec_stages} s, "
+        f"transfers {dec_moved.as_dict()}")
+    nbytes = x.numel() * x.element_size()
+    log(f"phase 5 [{card}] {run['name']} end to end (host wall, synchronised): "
+        f"compress_leaf {e2e_compress:.4f} ms ({nbytes / e2e_compress / 1e6:.1f} GB/s of input), "
+        f"decompress_leaf {e2e_decompress:.4f} ms ({nbytes / e2e_decompress / 1e6:.1f} GB/s "
+        "of output)")
+    return out
+
+
 def plain_compress(blocks, dims: int, tables: dict):
     from repro_torch.kernels.zfp_block import ref
 
@@ -289,14 +659,15 @@ def phase_main_path(device, api, kernel):
     leaf = torch.randn(LEAF_SHAPE, generator=g, device=device)
     torch.cuda.synchronize()
 
-    kernel.reset_launches()
+    reset_counts()
     c = api.compress(field, "zfp", rate=RATE)
     out = api.decompress(c)
     cl = api.compress_leaf(leaf, "zfp", rate=RATE)
     leaf_out = api.decompress_leaf(cl)
     torch.cuda.synchronize()
+    counts = read_counts()
     launches = dict(kernel.launches)
-    log(f"phase 3 launches on the main path: {launches}")
+    log(f"phase 3 launches on the ZFP main path: {counts}")
     if any(n <= 0 for n in launches.values()):
         raise PhaseError(f"a kernel of the main path never launched: {launches}")
     if out.device != device or leaf_out.device != device:
@@ -310,15 +681,16 @@ def phase_main_path(device, api, kernel):
     return field, c, out, main, launches, tables
 
 
-def phase_bytes_round_trip(api, c, out) -> None:
+def phase_bytes_round_trip(api, c, out, leaf: bool = False) -> None:
     from repro_torch.core.container import Compressed
 
     raw = c.to_bytes()
-    again = api.decode(Compressed.from_bytes(raw))
+    parsed = Compressed.from_bytes(raw)
+    again = api.decompress_leaf(parsed) if leaf else api.decode(parsed)
     if not same_bits(again, out):
         raise PhaseError("decode of to_bytes/from_bytes differs from the direct decode")
-    log(f"phase 4 ok: {len(raw)} container bytes -> from_bytes -> decode on the "
-        "card is bit-identical")
+    log(f"phase 4 ok: {c.method}: {len(raw)} container bytes -> from_bytes -> decode on "
+        "the card is bit-identical")
 
 
 def phase_timings(api, kernel, field, c, main, tables, card: str) -> list[dict]:
@@ -415,15 +787,37 @@ def main() -> int:
             if "registers" in line:
                 log(f"  {line.strip()}")
 
+    clock = [time.perf_counter()]
+
+    def lap(what: str) -> None:
+        now = time.perf_counter()
+        log(f"({what}: {now - clock[0]:.1f} s)")
+        clock[0] = now
+
     phase_kernels_vs_plain(device)
+    lap("phase 2, ZFP")
+    phase_huffman_kernels_vs_plain(device)
+    lap("phase 2, Huffman")
     field, c, out, main_res, launches, tables = phase_main_path(device, api, kernel)
+    lap("phase 3, ZFP")
+    huff_runs = phase_huffman_main_path(device, api)
+    lap("phase 3, Huffman")
     phase_bytes_round_trip(api, c, out)
+    phase_bytes_round_trip(api, huff_runs[0]["c"], huff_runs[0]["out"], leaf=True)
+    lap("phase 4")
     kernels = phase_timings(api, kernel, field, c, main_res, tables, card)
+    lap("phase 5, ZFP")
     for k in kernels:
         short = k["name"].split(".", 1)[1]
         k["launches"] = launches[short]
         k["max_abs_err"] = main_res[short]
-    log(json.dumps({"kernels": kernels}))
+    huff_kernels = phase_huffman_timings(api, huff_runs[0], card)
+    phase_huffman_timings(api, huff_runs[1], card)
+    lap("phase 5, Huffman")
+    for k in huff_kernels:
+        k["launches"] = sum(r["counts"][k["name"]] for r in huff_runs)
+        k["max_abs_err"] = max(r["errs"][k["name"]] for r in huff_runs)
+    log(json.dumps({"kernels": kernels + huff_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

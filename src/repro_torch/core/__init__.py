@@ -1,10 +1,10 @@
 """HPDR core in PyTorch (counterpart of ``repro.core``).
 
 Layers, bottom-up: device adapters (`adapters`), block views (`machine`,
-`abstractions`), the CMM (`context`), the ZFP pipeline (`zfp`, `bitstream`)
-behind the codec registry (`codecs`) and stage graph (`stages`), and the
-high-level API (`api`: spec → plan → execute, with the `container` byte
-format).
+`abstractions`), the CMM (`context`), the ZFP and Huffman pipelines (`zfp`,
+`huffman`, `bitstream`) behind the codec registry (`codecs`) and stage graph
+(`stages`), and the high-level API (`api`: spec → plan → execute, with the
+`container` byte format).
 """
 
 from . import (  # noqa: F401
@@ -15,6 +15,7 @@ from . import (  # noqa: F401
     codecs,
     container,
     context,
+    huffman,
     machine,
     zfp,
 )

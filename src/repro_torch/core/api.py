@@ -14,8 +14,9 @@ Entry points run on the CUDA card (backend ``auto`` = ``cuda``) unless the
 caller passes ``backend="torch"``, which runs the plain versions on the CPU.
 :func:`decode` returns a tensor on the plan's device.
 
-Not yet ported: pytree entry points, streams, the engine, and every method
-but ``zfp`` (see :mod:`repro_torch.core.codecs`).
+Ported methods: ``zfp``, ``huffman`` and ``huffman-bytes``.  Not yet
+ported: pytree entry points, streams, the engine, and the MGARD methods (see
+:mod:`repro_torch.core.codecs`).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import torch
 from . import adapters
 from .codecs import available_methods, get_codec  # noqa: F401
 from .codecs.base import Codec, ReductionPlan, ReductionSpec  # noqa: F401
+from .codecs.huffman_codec import INT_DTYPES, byte_view
 from .container import Compressed, ContainerError  # noqa: F401
 from .context import GLOBAL_CMM, ReductionContext
 from .stages.base import CallEnv, TransferStats
@@ -39,6 +41,7 @@ _NP_NAMES = {
     torch.float16: "float16", torch.bfloat16: "bfloat16", torch.float32: "float32",
     torch.float64: "float64", torch.int8: "int8", torch.uint8: "uint8",
     torch.int16: "int16", torch.int32: "int32", torch.int64: "int64",
+    torch.uint16: "uint16", torch.uint32: "uint32", torch.uint64: "uint64",
     torch.bool: "bool",
 }
 # the reference runs JAX with 64-bit types off: its ``jnp.asarray`` narrows
@@ -55,15 +58,23 @@ def as_tensor(data: Any) -> torch.Tensor:
     """``data`` as a tensor with the reference's canonical dtype.
 
     The reference's ``compress`` goes through ``jnp.asarray``, so a float64
-    input is compressed (and recorded) as float32; the port does the same.
+    input is compressed (and recorded) as float32, and int64/uint64 as
+    int32/uint32 (with wrap); the port does the same.  A numpy bfloat16
+    array (``ml_dtypes``) becomes a torch bfloat16 tensor.
     """
     if not isinstance(data, torch.Tensor):
-        arr = np.asarray(data)
-        data = torch.from_numpy(arr if arr.flags.writeable else arr.copy())
+        data = _from_numpy(np.asarray(data))
     name = _CANONICAL.get(dtype_name(data))
     if name is not None:
         data = data.to(getattr(torch, name))
     return data
+
+
+def _from_numpy(arr: np.ndarray) -> torch.Tensor:
+    arr = arr if arr.flags.writeable else arr.copy()
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 # ---------------------------------------------------------------------------
@@ -191,29 +202,36 @@ def as_blocked_3d(flat: torch.Tensor) -> torch.Tensor:
     return x.reshape(-1, 32, 32)
 
 
+_HUFFMAN_MAX_ALPHABET = 1 << 16
+
+
 def leaf_policy(
     arr: Any, method: str, params: dict | None = None
 ) -> tuple[torch.Tensor, str, dict]:
     """Shared shape/dtype policy: ``(tensor, method, params)`` to compress.
 
-    The ZFP branch of the reference's policy: floating inputs are cast to
-    float32 and re-blocked to (n, 32, 32).  The other branches belong to
-    codecs that are not yet ported.
+    The reference's policy for the ported codecs: ``zfp`` inputs are cast to
+    float32 and re-blocked to (n, 32, 32); ``huffman`` keeps genuine
+    small-alphabet integer keys (non-negative, below 2^16) on the
+    integer-key codec; anything else becomes a ``huffman-bytes`` byte view
+    of the original tensor, taken where it lies.
     """
     params = dict(params or {})
-    if method != "zfp":
+    if method in ("mgard", "mgard-progressive"):
         get_codec(method)  # raises: not yet ported
-        raise ValueError(f"leaf policy for {method!r} is not yet ported")
-    if isinstance(arr, torch.Tensor):
-        x = arr
+    x = arr if isinstance(arr, torch.Tensor) else _from_numpy(np.asarray(arr))
+    if method == "zfp":
         if x.dtype != torch.float32 and x.dtype.is_floating_point:
             x = x.to(torch.float32)
-    else:
-        a = np.asarray(arr)
-        if a.dtype != np.float32 and a.dtype.kind in ("f", "V"):
-            a = a.astype(np.float32)
-        x = torch.from_numpy(a if a.flags.writeable else a.copy())
-    return as_blocked_3d(x), method, params
+        return as_blocked_3d(x), method, params
+    if method == "huffman" and x.dtype in INT_DTYPES and x.numel():
+        flat = x.reshape(-1)
+        if flat.dtype in (torch.uint16, torch.uint32, torch.uint64):  # no aminmax
+            flat = flat.to(torch.int64)
+        lo, hi = (int(v) for v in torch.aminmax(flat))
+        if lo >= 0 and hi < _HUFFMAN_MAX_ALPHABET:
+            return x, "huffman", params
+    return byte_view(x), "huffman-bytes", {}
 
 
 def finish_leaf_meta(c: Compressed, arr: Any) -> Compressed:
@@ -223,12 +241,19 @@ def finish_leaf_meta(c: Compressed, arr: Any) -> Compressed:
     return c
 
 
-def compress_leaf(arr: Any, method: str, **params: Any) -> Compressed:
-    """Compress one tensor with the shared shape/dtype policy."""
+def compress_leaf(
+    arr: Any, method: str, *, backend: str | None = None, **params: Any
+) -> Compressed:
+    """Compress one tensor with the shared shape/dtype policy.
+
+    ``backend`` binds the plan as in :func:`compress` (the policy's
+    ``huffman-bytes`` branch drops every other parameter, as the
+    reference's does).
+    """
     if not isinstance(arr, torch.Tensor):
         arr = np.asarray(arr)
     x, pol_method, pol_params = leaf_policy(arr, method, params)
-    c = compress(x, pol_method, **pol_params)
+    c = compress(x, pol_method, backend=backend, **pol_params)
     return finish_leaf_meta(c, arr)
 
 
@@ -237,6 +262,9 @@ def restore_leaf(out: torch.Tensor, c: Compressed) -> torch.Tensor:
     shape = tuple(c.meta["orig_shape"])
     n = math.prod(shape) if shape else 1
     dtype = getattr(torch, c.meta["orig_dtype"])
+    if c.method == "huffman-bytes":
+        out = out.reshape(-1).view(dtype) if out.dtype == torch.uint8 else out.to(dtype)
+        return out.reshape(shape) if n == out.numel() else out
     return out.reshape(-1)[:n].to(dtype).reshape(shape)
 
 

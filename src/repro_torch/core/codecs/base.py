@@ -17,6 +17,7 @@ which the API layer stores in the global CMM.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any
@@ -96,6 +97,7 @@ class ReductionPlan:
     workspace: dict[str, Any] = field(default_factory=dict)
     meta: dict[str, Any] = field(default_factory=dict)
     pipeline: Any = field(default=None, repr=False, compare=False)
+    lock: Any = field(default_factory=threading.Lock, repr=False, compare=False)
 
     def nbytes(self) -> int:
         return sum(int(getattr(b, "nbytes", 0)) for b in self.workspace.values())
@@ -107,7 +109,8 @@ class Codec:
     Subclasses set :attr:`spec_defaults` — the parameter names that belong
     in this codec's :class:`ReductionSpec`, with their default values — and
     implement :meth:`plan`, :meth:`build_stages`, :meth:`finish_container`,
-    :meth:`decode_state` and :meth:`decode_spec`.
+    :meth:`decode_state` and :meth:`decode_spec`; :meth:`encode_input` and
+    :meth:`finish_decode` are the hooks around the pipeline's two ends.
     """
 
     spec_defaults: dict[str, Any] = {}
@@ -139,7 +142,9 @@ class Codec:
         """Run the stage pipeline, then serialise the sections."""
         from ..stages.base import LeafView  # local: codecs ↔ stages layering
 
-        state, env = plan.pipeline.run({"data": data}, env=env, profile=profile)
+        state, env = plan.pipeline.run(
+            self.encode_input(plan, data), env=env, profile=profile
+        )
         t0 = time.perf_counter()
         c = self.finish_container(plan, env, LeafView(state, env))
         if profile is not None:  # the sections' copy to host memory
@@ -157,18 +162,34 @@ class Codec:
         """Run the inverse pipeline on the container's sections."""
         from ..stages.base import CallEnv  # local: codecs ↔ stages layering
 
-        state, _ = plan.pipeline.invert(
-            self.decode_state(plan, c), env=env or CallEnv(plan), profile=profile
-        )
-        return state["data"]
+        state0, meta = self.decode_state(plan, c)
+        env = env if env is not None else CallEnv(plan)
+        env.meta.update(meta)
+        state, env = plan.pipeline.invert(state0, env=env, profile=profile)
+        return self.finish_decode(plan, env, state, c)
 
     def decode_spec(self, c: Compressed) -> ReductionSpec:
         """Spec keying the decode-side plan, recovered from container meta."""
         raise NotImplementedError
 
-    def decode_state(self, plan: ReductionPlan, c: Compressed) -> dict[str, Any]:
-        """The inverse pipeline's initial state, from the container's sections."""
+    def encode_input(self, plan: ReductionPlan, data: torch.Tensor) -> dict[str, Any]:
+        """The pipeline's initial state for ``data`` (the input-policy hook:
+        ``huffman-bytes`` takes a byte view here)."""
+        return {"data": data}
+
+    def decode_state(
+        self, plan: ReductionPlan, c: Compressed
+    ) -> tuple[dict[str, Any], dict[str, Any]]:
+        """``(inverse state0, env meta)`` from the container: the sections
+        that seed the inverse pipeline, and the metadata its host stages
+        prepare from."""
         raise NotImplementedError
+
+    def finish_decode(
+        self, plan: ReductionPlan, env: Any, state: dict, c: Compressed
+    ) -> torch.Tensor:
+        """One leaf's decoded tensor from the inverse pipeline's state."""
+        return state["data"]
 
     # -- stage graph ---------------------------------------------------------
 

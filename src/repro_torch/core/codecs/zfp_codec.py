@@ -70,7 +70,7 @@ class ZFPCodec(Codec):
     def decode_state(self, plan: ReductionPlan, c: Compressed):
         payload = np.ascontiguousarray(c.arrays["payload"], dtype=np.uint32)
         emax = np.ascontiguousarray(c.arrays["emax"], dtype=np.int32)
-        return {"payload": payload.view(np.int32), "emax": emax}
+        return {"payload": payload.view(np.int32), "emax": emax}, {}
 
     def decode_spec(self, c: Compressed) -> ReductionSpec:
         # Backend defaults to auto: any backend decodes any stream.

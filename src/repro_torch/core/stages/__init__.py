@@ -10,4 +10,14 @@ from .base import (  # noqa: F401
     StageGraph,
     TransferStats,
 )
-from .library import ZfpBlockTransform  # noqa: F401
+from .library import (  # noqa: F401
+    AlphabetBind,
+    AlphabetScan,
+    BitPack,
+    ByteKeys,
+    CodebookBuild,
+    HuffmanEntropy,
+    HuffmanHistogram,
+    IntKeys,
+    ZfpBlockTransform,
+)

@@ -1,16 +1,22 @@
 """Stage-graph codec pipeline, eager PyTorch form (counterpart of
 ``repro.core.stages.base``, reduced to what the ported codecs need).
 
-  * :class:`Stage` — one pipeline stage, with ``apply``/``invert`` on the
-    flowing state (a dict of tensors on the plan's device).
+  * :class:`Stage` — one pipeline stage.  *Device* stages transform the
+    flowing state (a dict of tensors on the plan's device) with ``apply``
+    and, where they declare ``inv_writes``, ``invert``.  *Host* stages
+    (``device = False``) are the graph's synchronisation points: in the
+    encode direction they fetch exactly the state keys they name in
+    ``fetches`` (metadata scale, counted as D2H) and ``host_apply`` fills
+    the call's ``meta``, ``statics`` and ``operands``; in the decode
+    direction ``host_prepare`` derives operands from the container's
+    metadata, with no fetch from the device.
   * :class:`StageGraph` — a codec's stage composition; :meth:`describe` is
     the per-stage metadata recorded in the container header, the same
     layout the reference writes.
   * :class:`CompiledPipeline` — the graph bound to one plan.  PyTorch runs
     eagerly, so :meth:`~CompiledPipeline.run` and
-    :meth:`~CompiledPipeline.invert` call the stages in order.  Host stages,
-    fused-segment tracing, batched runs and buffer donation are not ported
-    yet.
+    :meth:`~CompiledPipeline.invert` call the stages in order.  Fused
+    segments, batched runs and buffer donation are not ported yet.
 """
 
 from __future__ import annotations
@@ -57,25 +63,64 @@ class TransferStats:
 
 class CallEnv:
     """Per-call environment threaded through one pipeline run: the plan's
-    binding (``backend``, ``workspace``) and the call's transfer counts."""
+    binding (``backend``, ``workspace``), the call's transfer counts, and
+    what host stages produce for the rest of the call:
 
-    __slots__ = ("plan", "spec", "transfers")
+      * ``meta``     — per-call metadata for the container header;
+      * ``operands`` — host-built arrays later device stages read (codebook
+                       tables), shipped to the plan's device once per call
+                       and counted as H2D (:meth:`operand`);
+      * ``statics``  — python ints later stages need (the packed word
+                       count, the alphabet size).
+    """
+
+    __slots__ = ("plan", "spec", "meta", "operands", "statics", "transfers")
 
     def __init__(self, plan: Any, transfers: TransferStats | None = None):
         self.plan = plan
         self.spec = plan.spec
+        self.meta: dict[str, Any] = {}
+        self.operands: dict[str, Any] = {}
+        self.statics: dict[str, int] = dict(plan.meta.get("statics", ()) or {})
         self.transfers = transfers if transfers is not None else TransferStats()
 
     @property
     def backend(self) -> str:
         return self.spec.backend
 
-    def workspace(self, name: str) -> torch.Tensor:
+    def workspace(self, name: str) -> Any:
         return self.plan.workspace[name]
+
+    def static(self, name: str) -> int:
+        return self.statics[name]
+
+    def operand(self, name: str) -> torch.Tensor:
+        """Operand ``name`` on the plan's device (shipped on first use)."""
+        val = self.operands[name]
+        device = self.plan.device
+        if isinstance(val, torch.Tensor) and val.device == device:
+            return val
+        if device.type != "cpu" and _on_host(val):
+            self.transfers.count_h2d(val)
+        out = _as_tensor(val).to(device)
+        self.operands[name] = out
+        return out
+
+
+def _as_tensor(v: Any) -> torch.Tensor:
+    if isinstance(v, np.ndarray):
+        return torch.from_numpy(v if v.flags.writeable else v.copy())
+    return v
 
 
 class Stage:
     """One named, composable pipeline stage.
+
+    Device stages implement :meth:`apply` and, where ``inv_writes`` names
+    what their inverse produces, :meth:`invert`; stages without an inverse
+    (histograms, scans) are identities in the decode direction.  Host
+    stages implement :meth:`host_apply` on the state keys they ``fetch``,
+    and :meth:`host_prepare` for the decode direction.
 
     ``stage_meta`` is the stage's metadata contract: the static,
     plan-derived parameters recorded per stage in the container header.
@@ -83,12 +128,23 @@ class Stage:
 
     name: str = "stage"
     device: bool = True
+    fetches: tuple[str, ...] = ()      # host stages only
+    inv_writes: tuple[str, ...] = ()   # device stages with an inverse
+
+    def planned(self, plan: Any) -> None:
+        """Plan-time hook: record plan-constant statics/workspace/meta."""
 
     def apply(self, env: CallEnv, state: dict) -> dict:
-        raise NotImplementedError(f"{self.name} has no forward direction")
+        raise NotImplementedError(f"{self.name} is not a device stage")
 
     def invert(self, env: CallEnv, state: dict) -> dict:
         raise NotImplementedError(f"{self.name} has no inverse")
+
+    def host_apply(self, env: CallEnv, fetched: dict[str, np.ndarray]) -> None:
+        raise NotImplementedError(f"{self.name} is not a host stage")
+
+    def host_prepare(self, env: CallEnv) -> None:
+        """Decode-direction preparation from ``env.meta`` (never a fetch)."""
 
     def stage_meta(self, plan: Any) -> dict[str, Any]:
         return {}
@@ -119,6 +175,8 @@ class CompiledPipeline:
     def __init__(self, graph: StageGraph, plan: Any):
         self.graph = graph
         self.plan = plan
+        for st in graph.stages:
+            st.planned(plan)
         plan.meta.setdefault("stage_graph", graph.describe(plan))
 
     def _stage_in(self, env: CallEnv, state0: dict[str, Any]) -> dict[str, torch.Tensor]:
@@ -128,9 +186,7 @@ class CompiledPipeline:
         for k, v in state0.items():
             if device.type != "cpu" and _on_host(v):
                 env.transfers.count_h2d(v)
-            if isinstance(v, np.ndarray):
-                v = torch.from_numpy(v if v.flags.writeable else v.copy())
-            state[k] = v.to(device)
+            state[k] = _as_tensor(v).to(device)
         return state
 
     def _timed(self, profile, name: str, fn, *args) -> dict:
@@ -151,15 +207,30 @@ class CompiledPipeline:
     ) -> tuple[dict[str, torch.Tensor], CallEnv]:
         """Execute the encode direction for one leaf.
 
-        With ``profile``, wall seconds accumulate into it per stage, and
-        under ``stage_in`` for moving the inputs onto the plan's device
-        (device work is synchronised for honest timings).
+        Device stages run in order; a host stage first fetches its declared
+        keys (counted as D2H).  With ``profile``, wall seconds accumulate
+        into it per stage, and under ``stage_in`` for moving the inputs onto
+        the plan's device (device work is synchronised for honest timings).
         """
         env = env or CallEnv(self.plan)
         state = self._timed(profile, "stage_in", self._stage_in, env, state0)
         for st in self.graph.stages:
-            state.update(self._timed(profile, st.name, st.apply, env, state))
+            if st.device:
+                state.update(self._timed(profile, st.name, st.apply, env, state))
+            else:
+                self._timed(profile, st.name, self._host_step, st, env, state)
         return state, env
+
+    @staticmethod
+    def _host_step(st: Stage, env: CallEnv, state: dict) -> dict:
+        fetched = {}
+        for k in st.fetches:
+            v = state[k]
+            if v.device.type != "cpu":
+                env.transfers.count_d2h(v)
+            fetched[k] = v.cpu().numpy()
+        st.host_apply(env, fetched)
+        return {}
 
     def invert(
         self,
@@ -167,12 +238,20 @@ class CompiledPipeline:
         env: CallEnv | None = None,
         profile: dict[str, float] | None = None,
     ) -> tuple[dict[str, torch.Tensor], CallEnv]:
-        """Execute the decode direction for one leaf (container sections in),
-        the stages' inverses in reverse order."""
+        """Execute the decode direction for one leaf (container sections in).
+
+        Host stages prepare first, from ``env.meta`` alone (no device
+        fetch); then the inverses of the device stages that have one run in
+        reverse order.
+        """
         env = env or CallEnv(self.plan)
+        for st in self.graph.stages:
+            if not st.device:
+                self._timed(profile, st.name, st.host_prepare, env)
         state = self._timed(profile, "stage_in", self._stage_in, env, state0)
         for st in reversed(self.graph.stages):
-            state.update(self._timed(profile, f"invert[{st.name}]", st.invert, env, state))
+            if st.device and st.inv_writes:
+                state.update(self._timed(profile, f"invert[{st.name}]", st.invert, env, state))
         return state, env
 
 
@@ -187,8 +266,12 @@ class LeafView:
         self.state = state
         self.env = env
 
-    def fetch(self, key: str) -> np.ndarray:
+    def fetch(self, key: str, length: int | None = None) -> np.ndarray:
+        """State ``key`` on the host; with ``length``, only its first
+        ``length`` entries, sliced on the device before the copy."""
         arr = self.state[key]
+        if length is not None:
+            arr = arr[:length]
         if arr.device.type != "cpu":
             self.env.transfers.count_d2h(arr)
         return arr.cpu().numpy()

@@ -7,5 +7,8 @@ Each kernel package has:
   ops.py    — adapter dispatch (torch | cuda)
 
 Kernels:
-  zfp_block — ZFP-X per-4^d-block compress/decompress
+  zfp_block      — ZFP-X per-4^d-block compress/decompress
+  histogram      — Huffman-X key-frequency histogram
+  huffman_encode — Huffman-X per-key codebook gather (+ plain pack_stream)
+  huffman_decode — Huffman-X chunk-parallel canonical decode
 """

@@ -25,7 +25,8 @@ from pathlib import Path
 _KERNELS = Path(__file__).resolve().parent
 
 SOURCES = {
-    "zfp_block": _KERNELS / "zfp_block" / "csrc" / "zfp_block.cu",
+    name: _KERNELS / name / "csrc" / f"{name}.cu"
+    for name in ("zfp_block", "histogram", "huffman_encode", "huffman_decode")
 }
 
 # Built without -ftz / --use_fast_math: the kernels flush denormals

@@ -1,0 +1,48 @@
+"""Histogram kernel on Hopper — launch wrapper for ``csrc/histogram.cu``.
+
+Counterpart of ``repro.kernels.histogram.kernel.histogram`` (the Pallas TPU
+kernel).  The CUDA source says what bounds it and how its design answers
+that; this module checks what it is given, allocates the output, launches on
+PyTorch's current stream and raises if the launch failed.
+
+A tensor on the CPU goes to the plain version (:mod:`.ref`); a CUDA tensor
+launches the kernel or raises — there is no fallback.  ``launches`` counts
+kernel launches, and nothing else.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .._launch import I64, INT, PTR, library, raise_on, require, route, stream
+from . import ref
+
+launches = {"histogram": 0}
+
+_SIGNATURES = {"histogram_count": [PTR, I64, PTR, INT, PTR]}
+
+
+def reset_launches() -> None:
+    launches["histogram"] = 0
+
+
+def histogram(keys: torch.Tensor, num_bins: int) -> torch.Tensor:
+    """``(N,)`` int32 keys → ``(num_bins,)`` int32 counts of the keys in
+    ``[0, num_bins)``."""
+    if route(keys, "histogram"):
+        return ref.histogram(keys, num_bins)
+    num_bins = int(num_bins)
+    if not 1 <= num_bins < (1 << 31):
+        raise ValueError(f"num_bins must be in [1, 2^31), got {num_bins}")
+    dev = keys.device
+    require(keys, "keys", torch.int32, (keys.numel(),), dev)
+    n = keys.numel()
+    if n == 0:
+        return torch.zeros(num_bins, dtype=torch.int32, device=dev)
+    out = torch.empty(num_bins, dtype=torch.int32, device=dev)
+    rc = library("histogram", _SIGNATURES).histogram_count(
+        keys.data_ptr(), n, out.data_ptr(), num_bins, stream(dev),
+    )
+    raise_on(rc, "histogram")
+    launches["histogram"] += 1
+    return out

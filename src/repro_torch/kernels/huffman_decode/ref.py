@@ -1,0 +1,68 @@
+"""Plain PyTorch version of the huffman_decode kernel (the CUDA kernel's
+oracle and the ``torch`` backend's implementation; counterpart of
+``repro.kernels.huffman_decode.ref``).
+
+All chunks advance together, one symbol per step, so the loop runs
+``chunk_size`` times over ``(n_chunks,)`` tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ...core import bitstream as bs
+
+_I32_SPAN = 1 << 32
+
+
+def decode_chunks(
+    words: torch.Tensor,          # int32[W] packed stream (uint32 bits)
+    chunk_offsets: torch.Tensor,  # int32[n_chunks] bit offset of each chunk
+    first_code: torch.Tensor,     # int32[max_len+1] (uint32 bits)
+    count: torch.Tensor,          # int32[max_len+1]
+    sym_offset: torch.Tensor,     # int32[max_len+1] index into sym_sorted
+    sym_sorted: torch.Tensor,     # int32[num_used], num_used >= 1
+    chunk_size: int,
+    max_len: int,
+) -> torch.Tensor:
+    """Decode every chunk; returns int32 ``[n_chunks, chunk_size]``.
+
+    Per symbol: the 32-bit window at the cursor (zero bits past the end),
+    the shortest length ``l`` whose prefix is a valid code
+    (``first_code[l] <= window >> (32-l) < first_code[l] + count[l]``), the
+    symbol ``sym_sorted[sym_offset[l] + rel]``, the cursor advanced by
+    ``l``.  Where no length is valid (padding past the stream's end) ``l``
+    is 1 and the symbol index wraps as int32, counts from the end when
+    negative and clamps — the reference's gather — so padding symbols match
+    too.
+    """
+    device = words.device
+    n_chunks = chunk_offsets.shape[0]
+    out = torch.empty((n_chunks, chunk_size), dtype=torch.int32, device=device)
+    if n_chunks == 0:
+        return out
+    n = words.shape[0]
+    # the words as unsigned int64 values, one zero word appended: reads
+    # outside the stream index it (read_window's zero bits)
+    ww = torch.cat([bs.u32(words), torch.zeros(1, dtype=torch.int64, device=device)])
+    lens = torch.arange(1, max_len + 1, dtype=torch.int64, device=device)
+    shifts = 32 - lens
+    fc = bs.u32(first_code[1 : max_len + 1])
+    ct = count[1 : max_len + 1].to(torch.int64)
+    so = sym_offset[1 : max_len + 1].to(torch.int64)
+    n_sym = sym_sorted.shape[0]
+    rows = torch.arange(n_chunks, device=device)
+    cursor = chunk_offsets.to(torch.int64)
+    for i in range(chunk_size):
+        w = cursor >> 5
+        b = cursor & 31
+        w0 = ww[torch.where((w >= 0) & (w < n), w, n)]
+        w1 = ww[torch.where((w >= -1) & (w < n - 1), w + 1, n)]
+        window = ((w0 << b) | (w1 >> (32 - b))) & 0xFFFFFFFF  # b = 0: w1 >> 32 is 0
+        rel = (window[:, None] >> shifts) - fc
+        li = ((rel >= 0) & (rel < ct)).to(torch.uint8).argmax(dim=1)  # first valid; none → 0
+        idx = (so[li] + rel[rows, li] + (1 << 31)) % _I32_SPAN - (1 << 31)  # int32 wrap
+        idx = torch.where(idx < 0, idx + n_sym, idx).clamp_(0, n_sym - 1)
+        out[:, i] = sym_sorted[idx]
+        cursor += li + 1
+    return out

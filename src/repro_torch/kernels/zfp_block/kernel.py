@@ -14,54 +14,24 @@ through the kernels.
 
 from __future__ import annotations
 
-import ctypes
-import threading
-
 import torch
 
-from .. import _build
+from .._launch import I64, INT, PTR, library, raise_on, require, route, stream
 from ...core import zfp as core_zfp
 from ...core import zfp_tables
 from . import ref
 
 launches = {"compress_blocks": 0, "decompress_blocks": 0}
 
-_lib_lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
-_PTR, _I64, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_SIGNATURES = {
+    "zfp_block_compress": [PTR, PTR, PTR, PTR, PTR, I64, INT, INT, PTR],
+    "zfp_block_decompress": [PTR, PTR, PTR, PTR, PTR, I64, INT, INT, PTR],
+}
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = _build.load("zfp_block")
-            lib.zfp_block_compress.argtypes = [
-                _PTR, _PTR, _PTR, _PTR, _PTR, _I64, _INT, _INT, _PTR,
-            ]
-            lib.zfp_block_compress.restype = _INT
-            lib.zfp_block_decompress.argtypes = [
-                _PTR, _PTR, _PTR, _PTR, _PTR, _I64, _INT, _INT, _PTR,
-            ]
-            lib.zfp_block_decompress.restype = _INT
-            _lib = lib
-        return _lib
-
-
-def _require(t: torch.Tensor, what: str, dtype: torch.dtype, shape: tuple, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{what} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{what} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{what} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{what} must be contiguous")
 
 
 def _check_params(rate: int, dims: int) -> None:
@@ -72,13 +42,8 @@ def _check_params(rate: int, dims: int) -> None:
 
 
 def _check_tables(perm, scale, dims: int, device) -> None:
-    _require(perm, "perm", torch.int32, (4 ** dims,), device)
-    _require(scale, "scale", torch.float32, (zfp_tables.EMAX - zfp_tables.EMIN + 1,), device)
-
-
-def _raise_on(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
+    require(perm, "perm", torch.int32, (4 ** dims,), device)
+    require(scale, "scale", torch.float32, (zfp_tables.EMAX - zfp_tables.EMIN + 1,), device)
 
 
 def compress_blocks(
@@ -91,16 +56,14 @@ def compress_blocks(
     encode scale table) are the plan's carried tables; missing ones are
     built for this call.
     """
-    if blocks.device.type == "cpu":
+    if route(blocks, "zfp_block"):
         return ref.compress_blocks(blocks, rate, dims, perm=perm, scale=scale)
-    if blocks.device.type != "cuda":
-        raise ValueError(f"zfp_block runs on CUDA or CPU tensors, got {blocks.device}")
     _check_params(rate, dims)
     if blocks.ndim != 2:
         raise ValueError(f"blocks must be (N, 4^dims), got shape {tuple(blocks.shape)}")
     n = blocks.shape[0]
     dev = blocks.device
-    _require(blocks, "blocks", torch.float32, (n, 4 ** dims), dev)
+    require(blocks, "blocks", torch.float32, (n, 4 ** dims), dev)
     if perm is None or scale is None:
         tables = ref.default_tables(dims, dev)
         perm = tables["perm"] if perm is None else perm
@@ -110,12 +73,11 @@ def compress_blocks(
     payload = torch.empty((n, wpb), dtype=torch.int32, device=dev)
     emax = torch.empty((n,), dtype=torch.int32, device=dev)
     if n:
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _library().zfp_block_compress(
+        rc = library("zfp_block", _SIGNATURES).zfp_block_compress(
             blocks.data_ptr(), payload.data_ptr(), emax.data_ptr(),
-            perm.data_ptr(), scale.data_ptr(), n, dims, rate, stream,
+            perm.data_ptr(), scale.data_ptr(), n, dims, rate, stream(dev),
         )
-        _raise_on(rc, "zfp_compress_kernel")
+        raise_on(rc, "zfp_compress_kernel")
         launches["compress_blocks"] += 1
     return payload, emax
 
@@ -128,18 +90,16 @@ def decompress_blocks(
 
     ``scale`` is the decode scale table.
     """
-    if payload.device.type == "cpu":
+    if route(payload, "zfp_block"):
         return ref.decompress_blocks(payload, emax, rate, dims, perm=perm, scale=scale)
-    if payload.device.type != "cuda":
-        raise ValueError(f"zfp_block runs on CUDA or CPU tensors, got {payload.device}")
     _check_params(rate, dims)
     if payload.ndim != 2:
         raise ValueError(f"payload must be (N, wpb), got shape {tuple(payload.shape)}")
     n = payload.shape[0]
     dev = payload.device
     wpb = core_zfp.words_per_block(4 ** dims, rate)
-    _require(payload, "payload", torch.int32, (n, wpb), dev)
-    _require(emax, "emax", torch.int32, (n,), dev)
+    require(payload, "payload", torch.int32, (n, wpb), dev)
+    require(emax, "emax", torch.int32, (n,), dev)
     if perm is None or scale is None:
         tables = ref.default_tables(dims, dev)
         perm = tables["perm"] if perm is None else perm
@@ -147,11 +107,10 @@ def decompress_blocks(
     _check_tables(perm, scale, dims, dev)
     out = torch.empty((n, 4 ** dims), dtype=torch.float32, device=dev)
     if n:
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _library().zfp_block_decompress(
+        rc = library("zfp_block", _SIGNATURES).zfp_block_decompress(
             payload.data_ptr(), emax.data_ptr(), out.data_ptr(),
-            perm.data_ptr(), scale.data_ptr(), n, dims, rate, stream,
+            perm.data_ptr(), scale.data_ptr(), n, dims, rate, stream(dev),
         )
-        _raise_on(rc, "zfp_decompress_kernel")
+        raise_on(rc, "zfp_decompress_kernel")
         launches["decompress_blocks"] += 1
     return out

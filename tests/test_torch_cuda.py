@@ -1,5 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
+Kernels: ``zfp_block`` (encode, decode), ``histogram``, ``huffman_encode``
+(``encode_lookup``) and ``huffman_decode`` (``decode_chunks``).
+
 This file imports neither JAX nor the reference, so it runs on a machine that
 has only PyTorch and the CUDA toolkit:
 
@@ -17,6 +20,13 @@ import pytest
 import torch
 
 from repro_torch.core import api
+from repro_torch.core import huffman
+from repro_torch.kernels.histogram import kernel as hist_kernel
+from repro_torch.kernels.histogram import ref as hist_ref
+from repro_torch.kernels.huffman_decode import kernel as dec_kernel
+from repro_torch.kernels.huffman_decode import ref as dec_ref
+from repro_torch.kernels.huffman_encode import kernel as enc_kernel
+from repro_torch.kernels.huffman_encode import ref as enc_ref
 from repro_torch.kernels.zfp_block import kernel, ref
 
 torch.set_num_threads(2)
@@ -27,7 +37,7 @@ RATES = (1, 7, 16, 32)
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the zfp_block kernels run only there")
+        pytest.skip("needs a CUDA card: the port's kernels run only there")
     return torch.device("cuda")
 
 
@@ -88,3 +98,138 @@ def test_cuda_api_matches_torch_backend(cuda_device):
     assert out.device.type == "cuda"
     want = api.decompress(c, backend="torch")
     assert torch.equal(out.cpu().view(torch.int32), want.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# Huffman tail: histogram, encode_lookup, decode_chunks
+# ---------------------------------------------------------------------------
+
+ALPHABETS = (1, 2, 256, 4096, 20000, 65536)
+
+
+def _skewed_keys(num_bins: int, n: int, seed: int) -> np.ndarray:
+    """Zipf-skewed keys in [0, num_bins), every key present when n allows."""
+    rng = np.random.default_rng(seed)
+    keys = (rng.zipf(1.3, n) - 1) % num_bins
+    keys[: min(n, num_bins)] = np.arange(min(n, num_bins))
+    return rng.permutation(keys).astype(np.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("num_bins", ALPHABETS)
+@pytest.mark.parametrize("n", [1, 1001, 100_003])
+def test_histogram_kernel_matches_plain_version(cuda_device, num_bins, n):
+    keys = torch.from_numpy(_skewed_keys(num_bins, n, seed=n + num_bins))
+    keys[::97] = -3          # out of range on both sides: counted nowhere
+    keys[1::101] = num_bins
+    before = hist_kernel.launches["histogram"]
+    for k in (keys, keys[1:]):  # aligned and misaligned (scalar loads)
+        got = hist_kernel.histogram(k.to(cuda_device), num_bins)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), hist_ref.histogram(k, num_bins))
+    assert hist_kernel.launches["histogram"] == before + (2 if n > 1 else 1)
+
+
+@pytest.mark.gpu
+def test_histogram_kernel_empty_and_bad_inputs(cuda_device):
+    empty = torch.zeros(0, dtype=torch.int32, device=cuda_device)
+    assert torch.equal(hist_kernel.histogram(empty, 5).cpu(), torch.zeros(5, dtype=torch.int32))
+    with pytest.raises(TypeError):
+        hist_kernel.histogram(empty.long(), 5)
+    with pytest.raises(ValueError, match="num_bins"):
+        hist_kernel.histogram(empty, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("num_keys", ALPHABETS)
+def test_encode_lookup_kernel_matches_plain_version(cuda_device, num_keys):
+    rng = np.random.default_rng(num_keys)
+    codes_t = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, num_keys).astype(np.int32))
+    lens_t = torch.from_numpy(rng.integers(0, 33, num_keys).astype(np.int32))
+    keys = torch.from_numpy(rng.integers(-5, num_keys + 5, 100_003).astype(np.int32))
+    ct, lt = codes_t.to(cuda_device), lens_t.to(cuda_device)
+    before = enc_kernel.launches["encode_lookup"]
+    for k in (keys, keys[3:]):
+        got_c, got_l = enc_kernel.encode_lookup(k.to(cuda_device), ct, lt)
+        torch.cuda.synchronize()
+        want_c, want_l = enc_ref.encode_lookup(k, codes_t, lens_t)
+        assert torch.equal(got_c.cpu(), want_c) and torch.equal(got_l.cpu(), want_l)
+    assert enc_kernel.launches["encode_lookup"] == before + 2
+
+
+def _stream(keys: np.ndarray, chunk_size: int, freq: np.ndarray | None = None):
+    """A packed stream of ``keys`` (plain versions) and its decode tables."""
+    if freq is None:
+        freq = np.bincount(keys, minlength=int(keys.max()) + 1)
+    book = huffman.build_codebook(freq)
+    codes_t, lens_t = huffman.codebook_tables(book, "cpu")
+    codes, lens = enc_ref.encode_lookup(torch.from_numpy(keys), codes_t, lens_t)
+    total = int(lens.sum())
+    words, offsets = enc_ref.pack_stream(codes, lens, max(1, -(-total // 32)), chunk_size)
+    tables = huffman.padded_tables(huffman.decode_tables(book.lengths))
+    return words, offsets, tables, book
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("num_keys,chunk_size", [
+    (1, 256), (2, 4096), (256, 256), (256, 4096), (4096, 4096), (65536, 256), (256, 7),
+])
+def test_decode_chunks_kernel_matches_plain_version(cuda_device, num_keys, chunk_size):
+    keys = _skewed_keys(num_keys, 20_011, seed=num_keys + chunk_size)
+    words, offsets, tables, book = _stream(keys, chunk_size)
+    max_len = int(tables[0].shape[0]) - 1
+    args = [t.to(cuda_device) for t in (words, offsets) + tables]
+    before = dec_kernel.launches["decode_chunks"]
+    got = dec_kernel.decode_chunks(*args, chunk_size, max_len)
+    torch.cuda.synchronize()
+    assert dec_kernel.launches["decode_chunks"] == before + 1
+    want = dec_ref.decode_chunks(words, offsets, *tables, chunk_size, max_len)
+    assert torch.equal(got.cpu(), want)  # padding symbols past the end too
+    assert np.array_equal(got.reshape(-1)[: keys.size].cpu().numpy(), keys)
+
+
+@pytest.mark.gpu
+def test_decode_chunks_kernel_at_max_len_32(cuda_device):
+    fib = [1, 1]
+    while len(fib) < 40:
+        fib.append(fib[-1] + fib[-2])
+    freq = np.array(fib, np.int64)
+    rng = np.random.default_rng(3)
+    keys = rng.integers(0, freq.size, 30_000).astype(np.int32)
+    words, offsets, tables, book = _stream(keys, 256, freq=freq)
+    assert book.max_len == 32
+    args = [t.to(cuda_device) for t in (words, offsets) + tables]
+    got = dec_kernel.decode_chunks(*args, 256, 32)
+    want = dec_ref.decode_chunks(words, offsets, *tables, 256, 32)
+    assert torch.equal(got.cpu(), want)
+    assert np.array_equal(got.reshape(-1)[: keys.size].cpu().numpy(), keys)
+
+
+@pytest.mark.gpu
+def test_decode_chunks_kernel_empty_stream(cuda_device):
+    words, offsets, tables, _ = _stream(np.zeros(0, np.int32), 4096, freq=np.zeros(4, np.int64))
+    args = [t.to(cuda_device) for t in (words, offsets) + tables]
+    before = dec_kernel.launches["decode_chunks"]
+    out = dec_kernel.decode_chunks(*args, 4096, int(tables[0].shape[0]) - 1)
+    assert tuple(out.shape) == (0, 4096)
+    assert dec_kernel.launches["decode_chunks"] == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method,dtype", [
+    ("huffman", "int32"), ("huffman", "uint16"), ("huffman-bytes", "float32"),
+    ("huffman-bytes", "bfloat16"), ("huffman-bytes", "int64"),
+])
+def test_cuda_huffman_api_matches_torch_backend(cuda_device, method, dtype):
+    rng = np.random.default_rng(7)
+    if method == "huffman":
+        x = torch.from_numpy(_skewed_keys(3000, 33 * 47, seed=5).reshape(33, 47)).to(
+            getattr(torch, dtype))
+    else:
+        x = torch.from_numpy(rng.normal(size=(33, 47)).astype(np.float32)).to(
+            getattr(torch, dtype))
+    c = api.compress_leaf(x.to(cuda_device), method)
+    assert c.to_bytes() == api.compress_leaf(x, method, backend="torch").to_bytes()
+    out = api.decompress_leaf(c)
+    assert out.device.type == "cuda" and out.dtype == x.dtype
+    assert torch.equal(out.cpu(), x)

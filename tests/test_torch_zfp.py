@@ -386,10 +386,16 @@ def test_kernel_wrapper_rejects_other_devices():
         tkernel.compress_blocks(torch.zeros((2, 16), device="meta"), 8, 2)
 
 
-@pytest.mark.parametrize("method", ["mgard", "huffman", "huffman-bytes", "mgard-progressive"])
+@pytest.mark.parametrize("method", ["mgard", "mgard-progressive"])
 def test_unported_methods_raise(method):
     with pytest.raises(ValueError, match="not yet ported"):
         tcodecs.get_codec(method)
+
+
+@pytest.mark.parametrize("method", ["huffman", "huffman-bytes"])
+def test_huffman_methods_are_registered(method):
+    assert method in tcodecs.available_methods()
+    assert tcodecs.get_codec(method).name == method
 
 
 def test_invalid_zfp_specs_raise():
