@@ -17,7 +17,11 @@ any fails:
      Fibonacci-frequency alphabet whose codes reach 32 bits, key counts
      that are no multiple of a block (1, 1001, 100003), an empty stream,
      chunk sizes 256 and 4096 (the whole decoded ``(chunks, chunk_size)``
-     output, padding included);
+     output, padding included).  MGARD: quantize and dequantize at ±0,
+     ±inf, NaN, ±2^31 and just inside, exact ties, subnormal values and a
+     subnormal bin, and random values of ragged lengths (aligned and not);
+     lerp_coefficients at odd row lengths 3 to 4097 and ragged batches;
+     solve_mass at n in {2, ..., 4097} and h in {2, 4, 512};
   3. the main paths at a real size, on the ``cuda`` backend, each driven
      with every launch counter set to 0 just before and read just after:
      ZFP — ``api.compress``/``decompress`` of a 512^3 float32 field (the
@@ -32,22 +36,36 @@ any fails:
      (2^26 discrete-Laplace keys around 2048 in MGARD's 4096-key
      alphabet); checks the exact round trip, the container bytes against
      those the ``torch`` backend (the plain versions, on the CPU) writes,
-     and each kernel against its plain version at these shapes;
-  4. the container bytes round trip on the card (one ZFP, one Huffman
-     container): ``to_bytes`` -> ``from_bytes`` -> decode, bit-identical;
+     and each kernel against its plain version at these shapes.  MGARD —
+     ``api.compress``/``decompress`` of the 512^3 field with the codec's
+     defaults (relative bound 1e-2, 4096 keys; padded to 513^3) and the
+     ``lerp_coefficients`` stencil through its own entry point (no codec
+     calls it) on the grid's rows; checks the launch counts (one quantize,
+     dequantize, histogram, lookup and decode, 27 solves a direction), max
+     |error| <= the effective bound, each kernel against its plain version
+     at these shapes (the entropy kernels on this run's 513^3 keys and
+     container, the plain decode included), the ``cuda`` and ``torch`` backends' containers of a
+     129^3 field byte for byte, and ``compress_leaf`` of a 4096x4096 weight
+     leaf within its bound;
+  4. the container bytes round trip on the card (one ZFP, one Huffman, one
+     MGARD container): ``to_bytes`` -> ``from_bytes`` -> decode,
+     bit-identical;
   5. timings with CUDA events after warm-up, median of 10 runs (one run for
      the plain Huffman decode, a Python loop over the chunk's symbols that
      takes seconds; phase 3 ran it once already): kernel
      ms, the plain versions' ms, the PyTorch library call's ms where one
      computes the same function, the plain ``pack_stream`` and the host
-     codebook build, end-to-end ms and the least time the card could take
+     codebook build, every MGARD solve of one direction, one profiled
+     call's stage times, end-to-end ms (median of 10 host-wall runs, of 5
+     where 10 would take over 20 s) and the least time the card could take
      (bytes at 3.35 TB/s, operations at 67 T/s), each printed with the
      card's name and power limit.
 
 The last two lines are one JSON object per kernel (``{"kernels": [...]}``;
 the Huffman kernels' times are those of the ``huffman-bytes`` leaf, their
-launches the sum over both Huffman runs) and ``{"ok": true, "device":
-{...}}``.
+launches the sum over the two Huffman runs and the MGARD run, their error
+the largest of the three; the MGARD kernels' launches those of the MGARD
+run) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -83,6 +101,23 @@ LAPLACE_SCALE = 16.0                # the keys' discrete-Laplace scale
 CHECK_ALPHABETS = (1, 2, 256, 4096, 65536)
 CHECK_COUNTS = (1, 1001, 100_003)
 CHECK_CHUNKS = (256, 4096)
+
+MGARD_EDGE = 512                    # main_field(512), edge-padded to 513^3
+MGARD_CMP_EDGE = 129                # the cuda vs torch backends' byte comparison
+CHECK_LERP_N = (3, 5, 17, 129, 513, 4097)
+CHECK_LERP_B = (1, 7, 1001)
+CHECK_TRIDIAG_N = (2, 3, 5, 17, 129, 257, 513, 4097)
+CHECK_TRIDIAG_H = (2.0, 4.0, 512.0)
+MGARD_KERNELS = {  # name: (TPU kernel it replaces, CUDA source)
+    "quantize_map.quantize": ("src/repro/kernels/quantize_map/kernel.py:37",
+                              "src/repro_torch/kernels/quantize_map/csrc/quantize_map.cu"),
+    "quantize_map.dequantize": ("src/repro/kernels/quantize_map/kernel.py:68",
+                                "src/repro_torch/kernels/quantize_map/csrc/quantize_map.cu"),
+    "tridiag.solve_mass": ("src/repro/kernels/tridiag/kernel.py:48",
+                           "src/repro_torch/kernels/tridiag/csrc/tridiag.cu"),
+    "mgard_lerp.lerp_coefficients": ("src/repro/kernels/mgard_lerp/kernel.py:30",
+                                     "src/repro_torch/kernels/mgard_lerp/csrc/mgard_lerp.cu"),
+}
 
 KERNELS = {
     "compress_blocks": "src/repro/kernels/zfp_block/kernel.py:78",
@@ -285,9 +320,13 @@ def kernel_modules() -> dict:
     from repro_torch.kernels.histogram import kernel as hist
     from repro_torch.kernels.huffman_decode import kernel as dec
     from repro_torch.kernels.huffman_encode import kernel as enc
+    from repro_torch.kernels.mgard_lerp import kernel as lerp
+    from repro_torch.kernels.quantize_map import kernel as quant
+    from repro_torch.kernels.tridiag import kernel as tri
     from repro_torch.kernels.zfp_block import kernel as zfp
 
-    return {"zfp_block": zfp, "histogram": hist, "huffman_encode": enc, "huffman_decode": dec}
+    return {"zfp_block": zfp, "histogram": hist, "huffman_encode": enc, "huffman_decode": dec,
+            "quantize_map": quant, "tridiag": tri, "mgard_lerp": lerp}
 
 
 def reset_counts() -> None:
@@ -434,10 +473,11 @@ def policy_keys(x, method: str):
     return x.reshape(-1).to(torch.int32)
 
 
-def run_huffman_path(name: str, x, method: str, api, device) -> dict:
-    """One Huffman main-path run (counters zeroed just before, read just
-    after), then its checks: round trip, bytes against the plain versions,
-    each kernel against its plain version at this run's shapes."""
+def check_entropy_kernels(name: str, keys, nb: int, c, device) -> dict:
+    """histogram, encode_lookup and decode_chunks against their plain versions
+    on one main-path run's keys (alphabet ``nb``) and container ``c``, whose
+    codebook must be the one these keys give (tolerance 0)."""
+    import numpy as np
     import torch
 
     from repro_torch.core import huffman
@@ -445,6 +485,36 @@ def run_huffman_path(name: str, x, method: str, api, device) -> dict:
     from repro_torch.kernels.histogram import ref as hist_ref
     from repro_torch.kernels.huffman_encode import kernel as enc_kernel
     from repro_torch.kernels.huffman_encode import ref as enc_ref
+
+    chunk = int(c.meta["chunk_size"])
+    freq = hist_kernel.histogram(keys, nb)
+    book = huffman.build_codebook(freq.cpu().numpy())
+    if not np.array_equal(np.asarray(book.lengths, np.int64),
+                          np.asarray(c.arrays["length_table"], np.int64)):
+        raise PhaseError(f"{name}: the keys' codebook is not the container's length table")
+    codes_t, lens_t = huffman.codebook_tables(book, device)
+    codes, lens = enc_kernel.encode_lookup(keys, codes_t, lens_t)
+    pc, pl = enc_ref.encode_lookup(keys, codes_t, lens_t)
+    words = torch.from_numpy(c.arrays["words"].view("int32")).to(device)
+    offsets = torch.from_numpy(c.arrays["chunk_offsets"]).to(device)
+    tables = huffman.padded_tables(huffman.decode_tables(c.arrays["length_table"], device))
+    errs = {
+        "histogram.histogram": int_err(freq, hist_ref.histogram(keys, nb)),
+        "huffman_encode.encode_lookup": max(int_err(codes, pc), int_err(lens, pl)),
+        "huffman_decode.decode_chunks": check_decode(name, keys, words, offsets, tables, chunk),
+    }
+    if any(errs.values()):
+        raise PhaseError(f"{name}: kernels differ from their plain versions: {errs}")
+    return {"errs": errs, "chunk": chunk, "book": book, "freq": freq, "codes_t": codes_t,
+            "lens_t": lens_t, "codes": codes, "lens": lens, "words": words,
+            "offsets": offsets, "tables": tables}
+
+
+def run_huffman_path(name: str, x, method: str, api, device) -> dict:
+    """One Huffman main-path run (counters zeroed just before, read just
+    after), then its checks: round trip, bytes against the plain versions,
+    each kernel against its plain version at this run's shapes."""
+    import torch
 
     torch.cuda.synchronize()
     reset_counts()
@@ -469,31 +539,14 @@ def run_huffman_path(name: str, x, method: str, api, device) -> dict:
 
     keys = policy_keys(x, method)
     nb = int(c.meta["num_keys"]) if c.method == "huffman" else 256
-    chunk = int(c.meta["chunk_size"])
-    freq = hist_kernel.histogram(keys, nb)
-    book = huffman.build_codebook(freq.cpu().numpy())
-    codes_t, lens_t = huffman.codebook_tables(book, device)
-    codes, lens = enc_kernel.encode_lookup(keys, codes_t, lens_t)
-    pc, pl = enc_ref.encode_lookup(keys, codes_t, lens_t)
-    words = torch.from_numpy(c.arrays["words"].view("int32")).to(device)
-    offsets = torch.from_numpy(c.arrays["chunk_offsets"]).to(device)
-    tables = huffman.padded_tables(huffman.decode_tables(c.arrays["length_table"], device))
-    errs = {
-        "histogram.histogram": int_err(freq, hist_ref.histogram(keys, nb)),
-        "huffman_encode.encode_lookup": max(int_err(codes, pc), int_err(lens, pl)),
-        "huffman_decode.decode_chunks": check_decode(name, keys, words, offsets, tables, chunk),
-    }
-    if any(errs.values()):
-        raise PhaseError(f"{name}: kernels differ from their plain versions: {errs}")
+    ent = check_entropy_kernels(name, keys, nb, c, device)
     ratio = x.numel() * x.element_size() / c.nbytes()
     log(f"phase 3 ok: {name} ({method}): {keys.numel()} keys, alphabet {nb}, "
-        f"{c.meta['total_bits'] / keys.numel():.4f} bits/key, longest code {book.max_len}, "
+        f"{c.meta['total_bits'] / keys.numel():.4f} bits/key, longest code {ent['book'].max_len}, "
         f"ratio {ratio:.6f}; exact round trip; bytes == torch backend's (its CPU encode took "
         f"{plain_s:.1f} s); kernels == plain versions (tolerance 0)")
     return {"name": name, "x": x, "method": method, "c": c, "out": out, "counts": counts,
-            "errs": errs, "keys": keys, "num_bins": nb, "chunk": chunk, "book": book,
-            "freq": freq, "codes_t": codes_t, "lens_t": lens_t, "codes": codes, "lens": lens,
-            "words": words, "offsets": offsets, "tables": tables}
+            "keys": keys, "num_bins": nb, **ent}
 
 
 def phase_huffman_main_path(device, api) -> list[dict]:
@@ -681,7 +734,7 @@ def phase_main_path(device, api, kernel):
     return field, c, out, main, launches, tables
 
 
-def phase_bytes_round_trip(api, c, out, leaf: bool = False) -> None:
+def phase_bytes_round_trip(api, c, out, leaf: bool = False):
     from repro_torch.core.container import Compressed
 
     raw = c.to_bytes()
@@ -691,6 +744,7 @@ def phase_bytes_round_trip(api, c, out, leaf: bool = False) -> None:
         raise PhaseError("decode of to_bytes/from_bytes differs from the direct decode")
     log(f"phase 4 ok: {c.method}: {len(raw)} container bytes -> from_bytes -> decode on "
         "the card is bit-identical")
+    return again
 
 
 def phase_timings(api, kernel, field, c, main, tables, card: str) -> list[dict]:
@@ -756,6 +810,309 @@ def phase_timings(api, kernel, field, c, main, tables, card: str) -> list[dict]:
     ]
 
 
+# ---------------------------------------------------------------------------
+# MGARD
+# ---------------------------------------------------------------------------
+
+
+def quant_special(device):
+    """The special cases of quantize: ±0, ±inf, NaN, ±2^31 and just inside,
+    exact ties x/bin = k + ½, subnormal values, and a subnormal bin."""
+    import torch
+
+    tiny = torch.finfo(torch.float32).tiny
+    x = torch.tensor([
+        0.0, -0.0, math.inf, -math.inf, math.nan, 2.0 ** 31, -(2.0 ** 31), 2.0 ** 31 - 128,
+        -(2.0 ** 31) + 128, 2.0 ** 32, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 1e30, -1e30,
+        tiny * 0.25, -tiny * 0.25, tiny, 1e-40, 0.375, 0.125, -0.375,
+        5.0, tiny * 0.25, 0.0, -1.0, 1e-39,
+    ], dtype=torch.float32, device=device)
+    levels = torch.tensor([0] * 22 + [1] * 3 + [2] * 5, dtype=torch.int32, device=device)
+    bins = torch.tensor([1.0, 0.25, tiny * 0.5], dtype=torch.float32, device=device)
+    return x, levels, bins
+
+
+def quant_random(n: int, device, seed: int):
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(n, generator=g, device=device) * 10.0 ** (
+        torch.rand(n, generator=g, device=device) * 6 - 3)
+    levels = torch.randint(0, 6, (n,), generator=g, device=device, dtype=torch.int32)
+    bins = 10.0 ** -(torch.rand(6, generator=g, device=device) * 3 + 1)
+    return x, levels, bins
+
+
+def check_quantize(what: str, x, levels, bins) -> None:
+    """quantize and dequantize kernels == plain versions on the card and on
+    the CPU, bit for bit."""
+    import torch
+
+    from repro_torch.kernels.quantize_map import kernel as qk
+    from repro_torch.kernels.quantize_map import ref as qr
+
+    u = qk.quantize(x, levels, bins)
+    g = torch.Generator(device=x.device).manual_seed(x.numel())
+    keys = torch.randint(-(2 ** 31), 2 ** 31 - 1, (x.numel(),), generator=g, device=x.device,
+                         dtype=torch.int32)
+    keys[: min(6, keys.numel())] = torch.tensor([0, 1, 2, -1, -2, 7], dtype=torch.int32,
+                                                device=x.device)[: min(6, keys.numel())]
+    d = qk.dequantize(keys, levels, bins)
+    torch.cuda.synchronize()
+    errs = {
+        "quantize": int_err(u, qr.quantize(x, levels, bins)),
+        "quantize vs CPU plain": int_err(u, qr.quantize(x.cpu(), levels.cpu(), bins.cpu())),
+        "dequantize": max_abs_err(d, qr.dequantize(keys, levels, bins)),
+        "dequantize vs CPU plain": max_abs_err(
+            d, qr.dequantize(keys.cpu(), levels.cpu(), bins.cpu())),
+    }
+    if not same_bits(d, qr.dequantize(keys, levels, bins)) or any(errs.values()):
+        raise PhaseError(f"quantize_map differs from its plain version: {what}: {errs}")
+
+
+def phase_mgard_kernels_vs_plain(device) -> None:
+    """Phase 2, MGARD: quantize, dequantize, lerp_coefficients and
+    solve_mass against their plain versions on the card (tolerance 0)."""
+    import torch
+
+    from repro_torch.kernels.mgard_lerp import kernel as lk
+    from repro_torch.kernels.mgard_lerp import ref as lr
+    from repro_torch.kernels.tridiag import kernel as tk
+    from repro_torch.kernels.tridiag import ref as tr
+
+    check_quantize("special values", *quant_special(device))
+    for n in CHECK_COUNTS:
+        x, levels, bins = quant_random(n, device, SEED + n)
+        check_quantize(f"{n} random values", x, levels, bins)
+        if n > 1:  # misaligned: the kernels' scalar path
+            check_quantize(f"{n - 1} random values, misaligned", x[1:], levels[1:], bins)
+    g = torch.Generator(device=device).manual_seed(SEED + 5)
+    for n in CHECK_LERP_N:
+        for b in CHECK_LERP_B:
+            rows = torch.randn((b, n), generator=g, device=device)
+            got = lk.lerp_coefficients(rows)
+            torch.cuda.synchronize()
+            if not same_bits(got, lr.lerp_coefficients(rows).contiguous()):
+                raise PhaseError(f"lerp_coefficients differs from its plain version: ({b}, {n})")
+    for n in CHECK_TRIDIAG_N:
+        for h in CHECK_TRIDIAG_H:
+            rhs = torch.randn((1000 + n % 7, n), generator=g, device=device)
+            got = tk.solve_mass(rhs, h)
+            torch.cuda.synchronize()
+            want = tr.solve_mass(rhs, h).contiguous()
+            if not same_bits(got, want):
+                raise PhaseError(f"solve_mass differs from the plain sweep: n {n}, h {h}, "
+                                 f"max |err| {max_abs_err(got, want)}")
+    log(f"phase 2 ok: quantize, dequantize == plain versions on the card and the CPU (special "
+        f"values, a subnormal bin, {CHECK_COUNTS} random values, misaligned); "
+        f"lerp_coefficients at n {CHECK_LERP_N} x B {CHECK_LERP_B}; solve_mass at n "
+        f"{CHECK_TRIDIAG_N} x h {CHECK_TRIDIAG_H} (tolerance 0)")
+
+
+def check_mgard_result(name: str, c, x, out) -> float:
+    """Shape, device, finiteness and max |x - out| <= the effective bound."""
+    import torch
+
+    if out.device != x.device or tuple(out.shape) != tuple(x.shape) or out.dtype != x.dtype:
+        raise PhaseError(f"{name}: decoded {out.device} {out.dtype} {tuple(out.shape)}")
+    if not bool(torch.isfinite(out).all()):
+        raise PhaseError(f"{name}: decoded values are not all finite")
+    err = float((out.to(torch.float32) - x.to(torch.float32)).abs().max())
+    eb = float(c.meta["error_bound"])
+    if not err <= eb:
+        raise PhaseError(f"{name}: max |error| {err:.6e} > the bound {eb:.6e}")
+    return err
+
+
+def phase_mgard_main_path(device, api) -> dict:
+    """Phase 3, MGARD: the 512^3 field through api.compress/decompress (and
+    the stencil through its own entry point), counted; then each kernel
+    against its plain version at these shapes, the cuda and torch backends'
+    bytes on a 129^3 field, and compress_leaf of a 4096x4096 weight leaf."""
+    import torch
+
+    from repro_torch.core import mgard
+    from repro_torch.kernels.mgard_lerp import ops as lerp_ops
+    from repro_torch.kernels.mgard_lerp import ref as lr
+    from repro_torch.kernels.quantize_map import kernel as qk
+    from repro_torch.kernels.quantize_map import ref as qr
+    from repro_torch.kernels.tridiag import kernel as tk
+    from repro_torch.kernels.tridiag import ref as tr
+
+    field = main_field(MGARD_EDGE, device)
+    padded_field = mgard.pad_to_dyadic(field)
+    edge = padded_field.shape[0]
+    rows = padded_field.reshape(-1, edge)        # the level-0 rows of the grid
+    torch.cuda.synchronize()
+    reset_counts()
+    c = api.compress(field, "mgard")
+    out = api.decompress(c)
+    mc = lerp_ops.lerp_coefficients(rows)        # the stencil's own entry point
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"phase 3 launches on the MGARD main path (one compress, one decompress, one "
+        f"lerp_coefficients): {counts}")
+    solves = 3 * mgard.total_levels(tuple(padded_field.shape))  # per direction
+    want = {"quantize_map.quantize": 1, "quantize_map.dequantize": 1,
+            "histogram.histogram": 1, "huffman_encode.encode_lookup": 1,
+            "huffman_decode.decode_chunks": 1, "tridiag.solve_mass": 2 * solves,
+            "mgard_lerp.lerp_coefficients": 1}
+    if any(counts[k] != v for k, v in want.items()):
+        raise PhaseError(f"MGARD main path launches {counts}, expected {want}")
+    err = check_mgard_result(f"mgard {MGARD_EDGE}^3", c, field, out)
+    vrange = float(field.max() - field.min())
+
+    plan = api.get_plan(api.make_spec(field, "mgard"))
+    lmap = plan.workspace["lmap"].reshape(-1)
+    bins = torch.from_numpy(c.arrays["bins"].astype("float32")).to(device)
+    coeffs = mgard.decompose(field, tuple(field.shape), plan.workspace["thomas"]).reshape(-1)
+    keys = qk.quantize(coeffs, lmap, bins)
+    back = qk.dequantize(keys, lmap, bins)
+    coarse = padded_field[::2, ::2, ::2].reshape(-1, edge // 2 + 1).t().contiguous()
+    thomas = plan.workspace["thomas"][(coarse.shape[0], 2.0)]
+    solved = tk.solve_columns(coarse, 2.0, thomas)
+    torch.cuda.synchronize()
+    errs = {
+        "quantize_map.quantize": int_err(keys, qr.quantize(coeffs, lmap, bins)),
+        "quantize_map.dequantize": max_abs_err(back, qr.dequantize(keys, lmap, bins)),
+        "tridiag.solve_mass": max_abs_err(solved, tr.sweep_columns(coarse, 2.0, thomas)),
+        "mgard_lerp.lerp_coefficients": max_abs_err(mc, lr.lerp_coefficients(rows)),
+    }
+    if any(errs.values()):
+        raise PhaseError(f"MGARD kernels differ from their plain versions: {errs}")
+    dict_size = int(c.meta["dict_size"])
+    entropy_keys = mgard._quantize_stage_impl(
+        coeffs, lmap, bins, (coeffs.numel(),), dict_size,
+        "cuda" if device.type == "cuda" else "torch")[1]
+    ent = check_entropy_kernels(f"mgard {MGARD_EDGE}^3", entropy_keys, dict_size, c, device)
+    errs.update(ent["errs"])
+    log(f"phase 3 ok: mgard {MGARD_EDGE}^3 (padded {tuple(padded_field.shape)}): ratio "
+        f"{c.ratio():.6f}, bound {c.meta['error_bound']:.6e} ({c.meta['error_bound'] / vrange:.3g}"
+        f" of the range), max |error| {err:.6e}, {c.arrays['outlier_idx'].size} outliers, "
+        f"{solves} solve_mass launches per direction; quantize, dequantize, solve_mass "
+        f"{tuple(coarse.shape)} h 2, lerp_coefficients {tuple(rows.shape)}, and histogram, "
+        f"encode_lookup, decode_chunks on this run's {entropy_keys.numel()} keys (alphabet "
+        f"{dict_size}, {len(c.arrays['chunk_offsets'])} chunks, codebook == the container's) "
+        "== plain versions (tolerance 0)")
+
+    small = main_field(MGARD_CMP_EDGE, device)
+    t0 = time.perf_counter()
+    plain = api.compress(small.cpu(), "mgard", backend="torch")
+    plain_s = time.perf_counter() - t0
+    cuda_c = api.compress(small, "mgard")
+    for key in sorted(set(plain.arrays) | set(cuda_c.arrays)):
+        a, b = plain.arrays.get(key), cuda_c.arrays.get(key)
+        if a is None or b is None or a.dtype != b.dtype or a.tobytes() != b.tobytes():
+            raise PhaseError(f"mgard {MGARD_CMP_EDGE}^3: section {key!r} differs between the "
+                             "cuda and torch backends")
+    if plain.meta != cuda_c.meta or plain.to_bytes() != cuda_c.to_bytes():
+        raise PhaseError(f"mgard {MGARD_CMP_EDGE}^3: container meta differs between backends")
+    small_out = api.decompress(cuda_c)
+    if not same_bits(small_out, api.decompress(plain, backend="torch")):
+        raise PhaseError(f"mgard {MGARD_CMP_EDGE}^3: cuda and torch decodes differ")
+    check_mgard_result(f"mgard {MGARD_CMP_EDGE}^3", cuda_c, small, small_out)
+    log(f"phase 3 ok: mgard {MGARD_CMP_EDGE}^3: the cuda and torch backends' containers are "
+        f"byte-identical section for section ({len(plain.to_bytes())} bytes; the CPU encode "
+        f"took {plain_s:.1f} s) and decode to the same bits")
+
+    g = torch.Generator(device=device).manual_seed(SEED + 2)
+    leaf = torch.randn(HUFF_LEAF_SHAPE, generator=g, device=device) * 0.02
+    cl = api.compress_leaf(leaf, "mgard")
+    leaf_err = check_mgard_result(f"compress_leaf {HUFF_LEAF_SHAPE} mgard", cl, leaf,
+                                  api.decompress_leaf(cl))
+    log(f"phase 3 ok: compress_leaf {HUFF_LEAF_SHAPE} float32 weights with mgard: ratio "
+        f"{cl.ratio():.6f}, max |error| {leaf_err:.6e} <= bound {cl.meta['error_bound']:.6e}")
+    return {"field": field, "c": c, "out": out, "counts": counts, "errs": errs, "plan": plan,
+            "coeffs": coeffs, "keys": keys, "lmap": lmap, "bins": bins, "rows": rows,
+            "coarse": coarse, "thomas": thomas}
+
+
+def phase_mgard_timings(api, run: dict, card: str) -> list[dict]:
+    """Phase 5, MGARD: each kernel alone and its plain version at the main
+    path's shapes, every solve of one direction, one profiled call's
+    stages, and end to end."""
+    import torch
+
+    from repro_torch.kernels.mgard_lerp import kernel as lk
+    from repro_torch.kernels.mgard_lerp import ref as lr
+    from repro_torch.kernels.quantize_map import kernel as qk
+    from repro_torch.kernels.quantize_map import ref as qr
+    from repro_torch.kernels.tridiag import kernel as tk
+    from repro_torch.kernels.tridiag import ref as tr
+
+    coeffs, keys, lmap, bins = run["coeffs"], run["keys"], run["lmap"], run["bins"]
+    rows, coarse, thomas = run["rows"], run["coarse"], run["thomas"]
+    field, c = run["field"], run["c"]
+    n = coeffs.numel()
+    b, w = rows.shape
+    sn, sb = coarse.shape
+    ms = {
+        "quantize_map.quantize": median_ms(lambda: qk.quantize(coeffs, lmap, bins)),
+        "quantize_map.dequantize": median_ms(lambda: qk.dequantize(keys, lmap, bins)),
+        "tridiag.solve_mass": median_ms(lambda: tk.solve_columns(coarse, 2.0, thomas)),
+        "mgard_lerp.lerp_coefficients": median_ms(lambda: lk.lerp_coefficients(rows)),
+    }
+    plain_ms = {
+        "quantize_map.quantize": median_ms(lambda: qr.quantize(coeffs, lmap, bins)),
+        "quantize_map.dequantize": median_ms(lambda: qr.dequantize(keys, lmap, bins)),
+        "tridiag.solve_mass": median_ms(lambda: tr.sweep_columns(coarse, 2.0, thomas)),
+        "mgard_lerp.lerp_coefficients": median_ms(lambda: lr.lerp_coefficients(rows)),
+    }
+    moved = {  # each input read once, each output written once
+        "quantize_map.quantize": 12 * n + 4 * bins.numel(),
+        "quantize_map.dequantize": 12 * n + 4 * bins.numel(),
+        "tridiag.solve_mass": 8 * sn * sb + 8 * sn,
+        "mgard_lerp.lerp_coefficients": 4 * b * w + 4 * b * (w // 2),
+    }
+    ops = {  # float32 operations on these inputs
+        "quantize_map.quantize": 5 * n,      # flush, divide, round, zig-zag
+        "quantize_map.dequantize": 4 * n,    # unzig-zag, convert, multiply, flush
+        "tridiag.solve_mass": 5 * sn * sb,   # 2 multiplies + subtract, multiply + subtract
+        "mgard_lerp.lerp_coefficients": 3 * b * (w // 2),
+    }
+    out = []
+    for name, (replaces, source) in MGARD_KERNELS.items():
+        b_ms = moved[name] / HBM_BYTES_PER_S * 1e3
+        o_ms = ops[name] / OPS_PER_S * 1e3
+        bound_ms = max(b_ms, o_ms)
+        log(f"phase 5 [{card}] mgard {name}: kernel {ms[name]:.4f} ms "
+            f"({moved[name] / ms[name] / 1e6:.1f} GB/s), plain version {plain_ms[name]:.4f} ms, "
+            f"library none, bound {bound_ms:.4f} ms (bytes {b_ms:.4f} ms, operations "
+            f"{o_ms:.4f} ms), {bound_ms / ms[name]:.1%} of the bound")
+        out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                    "launches": run["counts"][name], "max_abs_err": run["errs"][name],
+                    "ms": ms[name], "plain_ms": plain_ms[name], "bound_ms": bound_ms,
+                    "bound_by": "bytes" if b_ms >= o_ms else "operations", "library_ms": None})
+
+    # every solve of one direction: three axes a level, each an (n, n^2) batch
+    solve_ms = solve_bound_ms = 0.0
+    for (sn_l, h2), coeffs in sorted(run["plan"].workspace["thomas"].items(), reverse=True):
+        v = torch.randn((sn_l, sn_l * sn_l), device=coarse.device)
+        solve_ms += 3 * median_ms(lambda: tk.solve_columns(v, h2, coeffs))
+        solve_bound_ms += 3 * 8 * sn_l ** 3 / HBM_BYTES_PER_S * 1e3
+    log(f"phase 5 [{card}] mgard tridiag.solve_mass, all {run['counts']['tridiag.solve_mass'] // 2}"
+        f" launches of one direction at their shapes: {solve_ms:.4f} ms (bound "
+        f"{solve_bound_ms:.4f} ms)")
+
+    spec = api.make_spec(field, "mgard")
+    _, enc_stages, enc_moved = api.encode_profiled(spec, field)
+    _, dec_stages, dec_moved = api.decode_profiled(c)
+    log(f"phase 5 [{card}] mgard {MGARD_EDGE}^3 one profiled call: encode stages "
+        f"{enc_stages} s, transfers {enc_moved.as_dict()}; decode stages {dec_stages} s, "
+        f"transfers {dec_moved.as_dict()}")
+    e2e = {}
+    for what, fn in (("api.compress", lambda: api.compress(field, "mgard")),
+                     ("api.decompress", lambda: api.decompress(c))):
+        probe = median_wall_ms(fn, runs=1, warmup=1)
+        runs = TIMED_RUNS if probe * TIMED_RUNS <= 20e3 else 5
+        e2e[what] = (median_wall_ms(fn, runs=runs, warmup=1), runs)
+    nbytes = field.numel() * field.element_size()
+    log(f"phase 5 [{card}] mgard {MGARD_EDGE}^3 end to end (host wall, synchronised): "
+        + ", ".join(f"{k} {v:.4f} ms (median of {r}; {nbytes / v / 1e6:.1f} GB/s of the field)"
+                    for k, (v, r) in e2e.items()))
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}; "
@@ -798,12 +1155,18 @@ def main() -> int:
     lap("phase 2, ZFP")
     phase_huffman_kernels_vs_plain(device)
     lap("phase 2, Huffman")
+    phase_mgard_kernels_vs_plain(device)
+    lap("phase 2, MGARD")
     field, c, out, main_res, launches, tables = phase_main_path(device, api, kernel)
     lap("phase 3, ZFP")
     huff_runs = phase_huffman_main_path(device, api)
     lap("phase 3, Huffman")
+    mgard_run = phase_mgard_main_path(device, api)
+    lap("phase 3, MGARD")
     phase_bytes_round_trip(api, c, out)
     phase_bytes_round_trip(api, huff_runs[0]["c"], huff_runs[0]["out"], leaf=True)
+    again = phase_bytes_round_trip(api, mgard_run["c"], mgard_run["out"])
+    check_mgard_result("mgard from_bytes", mgard_run["c"], mgard_run["field"], again)
     lap("phase 4")
     kernels = phase_timings(api, kernel, field, c, main_res, tables, card)
     lap("phase 5, ZFP")
@@ -814,10 +1177,13 @@ def main() -> int:
     huff_kernels = phase_huffman_timings(api, huff_runs[0], card)
     phase_huffman_timings(api, huff_runs[1], card)
     lap("phase 5, Huffman")
-    for k in huff_kernels:
-        k["launches"] = sum(r["counts"][k["name"]] for r in huff_runs)
-        k["max_abs_err"] = max(r["errs"][k["name"]] for r in huff_runs)
-    log(json.dumps({"kernels": kernels + huff_kernels}))
+    mgard_kernels = phase_mgard_timings(api, mgard_run, card)
+    lap("phase 5, MGARD")
+    for k in huff_kernels:  # the entropy tail runs on the Huffman and the MGARD paths
+        runs = huff_runs + [mgard_run]
+        k["launches"] = sum(r["counts"][k["name"]] for r in runs)
+        k["max_abs_err"] = max(r["errs"][k["name"]] for r in runs)
+    log(json.dumps({"kernels": kernels + huff_kernels + mgard_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

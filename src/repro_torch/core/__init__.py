@@ -1,8 +1,8 @@
 """HPDR core in PyTorch (counterpart of ``repro.core``).
 
 Layers, bottom-up: device adapters (`adapters`), block views (`machine`,
-`abstractions`), the CMM (`context`), the ZFP and Huffman pipelines (`zfp`,
-`huffman`, `bitstream`) behind the codec registry (`codecs`) and stage graph
+`abstractions`), the CMM (`context`), the ZFP, Huffman and MGARD pipelines
+(`zfp`, `huffman`, `bitstream`, `mgard`, `quantize`) behind the codec registry (`codecs`) and stage graph
 (`stages`), and the high-level API (`api`: spec → plan → execute, with the
 `container` byte format).
 """
@@ -17,6 +17,8 @@ from . import (  # noqa: F401
     context,
     huffman,
     machine,
+    mgard,
+    quantize,
     zfp,
 )
 from .api import (  # noqa: F401

@@ -1,10 +1,11 @@
-"""Block helpers of the parallel abstractions (counterpart of
-``repro.core.abstractions``; only what the ZFP path uses is ported)."""
+"""Block helpers and the Map&Process parameter gather of the parallel
+abstractions (counterpart of ``repro.core.abstractions``; only what the ZFP
+and MGARD paths use is ported)."""
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 
@@ -31,3 +32,12 @@ def pad_to_blocks(data: torch.Tensor, block_shape: Sequence[int]) -> torch.Tenso
 
 def num_blocks(shape: Sequence[int], block_shape: Sequence[int]) -> int:
     return int(math.prod(math.ceil(d / b) for d, b in zip(shape, block_shape)))
+
+
+def map_and_process_param(
+    data: torch.Tensor, subset_ids: torch.Tensor, fn: Callable, params: torch.Tensor
+) -> torch.Tensor:
+    """Map&Process with one ``fn`` and per-subset parameters: ``params[k]``
+    is gathered per element, then ``fn(data, param)`` runs densely (how
+    MGARD applies its per-level bins without a pass per level)."""
+    return fn(data, params[subset_ids])

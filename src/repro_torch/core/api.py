@@ -14,9 +14,9 @@ Entry points run on the CUDA card (backend ``auto`` = ``cuda``) unless the
 caller passes ``backend="torch"``, which runs the plain versions on the CPU.
 :func:`decode` returns a tensor on the plan's device.
 
-Ported methods: ``zfp``, ``huffman`` and ``huffman-bytes``.  Not yet
-ported: pytree entry points, streams, the engine, and the MGARD methods (see
-:mod:`repro_torch.core.codecs`).
+Ported methods: ``mgard`` (the default), ``zfp``, ``huffman`` and
+``huffman-bytes``.  Not yet ported: pytree entry points, streams, the
+engine, and ``mgard-progressive`` (see :mod:`repro_torch.core.codecs`).
 """
 
 from __future__ import annotations
@@ -154,7 +154,7 @@ def decode_profiled(
 
 def compress(
     data: Any,
-    method: str = "zfp",
+    method: str = "mgard",
     *,
     error_bound: float = 1e-2,
     relative: bool = True,
@@ -169,9 +169,9 @@ def compress(
 
     Takes the reference's keywords so calls written for it run unchanged;
     those the method does not use are dropped.  The default method is
-    ``zfp`` (the reference's is ``mgard``, which is not yet ported).
-    ``backend`` (alias: ``adapter``) binds the plan: ``auto`` (``cuda``),
-    ``cuda`` or ``torch``.
+    ``mgard``, as in the reference; ``error_bound`` is relative to the value
+    range when ``relative=True``.  ``backend`` (alias: ``adapter``) binds
+    the plan: ``auto`` (``cuda``), ``cuda`` or ``torch``.
     """
     data = as_tensor(data)
     spec = make_spec(
@@ -210,20 +210,25 @@ def leaf_policy(
 ) -> tuple[torch.Tensor, str, dict]:
     """Shared shape/dtype policy: ``(tensor, method, params)`` to compress.
 
-    The reference's policy for the ported codecs: ``zfp`` inputs are cast to
-    float32 and re-blocked to (n, 32, 32); ``huffman`` keeps genuine
-    small-alphabet integer keys (non-negative, below 2^16) on the
-    integer-key codec; anything else becomes a ``huffman-bytes`` byte view
-    of the original tensor, taken where it lies.
+    The reference's policy for the ported codecs: floating inputs (bfloat16
+    included) of the lossy codecs are cast to float32; ``zfp`` inputs are
+    re-blocked to (n, 32, 32) and >4-D or 0-D ``mgard`` inputs flattened;
+    ``huffman`` keeps genuine small-alphabet integer keys (non-negative,
+    below 2^16) on the integer-key codec; anything else becomes a
+    ``huffman-bytes`` byte view of the original tensor, taken where it lies.
     """
     params = dict(params or {})
-    if method in ("mgard", "mgard-progressive"):
+    if method == "mgard-progressive":
         get_codec(method)  # raises: not yet ported
     x = arr if isinstance(arr, torch.Tensor) else _from_numpy(np.asarray(arr))
-    if method == "zfp":
+    if method in ("zfp", "mgard"):
         if x.dtype != torch.float32 and x.dtype.is_floating_point:
             x = x.to(torch.float32)
-        return as_blocked_3d(x), method, params
+        if method == "zfp":
+            x = as_blocked_3d(x)
+        elif x.ndim > 4 or x.ndim == 0:
+            x = x.reshape(-1)
+        return x, method, params
     if method == "huffman" and x.dtype in INT_DTYPES and x.numel():
         flat = x.reshape(-1)
         if flat.dtype in (torch.uint16, torch.uint32, torch.uint64):  # no aminmax

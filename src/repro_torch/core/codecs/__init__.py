@@ -5,9 +5,10 @@ registered under its public name with :func:`register_codec`; the API layer
 dispatches ``compress``/``decompress`` through this registry and stores each
 codec's plan in the CMM.
 
-Ported so far: ``zfp``, ``huffman`` and ``huffman-bytes``.  The
-reference's other methods are named in :data:`NOT_YET_PORTED`, and asking
-for one raises a ``ValueError`` that says so.
+Ported so far: ``mgard``, ``zfp``, ``huffman`` and ``huffman-bytes``.  The
+reference's other method, ``mgard-progressive``, is named in
+:data:`NOT_YET_PORTED`, and asking for it raises a ``ValueError`` that says
+so.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from .base import Codec, ReductionPlan, ReductionSpec  # noqa: F401
 
 _REGISTRY: dict[str, Codec] = {}
 
-NOT_YET_PORTED = ("mgard", "mgard-progressive")
+NOT_YET_PORTED = ("mgard-progressive",)
 
 
 def register_codec(name: str):
@@ -47,4 +48,4 @@ def available_methods() -> tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
-from . import huffman_codec, zfp_codec  # noqa: E402,F401  (self-register on import)
+from . import huffman_codec, mgard_codec, zfp_codec  # noqa: E402,F401  (self-register on import)

@@ -1,0 +1,344 @@
+"""MGARD-X lossy compression in PyTorch (counterpart of ``repro.core.mgard``).
+
+Multigrid decomposition on uniform tensor grids: for each level l (fine →
+coarse),
+
+  1. ``lerp``        multilinear-interpolation coefficients mc = (I − Π) u;
+  2. ``mass_trans``  load vector b = R · M_f · mc;
+  3. ``tridiag``     correction c = M_c^{-1} b, solved dimension by
+                     dimension (the mass matrix of multilinear elements is a
+                     Kronecker product) — the ``tridiag`` kernel on a CUDA
+                     tensor, the plain sweep on a CPU tensor;
+  4. ``add``         coarse values += c;
+
+then per-level linear quantization (the ``quantize_map`` kernels), which
+the codec (``codecs/mgard_codec.py``) follows with the Huffman entropy tail.
+The reference's module-level ``compress``/``decompress`` and its planned
+quantize executables are not ported: the codec is the one MGARD path.
+
+Grid handling: each dim is edge-padded to 2^k+1, and dims stop decomposing
+when they reach 2 nodes.  Level-l coefficients stay at their node positions
+(stride-2^l nodes with an odd view coordinate); the level map is a
+closed-form function of the index's trailing zeros.
+
+Every operator is written with separate ``+``, ``−`` and ``×`` tensor
+operations (no fused forms), so the CPU and the card round each one alike
+and a stream does not depend on the device that wrote it.  Compared with the
+reference (XLA, which flushes subnormals), coefficients agree to a float32
+rounding, not bit for bit.
+"""
+
+from __future__ import annotations
+
+import math
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from .quantize import unsigned_to_signed
+
+# float32 constants of the mass matrix, as the reference rounds them.  A
+# product with a float32-exact scalar is the same whether the scalar is taken
+# as float32 or float64 (the exact product fits a double), so these stay
+# Python floats and never cross to the device.
+_SIXTH = float(np.float32(1.0 / 6.0))
+_TWO_THIRDS = float(np.float32(2.0 / 3.0))
+_THIRD = float(np.float32(1.0 / 3.0))
+
+# ---------------------------------------------------------------------------
+# dyadic grid bookkeeping
+# ---------------------------------------------------------------------------
+
+
+def dim_levels(n: int) -> int:
+    """k such that the padded dim is 2^k + 1 (0 for dims too small to split)."""
+    if n < 3:
+        return 0
+    return int(math.ceil(math.log2(n - 1)))
+
+
+def padded_dim(n: int) -> int:
+    k = dim_levels(n)
+    return (1 << k) + 1 if k > 0 else n
+
+
+def pad_to_dyadic(u: torch.Tensor) -> torch.Tensor:
+    """Edge-pad every dim of ``u`` to its dyadic size (repeat the last entry)."""
+    for dim, n in enumerate(u.shape):
+        t = padded_dim(n)
+        if t != n:
+            idx = torch.arange(t, device=u.device).clamp_(max=n - 1)
+            u = u.index_select(dim, idx)
+    return u
+
+
+def total_levels(shape: tuple[int, ...]) -> int:
+    return max(dim_levels(n) for n in shape)
+
+
+@lru_cache(maxsize=None)
+def _level_scores_1d(n: int, k: int) -> np.ndarray:
+    """Per-index decomposition step score along one dim (∞ → stays nodal)."""
+    idx = np.arange(n)
+    tz = np.zeros(n, dtype=np.int64)
+    nz = idx > 0
+    tz[nz] = np.array([int(i & -i).bit_length() - 1 for i in idx[nz]])
+    score = np.where((k > 0) & (idx % (1 << max(k, 1)) != 0), tz, np.iinfo(np.int32).max)
+    return score.astype(np.int32)
+
+
+def level_map(shape: tuple[int, ...]) -> np.ndarray:
+    """Map node → quantization subset id: step l (0..L-1) or L for nodal values."""
+    ks = [dim_levels(n) for n in shape]
+    L = max(ks)
+    score = None
+    for axis, (n, k) in enumerate(zip(shape, ks)):
+        s = _level_scores_1d(n, k)
+        view = s.reshape([-1 if a == axis else 1 for a in range(len(shape))])
+        score = view if score is None else np.minimum(score, view)
+    return np.minimum(score, L).astype(np.int32)
+
+
+def _levels(shape: tuple[int, ...]) -> list[tuple[float, tuple[slice, ...]]]:
+    """``(h, strided slice)`` of each decomposition level l, fine → coarse:
+    ``h = 2^l`` and stride ``2^min(l, k)`` along a dim of k levels."""
+    ks = [dim_levels(n) for n in shape]
+    return [(float(1 << l), tuple(slice(None, None, 1 << min(l, k)) for k in ks))
+            for l in range(max(ks))]
+
+
+def _participating(shape: tuple[int, ...]) -> list[int]:
+    """Axes with an odd-size view ≥ 3 (still decomposable)."""
+    return [a for a, n in enumerate(shape) if n >= 3 and (n - 1) % 2 == 0]
+
+
+# ---------------------------------------------------------------------------
+# 1-D operators (applied per axis; tensor-product structure)
+# ---------------------------------------------------------------------------
+
+
+def interp_1d(coarse: torch.Tensor, axis: int) -> torch.Tensor:
+    """Prolongation along ``axis``: size m+1 → 2m+1 (linear midpoints)."""
+    c = coarse.movedim(axis, 0)
+    mids = 0.5 * (c[:-1] + c[1:])
+    out = torch.empty((2 * (c.shape[0] - 1) + 1,) + tuple(c.shape[1:]),
+                      dtype=c.dtype, device=c.device)
+    out[0::2] = c
+    out[1::2] = mids
+    return out.movedim(0, axis)
+
+
+def mass_mult_1d(x: torch.Tensor, axis: int, h: float) -> torch.Tensor:
+    """y = M x along ``axis``; M = h·tridiag(1/6, 2/3, 1/6), boundary h/3."""
+    v = x.movedim(axis, 0)
+    n = v.shape[0]
+    zero = torch.zeros_like(v[:1])
+    left = torch.cat([zero, v[:-1]], dim=0)
+    right = torch.cat([v[1:], zero], dim=0)
+    diag = torch.full((n,) + (1,) * (v.ndim - 1), _TWO_THIRDS, dtype=v.dtype, device=v.device)
+    diag[0] = _THIRD
+    diag[-1] = _THIRD
+    y = h * (diag * v + _SIXTH * (left + right))
+    return y.movedim(0, axis)
+
+
+def restrict_1d(m: torch.Tensor, axis: int) -> torch.Tensor:
+    """R = P^T along ``axis``: size 2m+1 → m+1: b_j = m_2j + ½(m_2j−1 + m_2j+1)."""
+    v = m.movedim(axis, 0)
+    even = v[0::2]
+    odd = v[1::2]
+    zero = torch.zeros_like(odd[:1])
+    left = torch.cat([zero, odd], dim=0)   # odd node left of coarse j
+    right = torch.cat([odd, zero], dim=0)  # odd node right of coarse j
+    b = even + 0.5 * (left + right)
+    return b.movedim(0, axis)
+
+
+@lru_cache(maxsize=None)
+def _thomas_coeffs(n: int, h: float) -> tuple[np.ndarray, np.ndarray]:
+    """Thomas forward-elimination constants of the 1-D mass matrix, in
+    float64: ``cp[i] = c_i / d'_i`` and ``denom_inv[i] = 1 / d'_i``.
+
+    Data-independent (the solver context a plan keeps), so each sweep step
+    is one multiply and one subtract.
+    """
+    a = np.full(n, h / 6.0)  # sub-diagonal
+    b = np.full(n, 2.0 * h / 3.0)
+    b[0] = b[-1] = h / 3.0
+    c = np.full(n, h / 6.0)  # super-diagonal
+    cp = np.zeros(n)
+    denom_inv = np.zeros(n)
+    denom = b[0]
+    denom_inv[0] = 1.0 / denom
+    cp[0] = c[0] / denom
+    for i in range(1, n):
+        denom = b[i] - a[i] * cp[i - 1]
+        denom_inv[i] = 1.0 / denom
+        cp[i] = c[i] / denom
+    return cp, denom_inv
+
+
+def thomas_tables(n: int, h: float, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(cp, dinv)`` of :func:`_thomas_coeffs`, rounded to float32, on ``device``."""
+    cp, dinv = _thomas_coeffs(int(n), float(h))
+    return (torch.from_numpy(cp.astype(np.float32)).to(device),
+            torch.from_numpy(dinv.astype(np.float32)).to(device))
+
+
+def thomas_sub(h: float) -> float:
+    """The sub-diagonal ``h / 6`` as the float32 the sweep multiplies by."""
+    return float(np.float32(h / 6.0))
+
+
+ThomasTables = dict[tuple[int, float], tuple[torch.Tensor, torch.Tensor]]
+
+
+def plan_thomas_tables(shape: tuple[int, ...], device) -> ThomasTables:
+    """Every ``(n, h)`` solver context that decomposing a grid of ``shape``
+    uses, staged once on ``device`` (a plan's persistent workspace)."""
+    padded = tuple(padded_dim(n) for n in shape)
+    tables: ThomasTables = {}
+    for h, sl in _levels(shape):
+        view = tuple(len(range(n)[s]) for n, s in zip(padded, sl))
+        for a in _participating(view):
+            n = (view[a] - 1) // 2 + 1
+            if (n, 2.0 * h) not in tables:
+                tables[(n, 2.0 * h)] = thomas_tables(n, 2.0 * h, device)
+    return tables
+
+
+def tridiag_solve_1d(rhs: torch.Tensor, axis: int, h: float,
+                     thomas: ThomasTables | None = None) -> torch.Tensor:
+    """Solve M x = rhs along ``axis`` (Thomas; the Iterative abstraction).
+
+    The solve axis is moved first and the rest flattened into a batch of
+    columns, the ``tridiag`` kernel's layout; a CUDA tensor launches the
+    kernel (or raises), a CPU tensor runs the plain sweep.  Both round
+    every step alike, so the result does not depend on the device.
+    """
+    from ..kernels.tridiag import kernel as tridiag_kernel  # lazy: layer order
+
+    v = rhs.movedim(axis, 0)
+    n = v.shape[0]
+    coeffs = thomas.get((n, float(h))) if thomas is not None else None
+    x = tridiag_kernel.solve_columns(v.reshape(n, -1).contiguous(), h, coeffs)
+    return x.reshape(v.shape).movedim(0, axis)
+
+
+# ---------------------------------------------------------------------------
+# per-level decompose / recompose
+# ---------------------------------------------------------------------------
+
+
+def _coarse_slice(shape: tuple[int, ...], axes: list[int]) -> tuple[slice, ...]:
+    return tuple(slice(None, None, 2) if a in axes else slice(None) for a in range(len(shape)))
+
+
+def _mass_transfer(mc: torch.Tensor, axes: list[int], h: float,
+                   thomas: ThomasTables | None) -> torch.Tensor:
+    """c = M_c^{-1} · R · M_f · mc (dimension by dimension)."""
+    b = mc
+    for a in axes:
+        b = restrict_1d(mass_mult_1d(b, a, h), a)
+    c = b
+    for a in axes:
+        c = tridiag_solve_1d(c, a, 2.0 * h, thomas)
+    return c
+
+
+def _decompose_level(view: torch.Tensor, h: float,
+                     thomas: ThomasTables | None = None) -> torch.Tensor:
+    """One level of MGARD decomposition on the current strided view."""
+    axes = _participating(tuple(view.shape))
+    sl = _coarse_slice(tuple(view.shape), axes)
+    coarse = view[sl]
+    interp = coarse
+    for a in axes:
+        interp = interp_1d(interp, a)
+    mc = view - interp
+    corrected = coarse + _mass_transfer(mc, axes, h, thomas)
+    mc[sl] = corrected
+    return mc
+
+
+def _recompose_level(view: torch.Tensor, h: float,
+                     thomas: ThomasTables | None = None) -> torch.Tensor:
+    """Exact inverse of :func:`_decompose_level`."""
+    axes = _participating(tuple(view.shape))
+    sl = _coarse_slice(tuple(view.shape), axes)
+    mc = view.clone()
+    mc[sl] = 0.0
+    coarse = view[sl] - _mass_transfer(mc, axes, h, thomas)
+    interp = coarse
+    for a in axes:
+        interp = interp_1d(interp, a)
+    # coarse nodes: mc was zeroed there and interp(coarse) = coarse → exact
+    return mc + interp
+
+
+def decompose(u: torch.Tensor, shape: tuple[int, ...],
+              thomas: ThomasTables | None = None) -> torch.Tensor:
+    """Full multilevel decomposition, coefficients in place, on ``u``'s device.
+
+    Returns a new float32 tensor of the padded shape; ``u`` is not changed.
+    Each level's result is written in place into a strided view of that
+    tensor (the reference's ``u.at[sl].set``).  ``thomas`` is the plan's
+    solver context (:func:`plan_thomas_tables`); missing entries are built
+    per call.
+    """
+    src = u
+    u = pad_to_dyadic(u.reshape(shape).to(torch.float32)).contiguous()
+    if u.data_ptr() == src.data_ptr():
+        u = u.clone()
+    for h, sl in _levels(tuple(shape)):
+        u[sl] = _decompose_level(u[sl], h, thomas)
+    return u
+
+
+def recompose(coeffs: torch.Tensor, shape: tuple[int, ...],
+              thomas: ThomasTables | None = None) -> torch.Tensor:
+    """Inverse of :func:`decompose`; a float32 tensor of the original ``shape``.
+
+    Works on a copy of ``coeffs``, each level written in place into its
+    strided view.
+    """
+    u = coeffs.to(torch.float32).clone()
+    for h, sl in reversed(_levels(tuple(shape))):
+        u[sl] = _recompose_level(u[sl], h, thomas)
+    return u[tuple(slice(0, n) for n in shape)].contiguous()
+
+
+# ---------------------------------------------------------------------------
+# the quantization step of the codec (Map&Process)
+# ---------------------------------------------------------------------------
+
+# Empirically calibrated L∞ safety factor of the per-level bin schedule (the
+# reference's): covers the interpolation gain plus the correction feedback
+# of the quantization noise during recomposition.
+_SAFETY = 2.0
+
+
+def level_bins(eb: float, L: int) -> np.ndarray:
+    """Per-level quantization bin sizes τ_l: the budget split evenly over the
+    L+1 levels, the nodal (coarsest) subset with a tighter bin."""
+    w = np.ones(L + 1)
+    w[L] = 0.5  # nodal values: tighter bin (seed of the recomposition)
+    return (2.0 * eb / ((L + 1) * _SAFETY) * w).astype(np.float64)
+
+
+def _quantize_stage_impl(coeffs, lmap, bins, shape, dict_size, adapter):
+    """``(q, keys, inlier)``: the signed quantized values, the Huffman keys
+    (escape key ``dict_size - 1`` for outliers) and the inlier mask.
+
+    Keys are uint32 bits in int32, so the escape test compares as unsigned:
+    a zig-zagged key of 2^31 or more is negative here and escapes too.
+    """
+    from ..kernels.quantize_map import ops as quantize_ops  # lazy: layer order
+
+    u = quantize_ops.quantize(coeffs, lmap, bins, adapter=adapter).reshape(shape)
+    q = unsigned_to_signed(u)
+    escape = dict_size - 1
+    inlier = (u >= 0) & (u < escape)
+    keys = torch.where(inlier, u, escape)
+    return q, keys, inlier

@@ -13,11 +13,14 @@ from .base import (  # noqa: F401
 from .library import (  # noqa: F401
     AlphabetBind,
     AlphabetScan,
+    BinSchedule,
     BitPack,
     ByteKeys,
     CodebookBuild,
     HuffmanEntropy,
     HuffmanHistogram,
     IntKeys,
+    MgardDecorrelate,
+    UniformQuantize,
     ZfpBlockTransform,
 )

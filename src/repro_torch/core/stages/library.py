@@ -1,6 +1,9 @@
 """Concrete pipeline stages (counterpart of ``repro.core.stages.library``).
 
   device stages
+    * :class:`MgardDecorrelate`   multigrid decomposition (+ the value range)
+    * :class:`UniformQuantize`    per-level linear quantization (kernel),
+                                  escape keys, device outlier compaction
     * :class:`IntKeys` / :class:`ByteKeys`  entry normalisation to int32 keys
     * :class:`AlphabetScan`       device min/max-key reduction (huffman alphabet)
     * :class:`HuffmanHistogram`   DEM-global frequency histogram (kernel)
@@ -12,16 +15,20 @@
 
   host stages (the graph's synchronisation points)
     * :class:`AlphabetBind`       the fetched key range → alphabet size
+    * :class:`BinSchedule`        the fetched value range → error bound +
+                                  per-level bin sizes
     * :class:`CodebookBuild`      canonical codebook from the fetched
                                   histogram — the only host compute of the
                                   Huffman encode path
 
 The entropy tail ``histogram → (host codebook) → entropy → pack`` is shared
-by ``huffman`` and ``huffman-bytes`` (and later ``mgard``); the codecs differ
-only in the stages in front of it (see ``core/codecs/*``).
+by ``mgard``, ``huffman`` and ``huffman-bytes``; the codecs differ only in
+the stages in front of it (see ``core/codecs/*``).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -124,7 +131,153 @@ class AlphabetBind(Stage):
 
 
 # ---------------------------------------------------------------------------
-# Huffman entropy tail (shared by huffman / huffman-bytes)
+# MGARD front end
+# ---------------------------------------------------------------------------
+
+
+class MgardDecorrelate(Stage):
+    """Multigrid decomposition, plus the value range the relative error
+    bound needs (one reduction, so the range costs one fetch of two scalars).
+
+    Decomposition runs in plain PyTorch on the plan's device; its
+    dimension-by-dimension mass solves launch the ``tridiag`` kernel on the
+    card.  The plan's solver context (``thomas``) is staged once.
+    """
+
+    name = "mgard_decorrelate"
+    inv_writes = ("data",)
+
+    def __init__(self, shape: tuple[int, ...]):
+        self.shape = tuple(shape)
+
+    def planned(self, plan) -> None:
+        self._dtype = getattr(torch, plan.spec.dtype)
+
+    def apply(self, env: CallEnv, state: dict) -> dict:
+        from .. import mgard
+
+        data = state["data"]
+        vmin, vmax = torch.aminmax(data)
+        return {
+            "coeffs": mgard.decompose(data, self.shape, env.workspace("thomas")),
+            "value_range": torch.stack([vmin, vmax]),
+        }
+
+    def invert(self, env: CallEnv, state: dict) -> dict:
+        from .. import mgard
+
+        out = mgard.recompose(state["coeffs"], self.shape, env.workspace("thomas"))
+        return {"data": out.to(self._dtype)}
+
+    def stage_meta(self, plan) -> dict:
+        return {"shape": list(self.shape)}
+
+
+class BinSchedule(Stage):
+    """Host barrier: value range → effective bound + per-level bin sizes.
+
+    The relative bound is ``eb0 * (vmax - vmin)`` with the subtraction in
+    float32 (numpy float32 scalars, as the reference fetches them); any
+    other order changes the bins.
+    """
+
+    name = "bin_schedule"
+    device = False
+    fetches = ("value_range",)
+
+    def __init__(self, eb0: float, relative: bool, L: int):
+        self.eb0 = float(eb0)
+        self.relative = bool(relative)
+        self.L = int(L)
+
+    def host_apply(self, env: CallEnv, fetched: dict) -> None:
+        from .. import mgard
+
+        vmin, vmax = fetched["value_range"]
+        eb = self.eb0 * float(vmax - vmin) if self.relative else self.eb0
+        eb = eb if eb > 0 else self.eb0
+        bins = mgard.level_bins(eb, self.L)
+        env.meta["error_bound"] = float(eb)
+        env.meta["bins"] = bins
+        env.operands["bins"] = np.asarray(bins, np.float32)
+
+    def host_prepare(self, env: CallEnv) -> None:
+        # decode direction: the bin schedule was recorded in the container
+        env.operands["bins"] = np.asarray(env.meta["bins"], np.float32)
+
+    def stage_meta(self, plan) -> dict:
+        return {"error_bound": self.eb0, "relative": self.relative,
+                "levels": self.L + 1}
+
+
+class UniformQuantize(Stage):
+    """Per-level linear quantization (the ``quantize_map`` kernel), escape
+    keys, and the outlier compaction on the device.
+
+    Outliers (keys at or past the escape key ``dict_size - 1``) are stored
+    losslessly: their flat indices and signed values go into slot buffers of
+    ``out_cap`` entries, so the host fetches ``out_count`` and the occupied
+    slots, never the grid.  Only the outlier positions are scattered.  A
+    leaf whose outliers overflow the cap keeps ``q`` and ``keys`` for the
+    container to fetch whole.
+
+    The inverse restores the escaped outliers and dequantizes (the
+    ``quantize_map`` kernel's inverse).
+    """
+
+    name = "uniform_quantize"
+    inv_writes = ("coeffs",)
+
+    def __init__(self, padded: tuple[int, ...], dict_size: int):
+        self.padded = tuple(padded)
+        self.dict_size = int(dict_size)
+        n = math.prod(self.padded)
+        self.out_cap = max(64, n // 16)
+
+    def planned(self, plan) -> None:
+        plan.meta["out_cap"] = self.out_cap
+
+    def apply(self, env: CallEnv, state: dict) -> dict:
+        from .. import mgard
+
+        q, keys, inlier = mgard._quantize_stage_impl(
+            state["coeffs"], env.workspace("lmap"), env.operand("bins"),
+            self.padded, self.dict_size, env.backend,
+        )
+        where = torch.nonzero(~inlier.reshape(-1)).reshape(-1)
+        kept = where[: self.out_cap]
+        out_idx = torch.zeros(self.out_cap, dtype=torch.int32, device=q.device)
+        out_val = torch.zeros(self.out_cap, dtype=torch.int32, device=q.device)
+        out_idx[: kept.numel()] = kept.to(torch.int32)
+        out_val[: kept.numel()] = q.reshape(-1)[kept]
+        return {
+            "q": q,
+            "keys": keys.reshape(-1),
+            "out_count": torch.tensor(where.numel(), dtype=torch.int32),
+            "out_idx": out_idx,
+            "out_val": out_val,
+        }
+
+    def invert(self, env: CallEnv, state: dict) -> dict:
+        from ...kernels.quantize_map import ops as quantize_ops
+        from ..quantize import signed_to_unsigned
+
+        # the keys are the zig-zagged values already; restore the escaped
+        # outliers in that form, then dequantize
+        u = state["keys"].reshape(-1).clone()
+        u[state["out_idx"]] = signed_to_unsigned(state["out_val"])
+        coeffs = quantize_ops.dequantize(
+            u, env.workspace("lmap"), env.operand("bins"), adapter=env.backend,
+        )
+        return {"coeffs": coeffs.reshape(self.padded)}
+
+    def stage_meta(self, plan) -> dict:
+        return {"padded": list(self.padded), "dict_size": self.dict_size,
+                "outlier_cap": self.out_cap}
+
+
+# ---------------------------------------------------------------------------
+# Huffman entropy tail (shared by mgard / huffman / huffman-bytes)
 # ---------------------------------------------------------------------------
 
 

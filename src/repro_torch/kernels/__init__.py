@@ -11,4 +11,7 @@ Kernels:
   histogram      — Huffman-X key-frequency histogram
   huffman_encode — Huffman-X per-key codebook gather (+ plain pack_stream)
   huffman_decode — Huffman-X chunk-parallel canonical decode
+  quantize_map   — MGARD-X per-level quantize / dequantize (Map&Process)
+  tridiag        — MGARD-X batched Thomas solve of the 1-D mass matrix
+  mgard_lerp     — MGARD-X interpolation-coefficient stencil
 """

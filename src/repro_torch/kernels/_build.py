@@ -26,7 +26,8 @@ _KERNELS = Path(__file__).resolve().parent
 
 SOURCES = {
     name: _KERNELS / name / "csrc" / f"{name}.cu"
-    for name in ("zfp_block", "histogram", "huffman_encode", "huffman_decode")
+    for name in ("zfp_block", "histogram", "huffman_encode", "huffman_decode",
+                 "quantize_map", "tridiag", "mgard_lerp")
 }
 
 # Built without -ftz / --use_fast_math: the kernels flush denormals

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Kernels: ``zfp_block`` (encode, decode), ``histogram``, ``huffman_encode``
-(``encode_lookup``) and ``huffman_decode`` (``decode_chunks``).
+(``encode_lookup``), ``huffman_decode`` (``decode_chunks``), ``quantize_map``
+(``quantize``, ``dequantize``), ``tridiag`` (``solve_mass``) and
+``mgard_lerp`` (``lerp_coefficients``).
 
 This file imports neither JAX nor the reference, so it runs on a machine that
 has only PyTorch and the CUDA toolkit:
@@ -27,6 +29,12 @@ from repro_torch.kernels.huffman_decode import kernel as dec_kernel
 from repro_torch.kernels.huffman_decode import ref as dec_ref
 from repro_torch.kernels.huffman_encode import kernel as enc_kernel
 from repro_torch.kernels.huffman_encode import ref as enc_ref
+from repro_torch.kernels.mgard_lerp import kernel as lerp_kernel
+from repro_torch.kernels.mgard_lerp import ref as lerp_ref
+from repro_torch.kernels.quantize_map import kernel as quant_kernel
+from repro_torch.kernels.quantize_map import ref as quant_ref
+from repro_torch.kernels.tridiag import kernel as tri_kernel
+from repro_torch.kernels.tridiag import ref as tri_ref
 from repro_torch.kernels.zfp_block import kernel, ref
 
 torch.set_num_threads(2)
@@ -233,3 +241,82 @@ def test_cuda_huffman_api_matches_torch_backend(cuda_device, method, dtype):
     out = api.decompress_leaf(c)
     assert out.device.type == "cuda" and out.dtype == x.dtype
     assert torch.equal(out.cpu(), x)
+
+
+# ---------------------------------------------------------------------------
+# MGARD: quantize, dequantize, solve_mass, lerp_coefficients
+# ---------------------------------------------------------------------------
+
+
+def _quant_inputs(n: int, seed: int):
+    rng = np.random.default_rng(seed)
+    tiny = np.finfo(np.float32).tiny
+    x = (rng.normal(size=n) * 10.0 ** rng.uniform(-3, 3, n)).astype(np.float32)
+    special = np.array([0.0, -0.0, math.inf, -math.inf, math.nan, 2.0 ** 31, -(2.0 ** 31),
+                        2.0 ** 31 - 128, 0.5, 1.5, 2.5, -2.5, tiny * 0.25, -tiny * 0.25],
+                       np.float32)
+    x[: min(n, special.size)] = special[: min(n, special.size)]
+    levels = rng.integers(0, 7, n).astype(np.int32)
+    bins = (10.0 ** -rng.uniform(1, 4, 7)).astype(np.float32)
+    bins[6] = np.float32(tiny * 0.5)  # a subnormal bin counts as zero
+    return torch.from_numpy(x), torch.from_numpy(levels), torch.from_numpy(bins)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 14, 1001, 100_003])
+def test_quantize_kernels_match_plain_versions(cuda_device, n):
+    x, levels, bins = _quant_inputs(n, seed=n)
+    before = dict(quant_kernel.launches)
+    for lo in (0, 1):  # aligned and misaligned (scalar loads)
+        xs, ls = x[lo:], levels[lo:]
+        if not xs.numel():
+            continue
+        u = quant_kernel.quantize(xs.to(cuda_device), ls.to(cuda_device), bins.to(cuda_device))
+        back = quant_kernel.dequantize(u, ls.to(cuda_device), bins.to(cuda_device))
+        torch.cuda.synchronize()
+        want_u = quant_ref.quantize(xs, ls, bins)
+        assert torch.equal(u.cpu(), want_u)
+        want = quant_ref.dequantize(want_u, ls, bins)
+        assert torch.equal(back.cpu().view(torch.int32), want.view(torch.int32))
+    runs = 1 if n == 1 else 2
+    assert quant_kernel.launches["quantize"] == before["quantize"] + runs
+    assert quant_kernel.launches["dequantize"] == before["dequantize"] + runs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,h", [(2, 2.0), (3, 4.0), (17, 2.0), (257, 2.0), (4097, 512.0),
+                                 (12289, 4.0)])
+def test_solve_mass_kernel_matches_plain_sweep(cuda_device, n, h):
+    rng = np.random.default_rng(n)
+    rhs = torch.from_numpy(rng.normal(size=(3 if n > 4097 else 131, n)).astype(np.float32))
+    before = tri_kernel.launches["solve_mass"]
+    got = tri_kernel.solve_mass(rhs.to(cuda_device), h)
+    torch.cuda.synchronize()
+    assert tri_kernel.launches["solve_mass"] == before + 1
+    want = tri_ref.solve_mass(rhs, h)
+    assert torch.equal(got.cpu().view(torch.int32), want.contiguous().view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n", [(1, 3), (7, 5), (129, 513), (3, 4097)])
+def test_lerp_kernel_matches_plain_version(cuda_device, b, n):
+    rows = torch.from_numpy(np.random.default_rng(n).normal(size=(b, n)).astype(np.float32))
+    before = lerp_kernel.launches["lerp_coefficients"]
+    got = lerp_kernel.lerp_coefficients(rows.to(cuda_device))
+    torch.cuda.synchronize()
+    assert lerp_kernel.launches["lerp_coefficients"] == before + 1
+    want = lerp_ref.lerp_coefficients(rows)
+    assert torch.equal(got.cpu().view(torch.int32), want.contiguous().view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(17,), (33, 20), (17, 9, 13), (5, 5, 5, 5)])
+def test_cuda_mgard_api_matches_torch_backend(cuda_device, shape):
+    x = torch.from_numpy(np.random.default_rng(11).normal(size=shape).astype(np.float32))
+    c = api.compress(x.to(cuda_device), "mgard")
+    assert c.to_bytes() == api.compress(x, "mgard", backend="torch").to_bytes()
+    out = api.decompress(c)
+    assert out.device.type == "cuda"
+    want = api.decompress(c, backend="torch")
+    assert torch.equal(out.cpu().view(torch.int32), want.view(torch.int32))
+    assert float((out.cpu() - x).abs().max()) <= c.meta["error_bound"]

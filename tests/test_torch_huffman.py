@@ -393,7 +393,15 @@ def test_leaf_policy_routes_like_reference(values, dtype, want):
 
 def test_leaf_policy_of_unported_method_raises():
     with pytest.raises(ValueError, match="not yet ported"):
-        tapi.leaf_policy(np.zeros(4, np.float32), "mgard")
+        tapi.leaf_policy(np.zeros(4, np.float32), "mgard-progressive")
+
+
+def test_leaf_policy_routes_mgard_like_reference():
+    arr = np.arange(12, dtype=np.float16).reshape(3, 4)
+    x, method, _ = tapi.leaf_policy(arr, "mgard")
+    jx, jmethod, _ = japi.leaf_policy(arr, "mgard")
+    assert method == jmethod == "mgard"
+    assert x.dtype == torch.float32 and np.array_equal(x.numpy(), jx)
 
 
 @pytest.mark.parametrize("keys", [np.array([3, -1, 2], np.int32),

@@ -386,10 +386,15 @@ def test_kernel_wrapper_rejects_other_devices():
         tkernel.compress_blocks(torch.zeros((2, 16), device="meta"), 8, 2)
 
 
-@pytest.mark.parametrize("method", ["mgard", "mgard-progressive"])
+@pytest.mark.parametrize("method", ["mgard-progressive"])
 def test_unported_methods_raise(method):
     with pytest.raises(ValueError, match="not yet ported"):
         tcodecs.get_codec(method)
+
+
+def test_mgard_is_registered():
+    assert "mgard" in tcodecs.available_methods()
+    assert tcodecs.get_codec("mgard").name == "mgard"
 
 
 @pytest.mark.parametrize("method", ["huffman", "huffman-bytes"])
