@@ -13,15 +13,20 @@ any fails:
   2. every kernel against its plain PyTorch version on the card, tolerance
      0.  ZFP: dims 1-4, rates {1, 7, 16, 32}, odd shapes, special blocks
      (all zero, subnormal, absmax below 2^-98, near FLT_MAX, inf, NaN).
-     Huffman: alphabets of 1, 2, 256, 4096 and 65536 keys and a
-     Fibonacci-frequency alphabet whose codes reach 32 bits, key counts
-     that are no multiple of a block (1, 1001, 100003), an empty stream,
-     chunk sizes 256 and 4096 (the whole decoded ``(chunks, chunk_size)``
-     output, padding included).  MGARD: quantize and dequantize at ±0,
+     Huffman: alphabets of 1, 2, 256, 4096 and 65536 keys, a near-uniform
+     300-key alphabet whose codes all fit decode_chunks' 13-bit lookup
+     table, and a Fibonacci-frequency alphabet whose codes reach 32 bits
+     (and escape the table), key counts that are no multiple of a block
+     (1, 1001, 100003), an empty stream, chunk sizes 256, 4096 and 1001 (no
+     multiple of 4 or of the kernel's 32-symbol stage) (the whole decoded
+     ``(chunks, chunk_size)`` output, padding included).  MGARD: quantize and dequantize at ±0,
      ±inf, NaN, ±2^31 and just inside, exact ties, subnormal values and a
      subnormal bin, and random values of ragged lengths (aligned and not);
      lerp_coefficients at odd row lengths 3 to 4097 and ragged batches;
-     solve_mass at n in {2, ..., 4097} and h in {2, 4, 512};
+     solve_mass at n in {2, ..., 4097, 60001} (60001: too long for a tile
+     of one system in shared memory) and h in {2, 4, 512}, and solve_columns
+     on (P, n, Q) views with Q = 1, 7 and >= 32 and batches of 1, 31, 33 and
+     1001;
   3. the main paths at a real size, on the ``cuda`` backend, each driven
      with every launch counter set to 0 just before and read just after:
      ZFP — ``api.compress``/``decompress`` of a 512^3 float32 field (the
@@ -44,7 +49,8 @@ any fails:
      dequantize, histogram, lookup and decode, 27 solves a direction), max
      |error| <= the effective bound, each kernel against its plain version
      at these shapes (the entropy kernels on this run's 513^3 keys and
-     container, the plain decode included), the ``cuda`` and ``torch`` backends' containers of a
+     container, the plain decode included; solve_mass on the three axis
+     views of every level), the ``cuda`` and ``torch`` backends' containers of a
      129^3 field byte for byte, and ``compress_leaf`` of a 4096x4096 weight
      leaf within its bound;
   4. the container bytes round trip on the card (one ZFP, one Huffman, one
@@ -54,8 +60,12 @@ any fails:
      the plain Huffman decode, a Python loop over the chunk's symbols that
      takes seconds; phase 3 ran it once already): kernel
      ms, the plain versions' ms, the PyTorch library call's ms where one
-     computes the same function, the plain ``pack_stream`` and the host
-     codebook build, every MGARD solve of one direction, one profiled
+     computes the same function (for solve_mass the dense
+     ``torch.linalg.solve``, for lerp a stride-2 ``conv1d`` without TF32:
+     yardsticks the port never calls), the plain ``pack_stream`` and the
+     host codebook build, decode_chunks on all three key sets, every MGARD
+     solve of one direction level by level (with ``torch.profiler``'s device
+     times beside the events for both kernels), one profiled
      call's stage times, end-to-end ms (median of 10 host-wall runs, of 5
      where 10 would take over 20 s) and the least time the card could take
      (bytes at 3.35 TB/s, operations at 67 T/s), each printed with the
@@ -100,13 +110,16 @@ DICT_SIZE = 4096                    # MGARD's default dict_size
 LAPLACE_SCALE = 16.0                # the keys' discrete-Laplace scale
 CHECK_ALPHABETS = (1, 2, 256, 4096, 65536)
 CHECK_COUNTS = (1, 1001, 100_003)
-CHECK_CHUNKS = (256, 4096)
+CHECK_CHUNKS = (256, 4096, 1001)
+LUT_ALPHABET = 300                  # near-uniform keys: codes of 8-9 bits
 
 MGARD_EDGE = 512                    # main_field(512), edge-padded to 513^3
 MGARD_CMP_EDGE = 129                # the cuda vs torch backends' byte comparison
 CHECK_LERP_N = (3, 5, 17, 129, 513, 4097)
 CHECK_LERP_B = (1, 7, 1001)
-CHECK_TRIDIAG_N = (2, 3, 5, 17, 129, 257, 513, 4097)
+CHECK_TRIDIAG_N = (2, 3, 5, 17, 129, 257, 513, 1025, 2049, 4097, 60001)
+CHECK_TRIDIAG_VIEW_N = (17, 257, 2049)
+CHECK_TRIDIAG_BATCH = (1, 31, 33, 1001)
 CHECK_TRIDIAG_H = (2.0, 4.0, 512.0)
 MGARD_KERNELS = {  # name: (TPU kernel it replaces, CUDA source)
     "quantize_map.quantize": ("src/repro/kernels/quantize_map/kernel.py:37",
@@ -205,6 +218,25 @@ def median_ms(fn, runs: int = TIMED_RUNS, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_device_ms(fn, names: tuple[str, ...]) -> list[float]:
+    """Device time in ms of each launch of a kernel whose name holds one of
+    ``names`` during one call of ``fn``, in launch order, from
+    ``torch.profiler`` (CUPTI); unlike events around a call, it leaves out
+    the time the host takes to enqueue the launch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and any(n in e.name for n in names)]
+    kernels.sort(key=lambda e: e.time_range.start)
+    return [e.time_range.elapsed_us() / 1e3 for e in kernels]
 
 
 def median_wall_ms(fn, runs: int = TIMED_RUNS, warmup: int = 2) -> float:
@@ -422,6 +454,7 @@ def phase_huffman_kernels_vs_plain(device) -> None:
     from repro_torch.core import huffman
     from repro_torch.kernels.histogram import kernel as hist_kernel
     from repro_torch.kernels.histogram import ref as hist_ref
+    from repro_torch.kernels.huffman_decode import ref as dec_ref
     from repro_torch.kernels.huffman_encode import kernel as enc_kernel
     from repro_torch.kernels.huffman_encode import ref as enc_ref
 
@@ -439,6 +472,8 @@ def phase_huffman_kernels_vs_plain(device) -> None:
             hist_ref.histogram(keys, nb).cpu().numpy() if freq is None else freq)
         if freq is not None and book.max_len != 32:
             raise PhaseError(f"the Fibonacci alphabet's codes reach {book.max_len} bits, not 32")
+        if nb >= 4096 and n == CHECK_COUNTS[-1] and book.max_len <= dec_ref.LUT_BITS:
+            raise PhaseError(f"{what}: codes of {book.max_len} bits never escape the table")
         ek = enc_kernel.encode_lookup(probe, *huffman.codebook_tables(book, device))
         torch.cuda.synchronize()
         ep = enc_ref.encode_lookup(probe, *huffman.codebook_tables(book, device))
@@ -450,6 +485,15 @@ def phase_huffman_kernels_vs_plain(device) -> None:
             for chunk in CHECK_CHUNKS:
                 check_decode(what, keys, *plain_stream(keys, book, chunk), chunk)
         checked += 1
+    g = torch.Generator(device=device).manual_seed(SEED + 7)
+    keys = torch.randint(0, LUT_ALPHABET, (CHECK_COUNTS[-1],), generator=g, device=device,
+                         dtype=torch.int32)
+    book = huffman.build_codebook(hist_ref.histogram(keys, LUT_ALPHABET).cpu().numpy())
+    if book.max_len > dec_ref.LUT_BITS:
+        raise PhaseError(f"the near-uniform alphabet's codes reach {book.max_len} bits")
+    for chunk in CHECK_CHUNKS:
+        check_decode(f"{LUT_ALPHABET} near-uniform keys", keys, *plain_stream(keys, book, chunk),
+                     chunk)
     empty = torch.zeros(0, dtype=torch.int32, device=device)
     if int_err(hist_kernel.histogram(empty, 7), torch.zeros(7, dtype=torch.int32)):
         raise PhaseError("histogram of an empty stream is not all zero")
@@ -457,8 +501,9 @@ def phase_huffman_kernels_vs_plain(device) -> None:
     for chunk in CHECK_CHUNKS:
         check_decode("empty stream", empty, *plain_stream(empty, book, chunk), chunk)
     log(f"phase 2 ok: histogram, encode_lookup == plain versions on the card for {checked} "
-        f"(alphabet, count) cases, out-of-range keys included; decode_chunks == plain version "
-        f"(whole output) at chunks {CHECK_CHUNKS}, codes up to 32 bits, empty stream "
+        f"(alphabet, count) cases, out-of-range keys included; decode_chunks == plain "
+        f"version (whole output) at chunks {CHECK_CHUNKS}, codes within the "
+        f"{dec_ref.LUT_BITS}-bit table only, escaping it, up to 32 bits, empty stream "
         "(tolerance 0)")
 
 
@@ -611,12 +656,10 @@ def phase_huffman_timings(api, run: dict, card: str) -> list[dict]:
     e2e_compress = median_wall_ms(lambda: api.compress_leaf(x, method))
     e2e_decompress = median_wall_ms(lambda: api.decompress_leaf(c))
 
-    table_bytes = 4 * sum(int(t.numel()) for t in tables)
     moved = {  # each input read once, each output written once
         "histogram.histogram": 4 * n + 4 * nb,
         "huffman_encode.encode_lookup": 12 * n + 8 * nb,
-        "huffman_decode.decode_chunks": 4 * n_chunks * chunk + 4 * num_words + 4 * n_chunks
-                                        + table_bytes,
+        "huffman_decode.decode_chunks": decode_bytes(run),
     }
     ops = {  # integer operations on this run's data
         "histogram.histogram": 4 * n,             # range check, match, popcount, add
@@ -637,6 +680,7 @@ def phase_huffman_timings(api, run: dict, card: str) -> list[dict]:
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                     "ms": ms[name], "plain_ms": plain_ms[name], "bound_ms": bound_ms,
                     "bound_by": "bytes" if b_ms >= o_ms else "operations", "library_ms": lib})
+    decode_timings(run, card, ms["huffman_decode.decode_chunks"])
     xp, policy_method, _ = api.leaf_policy(x, method)
     _, enc_stages, enc_moved = api.encode_profiled(api.make_spec(xp, policy_method), xp)
     _, dec_stages, dec_moved = api.decode_profiled(c)
@@ -651,6 +695,33 @@ def phase_huffman_timings(api, run: dict, card: str) -> list[dict]:
         f"decompress_leaf {e2e_decompress:.4f} ms ({nbytes / e2e_decompress / 1e6:.1f} GB/s "
         "of output)")
     return out
+
+
+def decode_bytes(run: dict) -> int:
+    """decode_chunks' bytes: the output written once, the words, the chunk
+    offsets and the tables read once."""
+    table_bytes = 4 * sum(int(t.numel()) for t in run["tables"])
+    n_chunks = run["offsets"].numel()
+    return 4 * n_chunks * run["chunk"] + 4 * run["words"].numel() + 4 * n_chunks + table_bytes
+
+
+def decode_timings(run: dict, card: str, ms: float | None = None) -> None:
+    """Phase 5: decode_chunks on one main-path run's keys, in events around
+    a call and on the device, beside its bound."""
+    from repro_torch.kernels.huffman_decode import kernel as dec_kernel
+
+    words, offsets, tables, chunk = run["words"], run["offsets"], run["tables"], run["chunk"]
+    max_len = int(tables[0].shape[0]) - 1
+    if ms is None:
+        ms = median_ms(lambda: dec_kernel.decode_chunks(words, offsets, *tables, chunk, max_len))
+    device = kernel_device_ms(lambda: dec_kernel.decode_chunks(words, offsets, *tables, chunk,
+                                                               max_len), ("decode_kernel",))
+    bound_ms = decode_bytes(run) / HBM_BYTES_PER_S * 1e3
+    log(f"phase 5 [{card}] {run['name']} huffman_decode.decode_chunks: {offsets.numel()} "
+        f"chunks of {chunk}, longest code {max_len} bits; {ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"(bytes), {bound_ms / ms:.1%} of the bound; device time "
+        + (f"{device[0]:.4f} ms (torch.profiler), {bound_ms / device[0]:.1%} of the bound"
+           if len(device) == 1 else "not measured"))
 
 
 def plain_compress(blocks, dims: int, tables: dict):
@@ -903,10 +974,38 @@ def phase_mgard_kernels_vs_plain(device) -> None:
             if not same_bits(got, want):
                 raise PhaseError(f"solve_mass differs from the plain sweep: n {n}, h {h}, "
                                  f"max |err| {max_abs_err(got, want)}")
+    views = [view for n in CHECK_TRIDIAG_VIEW_N for b in CHECK_TRIDIAG_BATCH
+             for view in ((b, n, 1), (b, n, 7), (1, n, b))]
+    for view in views:
+        check_solve(torch.randn(view, generator=g, device=device), 4.0, f"view {view}")
     log(f"phase 2 ok: quantize, dequantize == plain versions on the card and the CPU (special "
         f"values, a subnormal bin, {CHECK_COUNTS} random values, misaligned); "
         f"lerp_coefficients at n {CHECK_LERP_N} x B {CHECK_LERP_B}; solve_mass at n "
-        f"{CHECK_TRIDIAG_N} x h {CHECK_TRIDIAG_H} (tolerance 0)")
+        f"{CHECK_TRIDIAG_N} x h {CHECK_TRIDIAG_H}; solve_columns on {len(views)} (P, n, Q) "
+        f"views, n {CHECK_TRIDIAG_VIEW_N}, batches {CHECK_TRIDIAG_BATCH}, Q = 1, 7 and the "
+        "batch (tolerance 0)")
+
+
+def check_solve(v, h: float, what: str, coeffs=None) -> None:
+    """solve_columns kernel == the plain sweep on one (P, n, Q) view."""
+    import torch
+
+    from repro_torch.kernels.tridiag import kernel as tk
+    from repro_torch.kernels.tridiag import ref as tr
+
+    got = tk.solve_columns(v, h, coeffs)
+    torch.cuda.synchronize()
+    want = tr.sweep_columns(v, h, coeffs)
+    if not same_bits(got, want) or not got.is_contiguous():
+        raise PhaseError(f"solve_columns differs from the plain sweep: {what}, h {h}, "
+                         f"max |err| {max_abs_err(got, want)}")
+
+
+def level_views(thomas) -> list[tuple]:
+    """``(n, h, [three (P, n, Q) views])`` of every level of a cubic grid's
+    decomposition, finest first: the solves of axes 0, 1 and 2."""
+    return [(n, h, [(1, n, n * n), (n, n, n), (n * n, n, 1)])
+            for (n, h) in sorted(thomas, reverse=True)]
 
 
 def check_mgard_result(name: str, c, x, out) -> float:
@@ -972,6 +1071,12 @@ def phase_mgard_main_path(device, api) -> dict:
     thomas = plan.workspace["thomas"][(coarse.shape[0], 2.0)]
     solved = tk.solve_columns(coarse, 2.0, thomas)
     torch.cuda.synchronize()
+    g = torch.Generator(device=device).manual_seed(SEED + 6)
+    plan_thomas = plan.workspace["thomas"]
+    for n_l, h_l, views in level_views(plan_thomas):
+        for view in views:
+            check_solve(torch.randn(view, generator=g, device=device), h_l,
+                        f"level n {n_l}, view {view}", plan_thomas[(n_l, h_l)])
     errs = {
         "quantize_map.quantize": int_err(keys, qr.quantize(coeffs, lmap, bins)),
         "quantize_map.dequantize": max_abs_err(back, qr.dequantize(keys, lmap, bins)),
@@ -990,7 +1095,8 @@ def phase_mgard_main_path(device, api) -> dict:
         f"{c.ratio():.6f}, bound {c.meta['error_bound']:.6e} ({c.meta['error_bound'] / vrange:.3g}"
         f" of the range), max |error| {err:.6e}, {c.arrays['outlier_idx'].size} outliers, "
         f"{solves} solve_mass launches per direction; quantize, dequantize, solve_mass "
-        f"{tuple(coarse.shape)} h 2, lerp_coefficients {tuple(rows.shape)}, and histogram, "
+        f"{tuple(coarse.shape)} h 2 and on the three axis views of all "
+        f"{len(level_views(plan_thomas))} levels, lerp_coefficients {tuple(rows.shape)}, and histogram, "
         f"encode_lookup, decode_chunks on this run's {entropy_keys.numel()} keys (alphabet "
         f"{dict_size}, {len(c.arrays['chunk_offsets'])} chunks, codebook == the container's) "
         "== plain versions (tolerance 0)")
@@ -1022,9 +1128,37 @@ def phase_mgard_main_path(device, api) -> dict:
                                   api.decompress_leaf(cl))
     log(f"phase 3 ok: compress_leaf {HUFF_LEAF_SHAPE} float32 weights with mgard: ratio "
         f"{cl.ratio():.6f}, max |error| {leaf_err:.6e} <= bound {cl.meta['error_bound']:.6e}")
-    return {"field": field, "c": c, "out": out, "counts": counts, "errs": errs, "plan": plan,
-            "coeffs": coeffs, "keys": keys, "lmap": lmap, "bins": bins, "rows": rows,
-            "coarse": coarse, "thomas": thomas}
+    return {"name": f"mgard {MGARD_EDGE}^3", "field": field, "c": c, "out": out,
+            "counts": counts, "errs": errs, "plan": plan, "coeffs": coeffs, "keys": keys,
+            "lmap": lmap, "bins": bins, "rows": rows, "coarse": coarse, "thomas": thomas,
+            **{k: ent[k] for k in ("words", "offsets", "tables", "chunk")}}
+
+
+def library_yardsticks(rows, coarse) -> dict:
+    """One PyTorch call computing each MGARD stencil's or solve's function on
+    the same inputs, timed as a yardstick (the port never calls them):
+    lerp as a stride-2 conv1d with weights (-0.5, 1, -0.5), cuDNN's TF32
+    off; the level-0 solve as torch.linalg.solve of the dense mass matrix
+    (h = 2) against all its right-hand sides, TF32 off."""
+    import torch
+
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        weight = torch.tensor([[[-0.5, 1.0, -0.5]]], device=rows.device)
+        lerp_in = rows.unsqueeze(1)
+        lerp_ms = median_ms(lambda: torch.nn.functional.conv1d(lerp_in, weight, stride=2))
+        n, h = coarse.shape[0], 2.0
+        mass = torch.zeros((n, n), dtype=torch.float32, device=coarse.device)
+        idx = torch.arange(n, device=coarse.device)
+        mass[idx, idx] = 2.0 * h / 3.0
+        mass[idx[1:], idx[:-1]] = h / 6.0
+        mass[idx[:-1], idx[1:]] = h / 6.0
+        mass[0, 0] = mass[-1, -1] = h / 3.0
+        solve_ms = median_ms(lambda: torch.linalg.solve(mass, coarse))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    return {"tridiag.solve_mass": solve_ms, "mgard_lerp.lerp_coefficients": lerp_ms}
 
 
 def phase_mgard_timings(api, run: dict, card: str) -> list[dict]:
@@ -1070,29 +1204,56 @@ def phase_mgard_timings(api, run: dict, card: str) -> list[dict]:
         "tridiag.solve_mass": 5 * sn * sb,   # 2 multiplies + subtract, multiply + subtract
         "mgard_lerp.lerp_coefficients": 3 * b * (w // 2),
     }
+    library_ms = {"quantize_map.quantize": None, "quantize_map.dequantize": None,
+                  **library_yardsticks(rows, coarse)}
     out = []
     for name, (replaces, source) in MGARD_KERNELS.items():
         b_ms = moved[name] / HBM_BYTES_PER_S * 1e3
         o_ms = ops[name] / OPS_PER_S * 1e3
         bound_ms = max(b_ms, o_ms)
+        lib = library_ms[name]
         log(f"phase 5 [{card}] mgard {name}: kernel {ms[name]:.4f} ms "
             f"({moved[name] / ms[name] / 1e6:.1f} GB/s), plain version {plain_ms[name]:.4f} ms, "
-            f"library none, bound {bound_ms:.4f} ms (bytes {b_ms:.4f} ms, operations "
-            f"{o_ms:.4f} ms), {bound_ms / ms[name]:.1%} of the bound")
+            f"library {'none' if lib is None else f'{lib:.4f} ms'}, bound {bound_ms:.4f} ms "
+            f"(bytes {b_ms:.4f} ms, operations {o_ms:.4f} ms), "
+            f"{bound_ms / ms[name]:.1%} of the bound")
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                     "launches": run["counts"][name], "max_abs_err": run["errs"][name],
                     "ms": ms[name], "plain_ms": plain_ms[name], "bound_ms": bound_ms,
-                    "bound_by": "bytes" if b_ms >= o_ms else "operations", "library_ms": None})
+                    "bound_by": "bytes" if b_ms >= o_ms else "operations", "library_ms": lib})
 
-    # every solve of one direction: three axes a level, each an (n, n^2) batch
+    # every solve of one direction, level by level: the three axis views
     solve_ms = solve_bound_ms = 0.0
-    for (sn_l, h2), coeffs in sorted(run["plan"].workspace["thomas"].items(), reverse=True):
-        v = torch.randn((sn_l, sn_l * sn_l), device=coarse.device)
-        solve_ms += 3 * median_ms(lambda: tk.solve_columns(v, h2, coeffs))
-        solve_bound_ms += 3 * 8 * sn_l ** 3 / HBM_BYTES_PER_S * 1e3
+    thomas_all = run["plan"].workspace["thomas"]
+    for level, (n_l, h_l, views) in enumerate(level_views(thomas_all)):
+        coeffs_l = thomas_all[(n_l, h_l)]
+        times = []
+        for view in views:
+            v = torch.randn(view, device=coarse.device)
+            times.append(median_ms(lambda: tk.solve_columns(v, h_l, coeffs_l)))
+        bound_l = 3 * 8 * n_l ** 3 / HBM_BYTES_PER_S * 1e3
+        solve_ms += sum(times)
+        solve_bound_ms += bound_l
+        log(f"phase 5 [{card}] mgard tridiag.solve_mass level {level} (n {n_l}, h {h_l}): axes "
+            + ", ".join(f"{view} {t:.4f} ms" for view, t in zip(views, times))
+            + f"; sum {sum(times):.4f} ms, bound {bound_l:.4f} ms")
     log(f"phase 5 [{card}] mgard tridiag.solve_mass, all {run['counts']['tridiag.solve_mass'] // 2}"
         f" launches of one direction at their shapes: {solve_ms:.4f} ms (bound "
-        f"{solve_bound_ms:.4f} ms)")
+        f"{solve_bound_ms:.4f} ms; events around each call, the host's enqueue included)")
+    levels = [(n_l, h_l, [torch.randn(view, device=coarse.device) for view in views])
+              for n_l, h_l, views in level_views(thomas_all)]
+    device = kernel_device_ms(lambda: [tk.solve_columns(v, h_l, thomas_all[(n_l, h_l)])
+                                       for n_l, h_l, vs in levels for v in vs],
+                              ("tile_kernel", "global_kernel"))
+    if len(device) == 3 * len(levels):
+        log(f"phase 5 [{card}] mgard tridiag.solve_mass device time (torch.profiler), one "
+            "direction: " + "; ".join(
+                f"level {i} " + ", ".join(f"{t:.4f}" for t in device[3 * i: 3 * i + 3])
+                for i in range(len(levels))) + f" ms; all {len(device)}: {sum(device):.4f} ms")
+    else:
+        log(f"phase 5 [{card}] mgard tridiag.solve_mass device time: not measured "
+            f"({len(device)} kernel events)")
+    decode_timings(run, card)
 
     spec = api.make_spec(field, "mgard")
     _, enc_stages, enc_moved = api.encode_profiled(spec, field)

@@ -212,18 +212,21 @@ def tridiag_solve_1d(rhs: torch.Tensor, axis: int, h: float,
                      thomas: ThomasTables | None = None) -> torch.Tensor:
     """Solve M x = rhs along ``axis`` (Thomas; the Iterative abstraction).
 
-    The solve axis is moved first and the rest flattened into a batch of
-    columns, the ``tridiag`` kernel's layout; a CUDA tensor launches the
-    kernel (or raises), a CPU tensor runs the plain sweep.  Both round
-    every step alike, so the result does not depend on the device.
+    ``rhs`` is viewed as ``(P, n, Q)`` with the solve axis in the middle, the
+    ``tridiag`` kernel's layout, so no axis is moved (only an ``rhs`` that is
+    not contiguous is copied, as it lies); a CUDA tensor launches the kernel
+    (or raises), a CPU tensor runs the plain sweep.  Both round every step alike, so the result does not
+    depend on the device.  Returns a contiguous tensor of ``rhs``'s shape.
     """
     from ..kernels.tridiag import kernel as tridiag_kernel  # lazy: layer order
 
-    v = rhs.movedim(axis, 0)
-    n = v.shape[0]
+    shape = tuple(rhs.shape)
+    axis = axis % len(shape)
+    n = shape[axis]
+    p, q = math.prod(shape[:axis]), math.prod(shape[axis + 1:])
     coeffs = thomas.get((n, float(h))) if thomas is not None else None
-    x = tridiag_kernel.solve_columns(v.reshape(n, -1).contiguous(), h, coeffs)
-    return x.reshape(v.shape).movedim(0, axis)
+    x = tridiag_kernel.solve_columns(rhs.contiguous().view(p, n, q), h, coeffs)
+    return x.view(shape)
 
 
 # ---------------------------------------------------------------------------

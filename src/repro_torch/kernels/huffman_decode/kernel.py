@@ -3,8 +3,10 @@
 
 Counterpart of ``repro.kernels.huffman_decode.kernel.decode_chunks`` (the
 Pallas TPU kernel).  The CUDA source says what bounds it and how its design
-answers that; this module checks what it is given, allocates the output,
-launches on PyTorch's current stream and raises if the launch failed.
+answers that (a shared-memory lookup table built per CTA, a 128-bit window of
+the stream in registers refilled from shared memory, stores staged per
+warp); this module checks what it is given, allocates the output, launches
+on PyTorch's current stream and raises if the launch failed.
 
 A tensor on the CPU goes to the plain version (:mod:`.ref`); a CUDA tensor
 launches the kernel or raises — there is no fallback.  ``launches`` counts
@@ -63,6 +65,8 @@ def decode_chunks(
     for name, t in (("first_code", first_code), ("count", count), ("sym_offset", sym_offset)):
         require(t, name, torch.int32, (max_len + 1,), dev)
     require(sym_sorted, "sym_sorted", torch.int32, (n_sym,), dev)
+    if words.data_ptr() % 16:  # the kernel fetches the words 16 bytes at a time
+        words = words.clone()
     out = torch.empty((n_chunks, chunk_size), dtype=torch.int32, device=dev)
     if n_chunks:
         rc = library("huffman_decode", _SIGNATURES).huffman_decode_chunks(

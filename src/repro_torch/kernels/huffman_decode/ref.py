@@ -3,7 +3,9 @@ oracle and the ``torch`` backend's implementation; counterpart of
 ``repro.kernels.huffman_decode.ref``).
 
 All chunks advance together, one symbol per step, so the loop runs
-``chunk_size`` times over ``(n_chunks,)`` tensors.
+``chunk_size`` times over ``(n_chunks,)`` tensors.  :func:`decode_lut` is
+the plain mirror of the lookup table the CUDA kernel builds in shared memory;
+the plain decode itself stays the canonical scan.
 """
 
 from __future__ import annotations
@@ -13,6 +15,47 @@ import torch
 from ...core import bitstream as bs
 
 _I32_SPAN = 1 << 32
+LUT_BITS = 13  # the kernel's table covers the next min(max_len, 13) bits
+SYM_BITS = 25  # symbols its entries pack beside a length
+
+
+def _gather(sym_sorted: torch.Tensor, so: torch.Tensor, rel: torch.Tensor) -> torch.Tensor:
+    """``sym_sorted[so + rel]`` with the reference's gather: the index wraps
+    as int32, counts from the end when negative, then clamps."""
+    n_sym = sym_sorted.shape[0]
+    idx = (so + rel + (1 << 31)) % _I32_SPAN - (1 << 31)
+    idx = torch.where(idx < 0, idx + n_sym, idx).clamp_(0, n_sym - 1)
+    return sym_sorted[idx]
+
+
+def decode_lut(
+    first_code: torch.Tensor, count: torch.Tensor, sym_offset: torch.Tensor,
+    sym_sorted: torch.Tensor, max_len: int,
+) -> torch.Tensor:
+    """The decode kernel's lookup table: int32 ``[2^K]``, ``K = min(max_len,
+    13)``, as the kernel packs it.
+
+    Entry ``p`` serves a window whose top ``K`` bits are ``p`` (for
+    ``l <= K``, ``window >> (32 - l)`` is ``p >> (K - l)`` whatever the lower
+    bits).  Where the canonical scan accepts a length ``l <= K`` with symbol
+    ``s``, the entry is ``(s << 6) | l``, or ``l << 6`` (length field 0) when
+    ``s`` is negative or has more than 25 bits; where it accepts none, the
+    entry is ``(K + 1) << 6``.  A length field of 0 is an escape: the scan
+    runs on the whole window from the length in the upper bits.
+    """
+    k = min(int(max_len), LUT_BITS)
+    device = sym_sorted.device
+    prefix = torch.arange(1 << k, dtype=torch.int64, device=device)
+    lens = torch.arange(1, k + 1, dtype=torch.int64, device=device)
+    rel = (prefix[:, None] >> (k - lens)) - bs.u32(first_code[1 : k + 1])
+    valid = (rel >= 0) & (rel < count[1 : k + 1].to(torch.int64))
+    li = valid.to(torch.uint8).argmax(dim=1)
+    rows = torch.arange(1 << k, device=device)
+    sym = _gather(sym_sorted, sym_offset[1 : k + 1].to(torch.int64)[li], rel[rows, li])
+    sym = sym.to(torch.int64)
+    hit = valid.any(dim=1)
+    packed = torch.where((sym >= 0) & (sym < (1 << SYM_BITS)), (sym << 6) | (li + 1), (li + 1) << 6)
+    return torch.where(hit, packed, (k + 1) << 6).to(torch.int32)
 
 
 def decode_chunks(
@@ -50,7 +93,6 @@ def decode_chunks(
     fc = bs.u32(first_code[1 : max_len + 1])
     ct = count[1 : max_len + 1].to(torch.int64)
     so = sym_offset[1 : max_len + 1].to(torch.int64)
-    n_sym = sym_sorted.shape[0]
     rows = torch.arange(n_chunks, device=device)
     cursor = chunk_offsets.to(torch.int64)
     for i in range(chunk_size):
@@ -61,8 +103,6 @@ def decode_chunks(
         window = ((w0 << b) | (w1 >> (32 - b))) & 0xFFFFFFFF  # b = 0: w1 >> 32 is 0
         rel = (window[:, None] >> shifts) - fc
         li = ((rel >= 0) & (rel < ct)).to(torch.uint8).argmax(dim=1)  # first valid; none → 0
-        idx = (so[li] + rel[rows, li] + (1 << 31)) % _I32_SPAN - (1 << 31)  # int32 wrap
-        idx = torch.where(idx < 0, idx + n_sym, idx).clamp_(0, n_sym - 1)
-        out[:, i] = sym_sorted[idx]
+        out[:, i] = _gather(sym_sorted, so[li], rel[rows, li])
         cursor += li + 1
     return out

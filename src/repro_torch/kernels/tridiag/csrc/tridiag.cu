@@ -2,7 +2,7 @@
 //
 // Replaces the Pallas TPU kernel `solve_mass` of
 // src/repro/kernels/tridiag/kernel.py:48 (pallas_call at kernel.py:59), the
-// Iterative stage of MGARD-X: for B independent systems of length n, solve
+// Iterative stage of MGARD-X: for independent systems of length n, solve
 // M x = r with M = h * tridiag(1/6, 2/3, 1/6) (ends h/3), using the
 // elimination constants cp[i] and dinv[i] the host precomputes in float64
 // and rounds to float32 (core/mgard.py::_thomas_coeffs):
@@ -13,93 +13,275 @@
 // Each operation is __fmul_rn / __fsub_rn, never contracted into an FMA, so
 // the result is bit-identical to the plain sweep (kernels/tridiag/ref.py),
 // which performs the same float32 operations in the same order; a stream
-// then does not depend on the device that wrote it.
+// then does not depend on the device that wrote it.  No cyclic reduction or
+// other reordering: it would change the bits.
 //
-// Layout: the solve axis first, (n, B) row-major.  One thread owns one
-// system; at every step the threads of a warp touch neighbouring systems,
-// so each load and store of the sweep is a contiguous 128-byte row.  The
-// forward sweep writes d into the output and the backward sweep overwrites
-// it with x.  cp and dinv (8n bytes) are staged once per CTA in shared
-// memory when they fit (n <= 12288), else read through the read-only path
-// (every lane reads the same address: one broadcast).
+// Layout: a contiguous tensor viewed as (P, n, Q), solved along the middle
+// axis; system (p, q) has element i at p*n*Q + i*Q + q.  Every axis of a
+// grid is such a view, so the caller never transposes.
 //
-// What bounds it: r is read once and x written once, 8 B per element, so
-// the level-0 coarse solve of a 513^3 grid, (n, B) = (257, 66049), moves
-// 135.8 MB, 0.041 ms at 3.35 TB/s.  This kernel moves the output twice more
-// (d out, d back in) and its recurrence is sequential in n, so latency, not
-// bandwidth, is its limit when B is small.
+// What bounds it: r is read once and x written once, 8 B per element (the
+// level-0 coarse solve of a 513^3 grid, 257^3 elements, moves 135.8 MB:
+// 0.041 ms at 3.35 TB/s).  The recurrence is sequential in n, so the design
+// keeps every dependent step off device memory:
+//
+//   * tile_kernel: a CTA of one warp owns a tile of up to 32 systems and
+//     holds all n of their rows in shared memory.  It loads the tile with
+//     cp.async, sweeps forward and back in place (d over r, then x over d;
+//     each value read from device memory once), and writes x once.  For
+//     Q >= T (T = 32, fewer for long systems) a tile is T consecutive
+//     systems, kept as n rows of T floats: each row is one or two
+//     contiguous runs in device memory.  For Q < T it is floor(T / Q)
+//     whole p's, one contiguous block, kept as an exact copy (16-byte
+//     copies where aligned); a lane's column then has stride Q, free of
+//     bank conflicts when n * Q is odd, as every MGARD level's is.
+//   * The elimination constants sit in shared memory too: read through L1
+//     they were evicted by the streaming tiles and stalled the sweep.
+//   * The sweep is straight-line code, eight rows at a time; many one-warp
+//     CTAs per SM hide each other's shared-memory latency.  (A ring of two
+//     tiles per warp, loading the next tile during the sweep, measured
+//     slower: it halves the warps that fit in shared memory.)
+//   * global_kernel: for n too long for even one system in shared memory,
+//     one thread per system sweeps in device memory (the output holds d
+//     between the sweeps: 16 B per element).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kMaxShared = 12288;  // n up to this stages cp/dinv (96 KB)
+constexpr int kSmemBudget = 232448;  // dynamic shared memory a block may opt into
+constexpr int kUnroll = 8;           // rows per step of the straight-line sweep
+constexpr int kGlobalThreads = 128;
 
-template <bool kShared>
-__global__ void __launch_bounds__(kThreads)
-tridiag_kernel(const float* __restrict__ rhs, float* __restrict__ out,
-               const float* __restrict__ cp_g, const float* __restrict__ dinv_g, int n,
-               long long batch, float sub) {
-  extern __shared__ float coeffs[];
-  const float* cp = cp_g;
-  const float* dinv = dinv_g;
-  if (kShared) {
-    for (int i = threadIdx.x; i < n; i += kThreads) {
-      coeffs[i] = __ldg(cp_g + i);
-      coeffs[n + i] = __ldg(dinv_g + i);
+struct Geometry {
+  long long P, Q, systems;  // systems = P * Q
+  int n;
+  int T;                    // systems per tile (a power of two, <= 32)
+  int G;                    // p's per tile when Q < T, else 0
+  int coef_floats;          // shared floats before the tile: cp, dinv, padding
+  bool vec;                 // block tiles 16-byte aligned: copy 4 floats at a time
+  long long tiles;
+};
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The number of systems in tile `t` (the last tile may be short).
+__device__ __forceinline__ int tile_systems(const Geometry& g, long long t) {
+  if (g.G == 0) return static_cast<int>(g.systems - t * g.T < g.T ? g.systems - t * g.T : g.T);
+  return static_cast<int>(g.P - t * g.G < g.G ? g.P - t * g.G : g.G) * static_cast<int>(g.Q);
+}
+
+// Moves tile `t` between device memory and shared memory: kLoad copies rhs
+// into `buf` (cp.async, not yet waited for), else `buf` goes to out.
+template <bool kLoad>
+__device__ __forceinline__ void move_tile(const Geometry& g, long long t, float* buf,
+                                          const float* __restrict__ rhs,
+                                          float* __restrict__ out, int lane) {
+  const long long nQ = static_cast<long long>(g.n) * g.Q;
+  if (g.G == 0) {  // T consecutive systems as n rows of T; lane -> (row phase, system)
+    const int j = lane & (g.T - 1);
+    const int step = 32 / g.T;
+    const long long s = t * g.T + j;
+    if (j < tile_systems(g, t)) {
+      const long long p = s / g.Q;
+      const long long base = p * nQ + (s - p * g.Q);
+      for (int i = lane / g.T; i < g.n; i += step) {
+        if (kLoad)
+          cp_async4(buf + i * g.T + j, rhs + base + i * g.Q);
+        else
+          out[base + i * g.Q] = buf[i * g.T + j];
+      }
     }
-    __syncthreads();
-    cp = coeffs;
-    dinv = coeffs + n;
+    return;
   }
-  const long long j = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (j >= batch) return;
+  // G whole p's: one contiguous block, copied as it lies
+  const long long base = t * g.G * nQ;
+  const int count = tile_systems(g, t) * g.n;
+  int e = lane;
+  if (g.vec) {
+    for (; 4 * e + 3 < count; e += 32) {
+      if (kLoad)
+        cp_async16(buf + 4 * e, rhs + base + 4 * e);
+      else
+        *reinterpret_cast<float4*>(out + base + 4 * e) =
+            *reinterpret_cast<const float4*>(buf + 4 * e);
+    }
+    e = (count & ~3) + lane;
+  }
+  for (; e < count; e += 32) {
+    if (kLoad)
+      cp_async4(buf + e, rhs + base + e);
+    else
+      out[base + e] = buf[e];
+  }
+}
+
+// Thomas sweep of one system in shared memory, in place: element i at
+// col[i * stride]; cp and dinv in shared memory.
+__device__ __forceinline__ void sweep(float* col, int n, int stride, const float* cp,
+                                      const float* dinv, float sub) {
+  float d = 0.0f;
+  int i = 0;
+  for (; i + kUnroll <= n; i += kUnroll) {
+    float r[kUnroll], c[kUnroll];
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      r[k] = col[(i + k) * stride];
+      c[k] = dinv[i + k];
+    }
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      d = __fmul_rn(__fsub_rn(r[k], __fmul_rn(sub, d)), c[k]);
+      col[(i + k) * stride] = d;
+    }
+  }
+  for (; i < n; ++i) {
+    d = __fmul_rn(__fsub_rn(col[i * stride], __fmul_rn(sub, d)), dinv[i]);
+    col[i * stride] = d;
+  }
+  float x = 0.0f;
+  i = n - 1;
+  for (; i + 1 >= kUnroll; i -= kUnroll) {
+    float dv[kUnroll], c[kUnroll];
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      dv[k] = col[(i - k) * stride];
+      c[k] = cp[i - k];
+    }
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      x = __fsub_rn(dv[k], __fmul_rn(c[k], x));
+      col[(i - k) * stride] = x;
+    }
+  }
+  for (; i >= 0; --i) {
+    x = __fsub_rn(col[i * stride], __fmul_rn(cp[i], x));
+    col[i * stride] = x;
+  }
+}
+
+__global__ void __launch_bounds__(32)
+tile_kernel(const float* __restrict__ rhs, float* __restrict__ out,
+            const float* __restrict__ cp_g, const float* __restrict__ dinv_g, Geometry g,
+            float sub) {
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x;
+  const long long t = blockIdx.x;
+  float* cp = smem;
+  float* dinv = smem + g.n;
+  float* buf = smem + g.coef_floats;
+  move_tile<true>(g, t, buf, rhs, out, lane);
+  for (int i = lane; i < g.n; i += 32) {
+    cp[i] = __ldg(cp_g + i);
+    dinv[i] = __ldg(dinv_g + i);
+  }
+  cp_async_wait_all();
+  __syncwarp();
+  if (lane < tile_systems(g, t)) {
+    if (g.G == 0)
+      sweep(buf + lane, g.n, g.T, cp, dinv, sub);
+    else
+      sweep(buf + (lane / g.Q) * g.n * g.Q + lane % g.Q, g.n, static_cast<int>(g.Q), cp, dinv,
+            sub);
+  }
+  __syncwarp();
+  move_tile<false>(g, t, buf, rhs, out, lane);
+}
+
+__global__ void __launch_bounds__(kGlobalThreads)
+global_kernel(const float* __restrict__ rhs, float* __restrict__ out,
+              const float* __restrict__ cp, const float* __restrict__ dinv, int n,
+              long long Q, long long systems, float sub) {
+  const long long s = static_cast<long long>(blockIdx.x) * kGlobalThreads + threadIdx.x;
+  if (s >= systems) return;
+  const long long p = s / Q;
+  const long long base = p * n * Q + (s - p * Q);
   float d = 0.0f;
 #pragma unroll 4
   for (int i = 0; i < n; ++i) {
-    const long long at = static_cast<long long>(i) * batch + j;
-    const float di = kShared ? dinv[i] : __ldg(dinv + i);
-    d = __fmul_rn(__fsub_rn(__ldg(rhs + at), __fmul_rn(sub, d)), di);
+    const long long at = base + static_cast<long long>(i) * Q;
+    d = __fmul_rn(__fsub_rn(__ldg(rhs + at), __fmul_rn(sub, d)), __ldg(dinv + i));
     out[at] = d;
   }
   float x = 0.0f;
 #pragma unroll 4
   for (int i = n - 1; i >= 0; --i) {
-    const long long at = static_cast<long long>(i) * batch + j;
-    const float ci = kShared ? cp[i] : __ldg(cp + i);
-    x = __fsub_rn(out[at], __fmul_rn(ci, x));
+    const long long at = base + static_cast<long long>(i) * Q;
+    x = __fsub_rn(out[at], __fmul_rn(__ldg(cp + i), x));
     out[at] = x;
   }
 }
 
+// Shared bytes of one CTA: the constants (padded to 16 bytes) and a tile of
+// T systems of n floats.
+long long smem_bytes(int n, int T) {
+  return 4LL * (((2LL * n + 3) & ~3LL) + static_cast<long long>(n) * T);
+}
+
 }  // namespace
 
-// Solve the `batch` systems stored solve-axis-first in rhs (n x batch) into
-// out (same layout; may not alias rhs).  Returns the CUDA error of the
-// launch (0 on success).
-extern "C" int tridiag_solve(const void* rhs, void* out, const void* cp, const void* dinv, int n,
-                             long long batch, float sub, void* stream) {
-  if (n <= 0 || batch < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (batch == 0) return 0;
+// Solve the P * Q systems of rhs, viewed as (P, n, Q) and solved along the
+// middle axis, into out (same layout; may not alias rhs).  Returns the CUDA
+// error of the launch (0 on success).
+extern "C" int tridiag_solve(const void* rhs, void* out, const void* cp, const void* dinv,
+                             long long P, int n, long long Q, float sub, void* stream) {
+  if (n <= 0 || P < 0 || Q < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long systems = P * Q;
+  if (systems == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long grid = (batch + kThreads - 1) / kThreads;
-  if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const float* r = static_cast<const float*>(rhs);
   float* o = static_cast<float*>(out);
   const float* c = static_cast<const float*>(cp);
   const float* dv = static_cast<const float*>(dinv);
-  if (n <= kMaxShared) {
-    const int smem = static_cast<int>(2 * sizeof(float)) * n;
-    cudaError_t err = cudaFuncSetAttribute(tridiag_kernel<true>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    tridiag_kernel<true><<<static_cast<unsigned>(grid), kThreads, smem, s>>>(r, o, c, dv, n,
-                                                                             batch, sub);
-  } else {
-    tridiag_kernel<false><<<static_cast<unsigned>(grid), kThreads, 0, s>>>(r, o, c, dv, n,
-                                                                           batch, sub);
+  if (smem_bytes(n, 1) > kSmemBudget) {
+    const long long grid = (systems + kGlobalThreads - 1) / kGlobalThreads;
+    if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    global_kernel<<<static_cast<unsigned>(grid), kGlobalThreads, 0, s>>>(r, o, c, dv, n, Q,
+                                                                         systems, sub);
+    return static_cast<int>(cudaGetLastError());
   }
+  static unsigned long long opted_in = 0;  // devices whose tile_kernel may use kSmemBudget
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 64 || !(opted_in >> dev & 1)) {
+    err = cudaFuncSetAttribute(tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemBudget);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < 64) opted_in |= 1ULL << dev;
+  }
+  Geometry g;
+  g.P = P;
+  g.Q = Q;
+  g.systems = systems;
+  g.n = n;
+  g.T = 32;
+  while (g.T > 1 && smem_bytes(n, g.T) > kSmemBudget) g.T >>= 1;
+  g.coef_floats = (2 * n + 3) & ~3;
+  if (Q >= g.T) {
+    g.G = 0;
+    g.tiles = (systems + g.T - 1) / g.T;
+  } else {
+    g.G = g.T / static_cast<int>(Q);
+    g.tiles = (P + g.G - 1) / g.G;
+  }
+  g.vec = g.G != 0 && (static_cast<long long>(g.G) * n * Q) % 4 == 0 &&
+          ((reinterpret_cast<uintptr_t>(rhs) | reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  if (g.tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  tile_kernel<<<static_cast<unsigned>(g.tiles), 32, static_cast<int>(smem_bytes(n, g.T)), s>>>(
+      r, o, c, dv, g, sub);
   return static_cast<int>(cudaGetLastError());
 }

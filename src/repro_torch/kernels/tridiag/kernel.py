@@ -3,12 +3,14 @@
 
 Counterpart of ``repro.kernels.tridiag.kernel.solve_mass`` (the Pallas TPU
 kernel).  The CUDA source says what bounds it and how its design answers
-that; this module checks what it is given, allocates the output, launches
+that (tiles of systems swept in shared memory, each value read and written
+once); this module checks what it is given, allocates the output, launches
 on PyTorch's current stream and raises if the launch failed.
 
-:func:`solve_columns` takes the kernel's own solve-axis-first ``(n, B)``
-layout (what ``core.mgard.tridiag_solve_1d`` hands it); :func:`solve_mass`
-keeps the reference's ``(N, n)`` layout and transposes.  A tensor on the CPU
+:func:`solve_columns` solves along axis -2 of a contiguous ``(n, B)`` or
+``(P, n, Q)`` tensor, the view ``core.mgard.tridiag_solve_1d`` gives it of
+any axis of a grid; :func:`solve_mass` keeps the reference's ``(N, n)``
+layout, the view ``(N, n, 1)``.  Neither transposes.  A tensor on the CPU
 goes to the plain sweep (:mod:`.ref`); a CUDA tensor launches the kernel or
 raises — there is no fallback.  ``launches`` counts kernel launches, and
 nothing else.
@@ -26,7 +28,7 @@ from . import ref
 
 launches = {"solve_mass": 0}
 
-_SIGNATURES = {"tridiag_solve": [PTR, PTR, PTR, PTR, INT, I64, ctypes.c_float, PTR]}
+_SIGNATURES = {"tridiag_solve": [PTR, PTR, PTR, PTR, I64, INT, I64, ctypes.c_float, PTR]}
 
 
 def reset_launches() -> None:
@@ -35,25 +37,28 @@ def reset_launches() -> None:
 
 def solve_columns(v: torch.Tensor, h: float,
                   coeffs: tuple[torch.Tensor, torch.Tensor] | None = None) -> torch.Tensor:
-    """Solve ``M x = v`` for every column of ``v`` (``(n, B)`` float32,
-    contiguous); ``coeffs`` are the ``(cp, dinv)`` float32 tables of
-    ``(n, h)`` on ``v``'s device (built for this call when missing)."""
+    """Solve ``M x = v`` along axis -2 of ``v`` (float32, contiguous,
+    ``(n, B)`` or ``(P, n, Q)``: system ``(p, q)`` is ``v[p, :, q]``);
+    ``coeffs`` are the ``(cp, dinv)`` float32 tables of ``(n, h)`` on
+    ``v``'s device (built for this call when missing).  Returns a contiguous
+    tensor of ``v``'s shape."""
     if route(v, "tridiag"):
         return ref.sweep_columns(v, h, coeffs)
-    if v.ndim != 2:
-        raise ValueError(f"v must be (n, B), got shape {tuple(v.shape)}")
-    n, batch = v.shape
+    if v.ndim not in (2, 3):
+        raise ValueError(f"v must be (n, B) or (P, n, Q), got shape {tuple(v.shape)}")
+    n = v.shape[-2]
     if not 1 <= n < (1 << 31):
         raise ValueError(f"the solve axis must have 1 to 2^31 - 1 nodes, got {n}")
     dev = v.device
-    require(v, "v", torch.float32, (n, batch), dev)
+    require(v, "v", torch.float32, tuple(v.shape), dev)
     cp, dinv = coeffs if coeffs is not None else mgard.thomas_tables(n, h, dev)
     require(cp, "cp", torch.float32, (n,), dev)
     require(dinv, "dinv", torch.float32, (n,), dev)
     out = torch.empty_like(v)
-    if batch:
+    p, q = (v.shape[0] if v.ndim == 3 else 1), v.shape[-1]
+    if v.numel():
         rc = library("tridiag", _SIGNATURES).tridiag_solve(
-            v.data_ptr(), out.data_ptr(), cp.data_ptr(), dinv.data_ptr(), n, batch,
+            v.data_ptr(), out.data_ptr(), cp.data_ptr(), dinv.data_ptr(), p, n, q,
             mgard.thomas_sub(h), stream(dev),
         )
         raise_on(rc, "tridiag_solve")
@@ -67,4 +72,4 @@ def solve_mass(rhs: torch.Tensor, h: float) -> torch.Tensor:
         return ref.solve_mass(rhs, h)
     if rhs.ndim != 2:
         raise ValueError(f"rhs must be (N, n), got shape {tuple(rhs.shape)}")
-    return solve_columns(rhs.t().contiguous(), h).t().contiguous()
+    return solve_columns(rhs.contiguous().unsqueeze(-1), h).squeeze(-1)

@@ -11,7 +11,12 @@ has only PyTorch and the CUDA toolkit:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 
 Every test is marked ``gpu`` and skips where ``torch.cuda.is_available()`` is
-False (the kernels have no CPU mode).  Tolerance: none — payload words, emax
+False (the kernels have no CPU mode).  The decode tests reach each branch of
+the kernel (codes all inside its lookup table, escapes to the scan, codes of
+32 bits, symbols too wide for a table entry, a large alphabet, ragged chunk
+sizes); the
+solve tests every ``(P, n, Q)`` view (rows, blocks of p's, runs of systems)
+and systems too long for a 32-system tile.  Tolerance: none — payload words, emax
 and decoded floats (as bit patterns) must be identical.
 """
 
@@ -223,6 +228,81 @@ def test_decode_chunks_kernel_empty_stream(cuda_device):
     assert dec_kernel.launches["decode_chunks"] == before
 
 
+def _decode_on_card(cuda_device, keys, chunk_size, freq=None):
+    """Decode ``keys``' stream on the card and hold it against the plain
+    decode (the whole output, padding included)."""
+    words, offsets, tables, book = _stream(keys, chunk_size, freq)
+    max_len = int(tables[0].shape[0]) - 1
+    args = [t.to(cuda_device) for t in (words, offsets) + tables]
+    before = dec_kernel.launches["decode_chunks"]
+    got = dec_kernel.decode_chunks(*args, chunk_size, max_len)
+    torch.cuda.synchronize()
+    assert dec_kernel.launches["decode_chunks"] == before + 1
+    assert torch.equal(got.cpu(), dec_ref.decode_chunks(words, offsets, *tables, chunk_size,
+                                                        max_len))
+    assert np.array_equal(got.reshape(-1)[: keys.size].cpu().numpy(), keys)
+    return book
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk_size", [1, 33, 256, 4099])
+def test_decode_chunks_kernel_lookup_table_only(cuda_device, chunk_size):
+    rng = np.random.default_rng(chunk_size)
+    keys = rng.integers(0, 300, 40_000).astype(np.int32)  # near-uniform: codes of 8-9 bits
+    book = _decode_on_card(cuda_device, keys, chunk_size)
+    assert book.max_len <= dec_ref.LUT_BITS  # no code escapes the table
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk_size", [7, 256, 4096])
+def test_decode_chunks_kernel_escapes_to_the_scan(cuda_device, chunk_size):
+    keys = _skewed_keys(4096, 60_001, seed=chunk_size)
+    book = _decode_on_card(cuda_device, keys, chunk_size)
+    assert book.max_len > dec_ref.LUT_BITS  # the long codes leave the table
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk_size", [37, 4096])
+def test_decode_chunks_kernel_codes_of_32_bits(cuda_device, chunk_size):
+    fib = [1, 1]
+    while len(fib) < 40:
+        fib.append(fib[-1] + fib[-2])
+    freq = np.array(fib, np.int64)
+    keys = np.random.default_rng(chunk_size).integers(0, freq.size, 20_000).astype(np.int32)
+    keys[:40] = np.arange(40)  # the two 32-bit codes too
+    assert _decode_on_card(cuda_device, keys, chunk_size, freq=freq).max_len == 32
+
+
+@pytest.mark.gpu
+def test_decode_chunks_kernel_large_alphabet(cuda_device):
+    keys = _skewed_keys(100_000, 150_001, seed=4)  # sym_sorted of ~10^5 symbols
+    _decode_on_card(cuda_device, keys, 256)
+
+
+@pytest.mark.gpu
+def test_decode_chunks_kernel_symbols_too_wide_for_the_table(cuda_device):
+    # canonical code: 5 -> "0", 3 -> "10", 2^25 + 7 -> "11"; the last symbol
+    # does not fit beside a length in a table entry, so the kernel scans
+    wide = (1 << dec_ref.SYM_BITS) + 7
+    codes = {5: "0", 3: "10", wide: "11"}
+    keys = np.random.default_rng(8).choice([5, 3, wide], 3001).astype(np.int32)
+    chunk = 256
+    bits, offsets = "", []
+    for i, k in enumerate(keys):
+        if i % chunk == 0:
+            offsets.append(len(bits))
+        bits += codes[int(k)]
+    bits += "0" * (-len(bits) % 32)
+    words = np.array([int(bits[i:i + 32], 2) for i in range(0, len(bits), 32)], np.uint32)
+    tables = tuple(torch.tensor(a, dtype=torch.int32) for a in
+                   ([0, 0, 2], [0, 1, 2], [0, 0, 1], [5, 3, wide]))
+    args = [torch.from_numpy(words.view(np.int32)), torch.tensor(offsets, dtype=torch.int32)]
+    got = dec_kernel.decode_chunks(*[t.to(cuda_device) for t in args + list(tables)], chunk, 2)
+    want = dec_ref.decode_chunks(*args, *tables, chunk, 2)
+    assert torch.equal(got.cpu(), want)
+    assert np.array_equal(got.reshape(-1)[: keys.size].cpu().numpy(), keys)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("method,dtype", [
     ("huffman", "int32"), ("huffman", "uint16"), ("huffman-bytes", "float32"),
@@ -295,6 +375,37 @@ def test_solve_mass_kernel_matches_plain_sweep(cuda_device, n, h):
     assert tri_kernel.launches["solve_mass"] == before + 1
     want = tri_ref.solve_mass(rhs, h)
     assert torch.equal(got.cpu().view(torch.int32), want.contiguous().view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p,n,q", [
+    (1, 257, 1), (31, 17, 1), (33, 129, 1), (1001, 5, 1),       # Q = 1: rows of n floats
+    (3, 33, 7), (143, 9, 7), (5, 2049, 7),                      # Q = 7: blocks of p's
+    (1, 65, 33), (31, 3, 32), (2, 257, 1001), (1, 4097, 64),    # Q >= 32: runs of systems
+    (1, 129, 40_000), (3, 1025, 1),                             # many tiles; 32 long rows
+    (2, 1800, 40), (1, 60_001, 1), (2, 60_001, 33),             # n past a 32-system tile
+])
+def test_solve_columns_kernel_matches_plain_sweep_on_every_view(cuda_device, p, n, q):
+    v = torch.from_numpy(np.random.default_rng(n + q).normal(size=(p, n, q)).astype(np.float32))
+    before = tri_kernel.launches["solve_mass"]
+    got = tri_kernel.solve_columns(v.to(cuda_device), 2.0)
+    torch.cuda.synchronize()
+    assert tri_kernel.launches["solve_mass"] == before + 1
+    assert got.is_contiguous() and tuple(got.shape) == (p, n, q)
+    want = tri_ref.sweep_columns(v, 2.0)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_tridiag_solve_1d_on_the_card_matches_the_cpu(cuda_device, axis):
+    from repro_torch.core import mgard
+
+    x = torch.from_numpy(np.random.default_rng(axis).normal(size=(33, 65, 17)).astype(np.float32))
+    got = mgard.tridiag_solve_1d(x.to(cuda_device), axis, 4.0)
+    want = mgard.tridiag_solve_1d(x, axis, 4.0)
+    assert got.is_contiguous()
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.gpu

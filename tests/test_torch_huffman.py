@@ -106,6 +106,72 @@ def test_decode_tables_match_reference(case):
         assert np.array_equal(getattr(got, field).numpy(), np.asarray(getattr(want, field)))
 
 
+def _scan(window: int, fc: np.ndarray, ct: np.ndarray, max_len: int) -> int:
+    """The canonical scan's accepted length for one 32-bit window, 0 if none."""
+    for l in range(1, max_len + 1):
+        cand = window >> (32 - l)
+        if int(fc[l]) <= cand < int(fc[l]) + int(ct[l]):
+            return l
+    return 0
+
+
+@pytest.mark.parametrize("case", sorted(FREQS))
+def test_decode_lut_matches_the_canonical_scan_for_every_prefix(case):
+    freq = np.asarray(FREQS[case](np.random.default_rng(len(case))), np.int64)
+    book = thuff.build_codebook(freq)
+    tables = thuff.padded_tables(thuff.decode_tables(book.lengths))
+    max_len = int(tables[0].shape[0]) - 1
+    lut = tdec_ref.decode_lut(*tables, max_len).numpy().astype(np.int64)
+    k = min(max_len, tdec_ref.LUT_BITS)
+    assert lut.shape == (1 << k,)
+    fc, ct = _u32(tables[0]).astype(np.int64), tables[1].numpy()
+    so, ss = tables[2].numpy(), tables[3].numpy()
+    rng = np.random.default_rng(3)
+    for prefix in range(1 << k):
+        length, upper = int(lut[prefix] & 63), int(lut[prefix] >> 6)
+        for low in (0, (1 << (32 - k)) - 1, int(rng.integers(0, 1 << (32 - k)))):
+            l = _scan((prefix << (32 - k)) | low, fc, ct, max_len)
+            if 0 < l <= k:  # the table resolves it, whatever the lower bits
+                rel = ((prefix << (32 - k)) >> (32 - l)) - fc[l]
+                assert (length, upper) == (l, ss[so[l] + rel])
+            else:           # an escape: the scan goes on past K bits
+                assert (length, upper) == (0, k + 1)
+
+
+def test_decode_lut_escapes_symbols_too_wide_to_pack():
+    tables = thuff.padded_tables(thuff.decode_tables(np.array([1, 2, 2], np.int32)))
+    wide = tables[3].clone()
+    wide[1] = 1 << tdec_ref.SYM_BITS  # the symbol of code "10"
+    lut = tdec_ref.decode_lut(*tables[:3], wide, 2).numpy()
+    assert list(lut & 63) == [1, 1, 0, 2] and lut[2] >> 6 == 2  # "10": scan from length 2
+    assert list(lut[[0, 1, 3]] >> 6) == [0, 0, 2]
+
+
+@pytest.mark.parametrize("case", ["skewed", "fibonacci-32", "single-symbol", "empty"])
+def test_decode_lut_of_reference_tables_matches_reference_decode(case):
+    freq = np.asarray(FREQS[case](np.random.default_rng(1)), np.int64)
+    lengths = jhuff.build_codebook(freq).lengths
+    jt = jhuff.decode_tables(lengths)
+    jtables = thuff.padded_tables(thuff.DecodeTables(
+        first_code=_tensor(np.asarray(jt.first_code).view(np.int32)),
+        count=_tensor(np.asarray(jt.count)), sym_offset=_tensor(np.asarray(jt.sym_offset)),
+        sym_sorted=_tensor(np.asarray(jt.sym_sorted)), max_len=int(jt.max_len)))
+    max_len = int(jtables[0].shape[0]) - 1
+    got = tdec_ref.decode_lut(*jtables, max_len)
+    assert torch.equal(got, tdec_ref.decode_lut(*thuff.padded_tables(thuff.decode_tables(lengths)),
+                                                max_len))
+    # each table entry's symbol is the reference decode's first symbol of a
+    # one-word stream starting with that prefix
+    k = min(max_len, tdec_ref.LUT_BITS)
+    windows = (np.arange(1 << k, dtype=np.uint64) << np.uint64(32 - k)).astype(np.uint32)
+    jargs = [jnp.asarray(_u32(jtables[0]))] + [jnp.asarray(t.numpy()) for t in jtables[1:]]
+    first = np.asarray(jdec_ref.decode_chunks(
+        jnp.asarray(windows), jnp.asarray(np.arange(1 << k, dtype=np.int32) * 32),
+        *jargs, 1, max_len))[:, 0]
+    hit = (got.numpy() & 63) > 0
+    assert np.array_equal(got.numpy()[hit] >> 6, first[hit])
+
+
 def test_total_bits_past_the_format_limit_raise():
     """Caveat: the format's bit offsets are int32, so the port refuses a
     stream of more than 2^31 - 1 bits instead of wrapping it."""

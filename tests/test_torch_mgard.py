@@ -195,6 +195,36 @@ def test_tridiag_solve_1d_matches_reference(axis):
     np.testing.assert_allclose(got.numpy(), want, rtol=3e-5, atol=3e-6)
 
 
+def _moved_axis_sweep(rhs: torch.Tensor, axis: int, h: float) -> torch.Tensor:
+    """The solve as the port made it before it viewed the grid as (P, n, Q):
+    the axis moved first and copied into (n, B) columns."""
+    v = rhs.movedim(axis, 0)
+    n = v.shape[0]
+    return ttri.sweep_columns(v.reshape(n, -1).contiguous(), h).reshape(v.shape).movedim(0, axis)
+
+
+@pytest.mark.parametrize("shape,axis", [((9, 5, 17), 0), ((9, 5, 17), 1), ((9, 5, 17), 2),
+                                        ((33, 9), 0), ((33, 9), 1), ((5, 4, 3, 9), 2),
+                                        ((17,), 0)])
+def test_tridiag_solve_1d_views_any_axis_without_moving_it(shape, axis):
+    rhs = np.random.default_rng(len(shape) + axis).normal(size=shape).astype(np.float32)
+    got = tmgard.tridiag_solve_1d(_t(rhs), axis, 2.0)
+    assert got.is_contiguous() and tuple(got.shape) == shape
+    assert np.array_equal(_bits(got.numpy()), _bits(_moved_axis_sweep(_t(rhs), axis, 2.0).numpy()))
+    want = np.asarray(jmgard.tridiag_solve_1d(jnp.asarray(rhs), axis, 2.0))
+    np.testing.assert_allclose(got.numpy(), want, rtol=3e-5, atol=3e-6)
+
+
+@pytest.mark.parametrize("p,n,q", [(1, 17, 1), (4, 9, 1), (3, 5, 7), (1, 33, 40), (2, 3, 33)])
+def test_solve_columns_views_match_the_sweep_of_each_system(p, n, q):
+    v = np.random.default_rng(n * q).normal(size=(p, n, q)).astype(np.float32)
+    got = ttri_kernel.solve_columns(_t(v), 4.0)
+    assert got.is_contiguous() and tuple(got.shape) == (p, n, q)
+    for a in range(p):  # system (a, b) is v[a, :, b], solved on its own
+        want = ttri.solve_mass(_t(np.ascontiguousarray(v[a].T)), 4.0).t()
+        assert torch.equal(got[a], want)
+
+
 # ---------------------------------------------------------------------------
 # solver state, grid bookkeeping, 1-D operators
 # ---------------------------------------------------------------------------
