@@ -11,8 +11,14 @@ any fails:
 
   1. the card's name and power limit (``nvidia-smi``);
   2. every kernel against its plain PyTorch version on the card, tolerance
-     0.  ZFP: dims 1-4, rates {1, 7, 16, 32}, odd shapes, special blocks
-     (all zero, subnormal, absmax below 2^-98, near FLT_MAX, inf, NaN).
+     0.  ZFP, block form: dims 1-4, rates {1, 7, 16, 32}, odd shapes,
+     special blocks (all zero, subnormal, absmax below 2^-98, near FLT_MAX,
+     inf, NaN); field form (``compress_field``/``decompress_field`` against
+     block_view + the plain block versions): the odd shapes padded, per d a
+     field with one block along the last axis, one whose last-axis block
+     count is no multiple of the kernel's tile, a single block, the special
+     blocks along the last axis and as the block form's field, and the main
+     path's 512^3 field and (16384, 32, 32) leaf view.
      Huffman: alphabets of 1, 2, 256, 4096 and 65536 keys, a near-uniform
      300-key alphabet whose codes all fit decode_chunks' 13-bit lookup
      table, and a Fibonacci-frequency alphabet whose codes reach 32 bits
@@ -33,8 +39,10 @@ any fails:
      size of SDRBench's Nyx fields, 512 MiB) at rate 16 and
      ``compress_leaf``/``decompress_leaf`` of a 4096x4096 float32 tensor;
      checks the ratio, the round trip error (max |error| <= 5e-3 of the
-     value range; about 8e-4 is typical at rate 16) and the kernels'
-     results against the plain versions (tolerance 0).  Huffman —
+     value range; about 8e-4 is typical at rate 16), the kernels'
+     results against the plain versions (tolerance 0), both containers
+     against the ``torch`` backend's bytes, and that the ``cuda`` path
+     called no ``block_view`` / ``unblock_view``.  Huffman —
      ``compress_leaf``/``decompress_leaf`` of a 4096x4096 float32 weight
      tensor with ``huffman-bytes`` (an exact checkpoint leaf: 2^26 byte
      keys) and of a (512, 512, 256) int32 key array with ``huffman``
@@ -60,7 +68,10 @@ any fails:
      the plain Huffman decode, a Python loop over the chunk's symbols that
      takes seconds; phase 3 ran it once already): kernel
      ms, the plain versions' ms, the PyTorch library call's ms where one
-     computes the same function (for solve_mass the dense
+     computes the same function (ZFP: both kernels at 512^3 and at the
+     leaf view in events and ``torch.profiler`` device time, the block
+     form, each kernel's ``-Xptxas -v`` line and shared memory; for
+     solve_mass the dense
      ``torch.linalg.solve``, for lerp a stride-2 ``conv1d`` without TF32:
      yardsticks the port never calls), the plain ``pack_stream`` and the
      host codebook build, decode_chunks on all three key sets, every MGARD
@@ -80,6 +91,7 @@ run) and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -341,6 +353,73 @@ def phase_kernels_vs_plain(device) -> None:
             checked += 1
     log(f"phase 2 ok: kernels == plain versions on the card for {checked} "
         f"(shape, rate) cases, special blocks included (tolerance 0)")
+    phase_zfp_field_vs_plain(device)
+
+
+def zfp_field_cases(device) -> list[tuple[str, "torch.Tensor", tuple]]:
+    """Padded fields for the field form of the ZFP kernels, with their rates:
+    the CHECK_SHAPES fields padded as compress_field pads them; per d, one
+    block along the last axis, a last-axis block count that is no multiple
+    of the kernel's tile, a single block, the special blocks along the last
+    axis and as the block form's field; the main path's two views."""
+    import torch
+
+    from repro_torch.core import api
+    from repro_torch.core.abstractions import pad_to_blocks
+    from repro_torch.core.machine import unblock_view
+    from repro_torch.kernels.zfp_block import kernel
+
+    cases = [(f"{shape} padded", pad_to_blocks(odd_field(shape, device), (4,) * len(shape)),
+              CHECK_RATES) for shape in CHECK_SHAPES]
+    for dims in (1, 2, 3, 4):
+        tile = kernel.tile_blocks(dims)
+        block = (4,) * dims
+        special = special_blocks(dims, device).reshape((8,) + block)
+        cases += [
+            (f"d {dims}, one block along the last axis",
+             odd_field((12,) * (dims - 1) + (4,), device), CHECK_RATES),
+            (f"d {dims}, {2 * tile + 5} blocks along the last axis (tile {tile})",
+             odd_field((8,) * (dims - 1) + (4 * (2 * tile + 5),), device), CHECK_RATES),
+            (f"d {dims}, a single block", odd_field(block, device), CHECK_RATES),
+            (f"d {dims}, special blocks along the last axis",
+             unblock_view(special, (1,) * (dims - 1) + (8,), block), CHECK_RATES),
+            (f"d {dims}, special blocks as the block form's field",
+             special.reshape((32,) + (4,) * (dims - 1)), CHECK_RATES),
+        ]
+    g = torch.Generator(device=device).manual_seed(SEED + 1)
+    leaf = torch.randn(LEAF_SHAPE, generator=g, device=device)
+    cases += [(f"main path {FIELD_EDGE}^3", main_field(FIELD_EDGE, device), (RATE,)),
+              (f"main path leaf view {LEAF_SHAPE} -> (n, 32, 32)", api.as_blocked_3d(leaf),
+               (RATE,))]
+    return [(what, x.contiguous(), rates) for what, x, rates in cases]
+
+
+def phase_zfp_field_vs_plain(device) -> None:
+    """Phase 2: the field form of the ZFP kernels against its plain version
+    (block_view + the plain block encode, and back), tolerance 0."""
+    import torch
+
+    from repro_torch.kernels.zfp_block import kernel, ref
+
+    checked = 0
+    cases = zfp_field_cases(device)
+    for what, x, rates in cases:
+        dims, shape = x.ndim, tuple(x.shape)
+        for rate in rates:
+            p, e = kernel.compress_field(x, rate, dims)
+            d = kernel.decompress_field(p, e, rate, dims, shape)
+            torch.cuda.synchronize()
+            rp, re_ = ref.compress_field(x, rate, dims, chunk=PLAIN_CHUNK)
+            rd = ref.decompress_field(rp, re_, rate, dims, shape, chunk=PLAIN_CHUNK)
+            for name, got, want in (("payload", p, rp), ("emax", e, re_), ("decoded", d, rd)):
+                if not same_bits(got, want.contiguous()):
+                    raise PhaseError(
+                        f"zfp field form {name} differs from the plain version: {what}, "
+                        f"shape {shape}, rate {rate}, max |err| {max_abs_err(got, want)}")
+            checked += 1
+    log(f"phase 2 ok: zfp compress_field/decompress_field == plain versions on the card for "
+        f"{checked} (field, rate) cases over {len(cases)} fields: {[w for w, _, _ in cases]} "
+        "(tolerance 0)")
 
 
 # ---------------------------------------------------------------------------
@@ -783,26 +862,67 @@ def phase_main_path(device, api, kernel):
     leaf = torch.randn(LEAF_SHAPE, generator=g, device=device)
     torch.cuda.synchronize()
 
-    reset_counts()
-    c = api.compress(field, "zfp", rate=RATE)
-    out = api.decompress(c)
-    cl = api.compress_leaf(leaf, "zfp", rate=RATE)
-    leaf_out = api.decompress_leaf(cl)
-    torch.cuda.synchronize()
-    counts = read_counts()
+    with count_block_views() as views:
+        reset_counts()
+        c = api.compress(field, "zfp", rate=RATE)
+        out = api.decompress(c)
+        cl = api.compress_leaf(leaf, "zfp", rate=RATE)
+        leaf_out = api.decompress_leaf(cl)
+        torch.cuda.synchronize()
+        counts = read_counts()
     launches = dict(kernel.launches)
     log(f"phase 3 launches on the ZFP main path: {counts}")
     if any(n <= 0 for n in launches.values()):
         raise PhaseError(f"a kernel of the main path never launched: {launches}")
+    if any(views.values()):
+        raise PhaseError(f"the cuda ZFP path called the layout copies: {views}")
+    log(f"phase 3 ok: the cuda ZFP path called block_view / unblock_view {views}")
     if out.device != device or leaf_out.device != device:
         raise PhaseError("decode did not return a tensor on the card")
 
     tables = api.get_plan(api.make_spec(field, "zfp", rate=RATE)).workspace
     main = check_container(f"zfp {FIELD_EDGE}^3 field", c, field, out, 3, tables)
     leaf_blocked = api.as_blocked_3d(leaf)
-    check_container(f"compress_leaf {LEAF_SHAPE}", cl, leaf_blocked,
-                    leaf_out.reshape(leaf_blocked.shape), 3, tables)
+    leaf_res = check_container(f"compress_leaf {LEAF_SHAPE}", cl, leaf_blocked,
+                               leaf_out.reshape(leaf_blocked.shape), 3, tables)
+    for name, got, x in ((f"zfp {FIELD_EDGE}^3", c, field), (f"zfp leaf {LEAF_SHAPE}", cl, leaf)):
+        t0 = time.perf_counter()
+        plain = (api.compress(x.cpu(), "zfp", rate=RATE, backend="torch") if x is field
+                 else api.compress_leaf(x.cpu(), "zfp", rate=RATE, backend="torch"))
+        if plain.to_bytes() != got.to_bytes():
+            raise PhaseError(f"{name}: container bytes differ from the torch backend's")
+        log(f"phase 3 ok: {name}: container bytes == torch backend's (its CPU encode took "
+            f"{time.perf_counter() - t0:.1f} s)")
+    main["leaf"], main["leaf_payload"], main["leaf_emax"] = (
+        leaf_blocked, leaf_res["payload"], leaf_res["emax"])
     return field, c, out, main, launches, tables
+
+
+@contextlib.contextmanager
+def count_block_views():
+    """Count calls of ``machine.block_view`` / ``unblock_view`` (wherever the
+    port imported them) while the block runs."""
+    from repro_torch.core import machine
+
+    calls = {"block_view": 0, "unblock_view": 0}
+    originals = {name: getattr(machine, name) for name in calls}
+
+    def spy(name):
+        def counted(*args, **kwargs):
+            calls[name] += 1
+            return originals[name](*args, **kwargs)
+        return counted
+
+    patched = [(mod, name) for mod in list(sys.modules.values())
+               if getattr(mod, "__name__", "").startswith("repro_torch")
+               for name in calls if getattr(mod, name, None) is originals[name]]
+    for mod, name in patched:
+        setattr(mod, name, spy(name))
+    try:
+        yield calls
+    finally:
+        for mod, name in patched:
+            setattr(mod, name, originals[name])
 
 
 def phase_bytes_round_trip(api, c, out, leaf: bool = False):
@@ -818,51 +938,89 @@ def phase_bytes_round_trip(api, c, out, leaf: bool = False):
     return again
 
 
+def ptxas_lines(lib_name: str, kernels: tuple[str, ...]) -> list[str]:
+    """nvcc's -Xptxas -v report (registers, stack, spills) of each kernel
+    of a built library whose mangled name holds one of ``kernels``."""
+    from repro_torch.kernels import _build
+
+    out, current = [], None
+    for line in _build.library_path(lib_name).with_suffix(".so.log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            current = next((f"{k}<{line.split(k + 'ILi')[1][0]}>" for k in kernels
+                            if k + "ILi" in line), None)
+        elif current and ("stack frame" in line or "registers" in line):
+            out.append(f"{current}: {line.replace('ptxas info    :', '').strip()}")
+    return out
+
+
+def zfp_view_timings(kernel, x, payload, emax, tables, card: str, name: str) -> dict:
+    """Phase 5: both ZFP kernels on one main-path view, field form, in
+    events around a call and in device time, beside the view's bound."""
+    dims, shape = x.ndim, tuple(x.shape)
+    perm, enc, dec = tables["perm"], tables["enc_scale"], tables["dec_scale"]
+    calls = {
+        "compress_blocks": (lambda: kernel.compress_field(x, RATE, dims, perm=perm, scale=enc),
+                            "zfp_encode_kernel"),
+        "decompress_blocks": (lambda: kernel.decompress_field(payload, emax, RATE, dims, shape,
+                                                              perm=perm, scale=dec),
+                              "zfp_decode_kernel"),
+    }
+    moved = 4 * (x.numel() + payload.numel() + emax.numel())
+    ops = x.numel() * (4 * dims + 7 + 2 * RATE)
+    b_ms, o_ms = moved / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+    res = {"bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+    for k, (fn, kname) in calls.items():
+        ms = median_ms(fn)
+        dev = kernel_device_ms(fn, (kname,))
+        dev_ms = dev[0] if len(dev) == 1 else None
+        res[k] = {"ms": ms, "device_ms": dev_ms}
+        log(f"phase 5 [{card}] zfp {name} {k} (field form, {kname}): {ms:.4f} ms in events "
+            f"({moved / ms / 1e6:.1f} GB/s), device "
+            + (f"{dev_ms:.4f} ms (torch.profiler), {res['bound_ms'] / dev_ms:.1%}"
+               if dev_ms else "not measured")
+            + f" of the bound {res['bound_ms']:.4f} ms ({res['bound_by']}; bytes {b_ms:.4f} ms, "
+            f"operations {o_ms:.4f} ms); events {res['bound_ms'] / ms:.1%}")
+    return res
+
+
 def phase_timings(api, kernel, field, c, main, tables, card: str) -> list[dict]:
     """Phase 5: device times at the main path's shapes."""
-    import torch
-
-    from repro_torch.core.abstractions import pad_to_blocks
-    from repro_torch.core.machine import block_view, unblock_view
+    from repro_torch.kernels.zfp_block import ref
 
     dims = 3
     blocks, payload, emax = main["blocks"], main["payload"], main["emax"]
     perm, enc, dec = tables["perm"], tables["enc_scale"], tables["dec_scale"]
-    n_values = blocks.numel()
-    counts = tuple(n // 4 for n in field.shape)
+    n_values = field.numel()
 
-    ms = {
+    for line in ptxas_lines("zfp_block", ("zfp_encode_kernel", "zfp_decode_kernel")):
+        log(f"phase 5 [{card}] ptxas -v {line}")
+    for decode in (False, True):
+        info = kernel.launch_info(dims, RATE, decode)
+        log(f"phase 5 [{card}] zfp {'decode' if decode else 'encode'} kernel, d {dims}, rate "
+            f"{RATE}: {info['smem_bytes']} bytes of dynamic shared memory, "
+            f"{info['ctas_per_sm']} CTAs per SM of {kernel.tile_blocks(dims)} threads")
+    main_t = zfp_view_timings(kernel, field, payload, emax, tables, card, f"{FIELD_EDGE}^3")
+    zfp_view_timings(kernel, main["leaf"], main["leaf_payload"], main["leaf_emax"], tables,
+                     card, f"leaf view {tuple(main['leaf'].shape)}")
+    plain_ms = {
+        "compress_blocks": median_ms(lambda: ref.compress_field(
+            field, RATE, dims, perm=perm, scale=enc, chunk=PLAIN_CHUNK)),
+        "decompress_blocks": median_ms(lambda: ref.decompress_field(
+            payload, emax, RATE, dims, tuple(field.shape), perm=perm, scale=dec,
+            chunk=PLAIN_CHUNK)),
+    }
+    block_ms = {
         "compress_blocks": median_ms(
             lambda: kernel.compress_blocks(blocks, RATE, dims, perm=perm, scale=enc)),
         "decompress_blocks": median_ms(
             lambda: kernel.decompress_blocks(payload, emax, RATE, dims, perm=perm, scale=dec)),
     }
-    plain_ms = {
-        "compress_blocks": median_ms(lambda: plain_compress(blocks, dims, tables)),
-        "decompress_blocks": median_ms(lambda: plain_decompress(payload, emax, dims, tables)),
-    }
-    view_ms = median_ms(lambda: block_view(pad_to_blocks(field, (4,) * dims), (4,) * dims))
-    decoded = kernel.decompress_blocks(payload, emax, RATE, dims, perm=perm, scale=dec)
-    unview_ms = median_ms(lambda: unblock_view(
-        decoded.reshape((-1,) + (4,) * dims), counts, (4,) * dims).contiguous())
+    for name in KERNELS:
+        log(f"phase 5 [{card}] zfp {FIELD_EDGE}^3 {name}: plain version (field form) "
+            f"{plain_ms[name]:.4f} ms; the kernel on the (N, 64) block form "
+            f"{block_ms[name]:.4f} ms")
     e2e_compress = median_wall_ms(lambda: api.compress(field, "zfp", rate=RATE))
     e2e_decompress = median_wall_ms(lambda: api.decompress(c))
-
-    moved = 4 * (blocks.numel() + payload.numel() + emax.numel())
-    ops = n_values * (4 * dims + 7 + 2 * RATE)
-    bound_bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    bound_ops_ms = ops / OPS_PER_S * 1e3
-    bound_ms = max(bound_bytes_ms, bound_ops_ms)
-    bound_by = "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"
-    log(f"phase 5 [{card}] zfp {FIELD_EDGE}^3 rate {RATE}: {n_values} values, "
-        f"{moved} bytes moved per direction, {ops} integer operations per direction")
-    for name in KERNELS:
-        log(f"phase 5 [{card}] {name}: kernel {ms[name]:.4f} ms "
-            f"({moved / ms[name] / 1e6:.1f} GB/s), plain version {plain_ms[name]:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}; bytes {bound_bytes_ms:.4f} ms, "
-            f"operations {bound_ops_ms:.4f} ms), {bound_ms / ms[name]:.1%} of the bound")
-    log(f"phase 5 [{card}] torch pad+block_view {view_ms:.4f} ms, "
-        f"unblock_view {unview_ms:.4f} ms")
     spec = api.make_spec(field, "zfp", rate=RATE)
     _, enc_stages, enc_moved = api.encode_profiled(spec, field)
     _, dec_stages, dec_moved = api.decode_profiled(c)
@@ -875,8 +1033,8 @@ def phase_timings(api, kernel, field, c, main, tables, card: str) -> list[dict]:
         f"({4 * n_values / e2e_decompress / 1e6:.1f} GB/s of output)")
     return [
         {"name": f"zfp_block.{name}", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": KERNELS[name], "ms": ms[name], "plain_ms": plain_ms[name],
-         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+         "replaces": KERNELS[name], "ms": main_t[name]["ms"], "plain_ms": plain_ms[name],
+         "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"], "library_ms": None}
         for name in KERNELS
     ]
 

@@ -414,9 +414,10 @@ class BitPack(Stage):
 class ZfpBlockTransform(Stage):
     """Fixed-rate block transform + bitplane packing (paper §IV-C).
 
-    One stage because ZFP's whole chain is shape/rate-static: pad and block
-    view in PyTorch, then one ``zfp_block`` kernel launch per direction,
-    reading the plan's sequency permutation and scale tables.
+    One stage because ZFP's whole chain is shape/rate-static: pad in
+    PyTorch, then one ``zfp_block`` kernel launch per direction on the padded
+    field where it lies, with the plan's sequency permutation and scale
+    tables.
     """
 
     name = "zfp_block_transform"

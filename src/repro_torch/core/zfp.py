@@ -34,7 +34,6 @@ import torch
 from . import bitstream as bs
 from . import zfp_tables
 from .abstractions import pad_to_blocks, padded_shape
-from .machine import block_view, unblock_view
 
 NBMASK = 0xAAAAAAAA
 _NBMASK_I32 = NBMASK - (1 << 32)  # the same bits as an int32
@@ -250,7 +249,7 @@ def _decompress_blocks(
 
 
 # ---------------------------------------------------------------------------
-# Whole arrays: pad → block view → block kernel (→ unblock → crop)
+# Whole arrays: pad → field kernel (→ crop)
 # ---------------------------------------------------------------------------
 
 
@@ -260,17 +259,16 @@ def compress_field(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Whole-array fixed-rate compress (the reference's ``compress_jit``).
 
-    ``adapter`` binds the ``zfp_block`` kernel (``torch`` | ``cuda``);
-    ``perm`` and ``scale`` (the encode scale table) are the plan's tables.
+    ``adapter`` binds the ``zfp_block`` kernel (``torch`` | ``cuda``), which
+    takes the padded field as it lies; ``perm`` and ``scale`` (the encode
+    scale table) are the plan's tables.
     """
     from ..kernels.zfp_block import ops as zfp_block_ops  # lazy: layer order
 
-    block_shape = (4,) * dims
-    padded = pad_to_blocks(data.reshape(shape), block_shape)
-    blocks, _counts = block_view(padded, block_shape)
-    return zfp_block_ops.compress_blocks(
-        blocks.reshape(blocks.shape[0], -1), rate, dims, adapter, perm=perm, scale=scale
-    )
+    padded = pad_to_blocks(data.reshape(shape), (4,) * dims).contiguous()
+    if padded.data_ptr() % 16:  # the kernel's bulk copies need an aligned base
+        padded = padded.clone()
+    return zfp_block_ops.compress_field(padded, rate, dims, adapter, perm=perm, scale=scale)
 
 
 def decompress_field(
@@ -278,14 +276,11 @@ def decompress_field(
     shape: tuple[int, ...], adapter: str, *, perm: torch.Tensor, scale: torch.Tensor,
 ) -> torch.Tensor:
     """Inverse of :func:`compress_field` (the reference's ``decompress_jit``);
-    ``scale`` is the decode scale table."""
+    ``scale`` is the decode scale table.  The crop is a view."""
     from ..kernels.zfp_block import ops as zfp_block_ops  # lazy: layer order
 
-    block_shape = (4,) * dims
-    flat = zfp_block_ops.decompress_blocks(
-        payload, emax, rate, dims, adapter, perm=perm, scale=scale
+    full = zfp_block_ops.decompress_field(
+        payload, emax, rate, dims, padded_shape(shape, (4,) * dims), adapter,
+        perm=perm, scale=scale,
     )
-    blocks = flat.reshape((flat.shape[0],) + block_shape)
-    counts = tuple(p // 4 for p in padded_shape(shape, block_shape))
-    full = unblock_view(blocks, counts, block_shape)
     return full[tuple(slice(0, d) for d in shape)]

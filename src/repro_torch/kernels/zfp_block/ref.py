@@ -9,11 +9,11 @@ the pack stay bounded (a few hundred MiB per chunk at rate 32, 4^3 blocks).
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ...core import zfp as core_zfp
 from ...core import zfp_tables
+from ...core.machine import block_view, unblock_view
 
 CHUNK_BLOCKS = 1 << 16
 
@@ -70,7 +70,7 @@ def decompress_blocks(
         tables = default_tables(dims, payload.device)
         perm = tables["perm"] if perm is None else perm
         scale = tables["dec_scale"] if scale is None else scale
-    inv_perm = torch.from_numpy(np.argsort(perm.cpu().numpy()).astype(np.int64))
+    inv_perm = torch.argsort(perm)  # where perm lies: no host sync
     outs = [
         core_zfp._decompress_blocks(
             payload[lo : lo + chunk], emax[lo : lo + chunk], rate, inv_perm,
@@ -81,3 +81,29 @@ def decompress_blocks(
     if not outs:
         return payload.new_empty((0, block_size), dtype=torch.float32)
     return torch.cat(outs)
+
+
+def compress_field(
+    padded: torch.Tensor, rate: int, dims: int, *,
+    perm: torch.Tensor | None = None, scale: torch.Tensor | None = None,
+    chunk: int = CHUNK_BLOCKS,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Padded field → payload rows and emax in block order: ``block_view``,
+    then :func:`compress_blocks`."""
+    blocks, _counts = block_view(padded, (4,) * dims)
+    return compress_blocks(blocks.reshape(blocks.shape[0], -1), rate, dims,
+                           perm=perm, scale=scale, chunk=chunk)
+
+
+def decompress_field(
+    payload: torch.Tensor, emax: torch.Tensor, rate: int, dims: int,
+    padded_shape: tuple[int, ...], *,
+    perm: torch.Tensor | None = None, scale: torch.Tensor | None = None,
+    chunk: int = CHUNK_BLOCKS,
+) -> torch.Tensor:
+    """Inverse of :func:`compress_field`: :func:`decompress_blocks`, then
+    ``unblock_view`` into the padded field of ``padded_shape``."""
+    block_shape = (4,) * dims
+    flat = decompress_blocks(payload, emax, rate, dims, perm=perm, scale=scale, chunk=chunk)
+    counts = tuple(int(p) // 4 for p in padded_shape)
+    return unblock_view(flat.reshape((-1,) + block_shape), counts, block_shape)

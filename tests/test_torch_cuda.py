@@ -101,6 +101,53 @@ def test_cuda_kernel_rejects_bad_inputs(cuda_device):
         kernel.compress_blocks(x, 33, 3)
 
 
+# padded fields: the odd shapes, one block along the last axis, a last-axis
+# block count that is no multiple of a 128-block tile, a single block
+FIELD_SHAPES = [(1004,), (36, 48), (36, 48, 68), (8, 8, 8, 12), (12, 8, 4), (8, 4 * 261),
+                (8, 8, 4 * 133), (4, 4, 4), (4, 4, 4, 4 * 37)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", RATES)
+@pytest.mark.parametrize("shape", FIELD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_cuda_field_kernel_matches_plain_version(cuda_device, shape, rate):
+    dims = len(shape)
+    rng = np.random.default_rng(len(shape) * rate)
+    x = (rng.normal(size=shape) * np.exp2(rng.integers(-30, 30, size=shape))).astype(np.float32)
+    flat = x.reshape(-1)
+    flat[: 4 ** dims] = _blocks(dims, 8, seed=rate).reshape(-1)[: 4 ** dims]  # a special value run
+    x = torch.from_numpy(x)
+    before = dict(kernel.launches)
+    p, e = kernel.compress_field(x.to(cuda_device), rate, dims)
+    d = kernel.decompress_field(p, e, rate, dims, shape)
+    torch.cuda.synchronize()
+    assert kernel.launches["compress_blocks"] == before["compress_blocks"] + 1
+    assert kernel.launches["decompress_blocks"] == before["decompress_blocks"] + 1
+    rp, re_ = ref.compress_field(x, rate, dims)
+    rd = ref.decompress_field(rp, re_, rate, dims, shape)
+    assert torch.equal(p.cpu(), rp) and torch.equal(e.cpu(), re_)
+    assert torch.equal(d.cpu().view(torch.int32), rd.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_cuda_field_kernel_rejects_bad_inputs(cuda_device):
+    x = torch.zeros((8, 8, 12), device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        kernel.compress_field(torch.zeros((8, 8, 10), device=cuda_device), 16, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel.compress_field(x.transpose(0, 1), 16, 3)
+    misaligned = torch.zeros(8 * 8 * 12 + 1, device=cuda_device)[1:].view(8, 8, 12)
+    with pytest.raises(ValueError, match="16-byte"):
+        kernel.compress_field(misaligned, 16, 3)
+    p, e = kernel.compress_field(x, 16, 3)
+    with pytest.raises(ValueError, match="16-byte"):
+        kernel.decompress_field(p, torch.zeros(e.numel() + 1, dtype=torch.int32,
+                                               device=cuda_device)[1:], 16, 3, (8, 8, 12))
+    with pytest.raises(ValueError, match="perm"):
+        kernel.compress_field(x, 16, 3, perm=torch.arange(64, dtype=torch.int32,
+                                                          device=cuda_device))
+
+
 @pytest.mark.gpu
 def test_cuda_api_matches_torch_backend(cuda_device):
     rng = np.random.default_rng(2)

@@ -264,6 +264,130 @@ def test_kernel_wrapper_takes_plain_version_for_cpu_tensors():
 
 
 # ---------------------------------------------------------------------------
+# the field form: the padded field where it lies, rows in block order
+# ---------------------------------------------------------------------------
+
+FIELD_SHAPES = {1: (37,), 2: (9, 14), 3: (5, 7, 10), 4: (3, 6, 5, 7)}
+
+
+@pytest.mark.parametrize("rate", RATES)
+@pytest.mark.parametrize("dims", [1, 2, 3, 4])
+def test_plain_field_form_is_block_view_then_plain_blocks(dims, rate):
+    x = _field(FIELD_SHAPES[dims], seed=dims * rate)
+    block = (4,) * dims
+    padded = t_pad(torch.from_numpy(x), block)
+    assert tuple(padded.shape) != x.shape  # the shapes need padding
+    p, e = tref.compress_field(padded, rate, dims)
+    blocks, counts = t_block_view(padded, block)
+    bp, be = tref.compress_blocks(blocks.reshape(blocks.shape[0], -1), rate, dims)
+    assert torch.equal(p, bp) and torch.equal(e, be)
+    jb, _ = j_block_view(j_pad(jnp.asarray(x), block), block)
+    jp, je = jref.compress_blocks(jb.reshape(jb.shape[0], -1), rate, dims)
+    np.testing.assert_array_equal(_bits(p), np.asarray(jp))
+    np.testing.assert_array_equal(e.numpy(), np.asarray(je))
+    d = tref.decompress_field(p, e, rate, dims, tuple(padded.shape))
+    bd = tref.decompress_blocks(bp, be, rate, dims)
+    want = t_unblock_view(bd.reshape((-1,) + block), counts, block)
+    assert tuple(d.shape) == tuple(padded.shape)
+    assert torch.equal(d.view(torch.int32), want.view(torch.int32))
+    jd = jref.decompress_blocks(jp, je, rate, dims)
+    np.testing.assert_array_equal(
+        _bits(d), _bits(j_unblock_view(jd.reshape((-1,) + block), counts, block)))
+
+
+@pytest.mark.parametrize("dims", [1, 2, 3, 4])
+def test_kernel_compiled_permutation_is_the_sequency_permutation(dims):
+    np.testing.assert_array_equal(tkernel.kernel_permutation(dims),
+                                  tzfp.sequency_permutation(dims))
+
+
+@pytest.mark.parametrize("dims", [1, 2, 3, 4])
+def test_cuda_path_hands_the_padded_field_to_the_kernel(monkeypatch, dims):
+    """With the cuda wrappers replaced by recorders, core/zfp.py passes the
+    padded field itself and gets the field back, calling no block view."""
+    seen = {}
+
+    def fake_compress(padded, rate, d, *, perm, scale):
+        seen["field"] = padded
+        return tref.compress_field(padded, rate, d, perm=perm, scale=scale)
+
+    def fake_decompress(payload, emax, rate, d, padded_shape, *, perm, scale):
+        seen["shape"] = tuple(padded_shape)
+        return tref.decompress_field(payload, emax, rate, d, padded_shape, perm=perm,
+                                     scale=scale)
+
+    def no_view(*args, **kwargs):
+        raise AssertionError("the cuda ZFP path called a block view")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setitem(adapters._REGISTRY, ("zfp_field_compress", "cuda"), fake_compress)
+    monkeypatch.setitem(adapters._REGISTRY, ("zfp_field_decompress", "cuda"), fake_decompress)
+    import repro_torch.core.machine as tmachine
+    for mod in (tmachine, tzfp):
+        for name in ("block_view", "unblock_view"):
+            monkeypatch.setattr(mod, name, no_view, raising=False)
+
+    x = _field(FIELD_SHAPES[dims], seed=3)
+    tables = tref.default_tables(dims, "cpu")
+    payload, emax = tzfp.compress_field(torch.from_numpy(x), 16, dims, x.shape, "cuda",
+                                        perm=tables["perm"], scale=tables["enc_scale"])
+    padded = t_pad(torch.from_numpy(x), (4,) * dims)
+    assert torch.equal(seen["field"], padded) and seen["field"].is_contiguous()
+    out = tzfp.decompress_field(payload, emax, 16, dims, x.shape, "cuda",
+                                perm=tables["perm"], scale=tables["dec_scale"])
+    assert seen["shape"] == tuple(padded.shape)
+    assert tuple(out.shape) == x.shape
+    monkeypatch.undo()
+    want = tapi.decompress(tapi.compress(x, "zfp", rate=16, backend="torch"), backend="torch")
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+
+
+def test_cuda_path_aligns_a_misaligned_field(monkeypatch):
+    """The kernel's bulk copies need a 16-byte aligned base: a field view
+    that starts elsewhere reaches the kernel as an aligned copy."""
+    seen = {}
+
+    def fake_compress(padded, rate, d, *, perm, scale):
+        seen["ptr"] = padded.data_ptr()
+        return tref.compress_field(padded, rate, d, perm=perm, scale=scale)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setitem(adapters._REGISTRY, ("zfp_field_compress", "cuda"), fake_compress)
+    x = _field((8, 12), seed=4)
+    view = torch.from_numpy(np.concatenate([[0.0], x.ravel()]).astype(np.float32))[1:]
+    assert view.data_ptr() % 16
+    tables = tref.default_tables(2, "cpu")
+    p, e = tzfp.compress_field(view, 9, 2, x.shape, "cuda",
+                               perm=tables["perm"], scale=tables["enc_scale"])
+    assert seen["ptr"] % 16 == 0
+    rp, re_ = tref.compress_field(torch.from_numpy(x), 9, 2)
+    assert torch.equal(p, rp) and torch.equal(e, re_)
+
+
+def test_kernel_field_wrapper_takes_plain_version_for_cpu_tensors():
+    padded = t_pad(torch.from_numpy(_field((9, 10, 11), seed=8)), (4, 4, 4))
+    before = dict(tkernel.launches)
+    p, e = tkernel.compress_field(padded, 7, 3)
+    rp, re_ = tref.compress_field(padded, 7, 3)
+    assert torch.equal(p, rp) and torch.equal(e, re_)
+    d = tkernel.decompress_field(p, e, 7, 3, tuple(padded.shape))
+    rd = tref.decompress_field(p, e, 7, 3, tuple(padded.shape))
+    assert torch.equal(d.view(torch.int32), rd.view(torch.int32))
+    assert tkernel.launches == before  # no kernel ran
+
+
+def test_plain_decode_inverts_the_given_permutation():
+    """decompress_blocks inverts whatever perm it is handed (on its device)."""
+    x = torch.from_numpy(_blocks(2, 9, seed=12))
+    tables = tref.default_tables(2, "cpu")
+    perm = torch.flip(tables["perm"], [0]).contiguous()
+    p, e = tref.compress_blocks(x, 32, 2, perm=perm)
+    d = tref.decompress_blocks(p, e, 32, 2, perm=perm)
+    want = tref.decompress_blocks(*tref.compress_blocks(x, 32, 2), 32, 2)
+    assert torch.equal(d.view(torch.int32), want.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
 # the slice end to end: containers byte-identical, cross-decode bit-identical
 # ---------------------------------------------------------------------------
 
