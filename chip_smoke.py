@@ -25,7 +25,11 @@ any fails:
      (and escape the table), key counts that are no multiple of a block
      (1, 1001, 100003), an empty stream, chunk sizes 256, 4096 and 1001 (no
      multiple of 4 or of the kernel's 32-symbol stage) (the whole decoded
-     ``(chunks, chunk_size)`` output, padding included).  MGARD: quantize and dequantize at ±0,
+     ``(chunks, chunk_size)`` output, padding included); the histogram
+     also under contention (one value throughout, two alternating values,
+     sorted runs, the bytes of N(0, 0.02^2) floats), at its shared window
+     of 58,112 bins, one past it and with every key past it, each from all
+     four alignments of the first key.  MGARD: quantize and dequantize at ±0,
      ±inf, NaN, ±2^31 and just inside, exact ties, subnormal values and a
      subnormal bin, and random values of ragged lengths (aligned and not);
      lerp_coefficients at odd row lengths 3 to 4097 and ragged batches;
@@ -60,7 +64,10 @@ any fails:
      container, the plain decode included; solve_mass on the three axis
      views of every level), the ``cuda`` and ``torch`` backends' containers of a
      129^3 field byte for byte, and ``compress_leaf`` of a 4096x4096 weight
-     leaf within its bound;
+     leaf within its bound.  Dtypes — a 256^3 float16 field through
+     ``zfp`` (bytes and decode against the ``torch`` backend's) and uint16
+     and bfloat16 fields through ``mgard`` (within the bound), each call
+     counted;
   4. the container bytes round trip on the card (one ZFP, one Huffman, one
      MGARD container): ``to_bytes`` -> ``from_bytes`` -> decode,
      bit-identical;
@@ -74,7 +81,8 @@ any fails:
      solve_mass the dense
      ``torch.linalg.solve``, for lerp a stride-2 ``conv1d`` without TF32:
      yardsticks the port never calls), the plain ``pack_stream`` and the
-     host codebook build, decode_chunks on all three key sets, every MGARD
+     host codebook build, the histogram (beside ``torch.bincount``) and
+     decode_chunks on all three key sets, in device time too, every MGARD
      solve of one direction level by level (with ``torch.profiler``'s device
      times beside the events for both kernels), one profiled
      call's stage times, end-to-end ms (median of 10 host-wall runs, of 5
@@ -124,6 +132,10 @@ CHECK_ALPHABETS = (1, 2, 256, 4096, 65536)
 CHECK_COUNTS = (1, 1001, 100_003)
 CHECK_CHUNKS = (256, 4096, 1001)
 LUT_ALPHABET = 300                  # near-uniform keys: codes of 8-9 bits
+
+HIST_SHARED_BINS = 227 * 1024 // 4  # the bins the histogram counts in shared memory
+WIDE_BINS = 1 << 16                 # the widest alphabet leaf_policy gives huffman
+DTYPE_EDGE = 256                    # the non-float32 fields of phase 3
 
 MGARD_EDGE = 512                    # main_field(512), edge-padded to 513^3
 MGARD_CMP_EDGE = 129                # the cuda vs torch backends' byte comparison
@@ -232,21 +244,25 @@ def median_ms(fn, runs: int = TIMED_RUNS, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def kernel_device_ms(fn, names: tuple[str, ...]) -> list[float]:
+def kernel_device_ms(fn, names: tuple[str, ...] | None) -> list[float]:
     """Device time in ms of each launch of a kernel whose name holds one of
-    ``names`` during one call of ``fn``, in launch order, from
-    ``torch.profiler`` (CUPTI); unlike events around a call, it leaves out
-    the time the host takes to enqueue the launch."""
+    ``names`` (``None``: of every kernel and memset) during one call of
+    ``fn``, in launch order, from ``torch.profiler`` (CUPTI); unlike events
+    around a call, it leaves out the time the host takes to enqueue the
+    launch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-               and any(n in e.name for n in names)]
+    for _ in range(3):  # a profiling session now and then records no device event
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                   and (names is None or any(n in e.name for n in names))]
+        if kernels:
+            break
     kernels.sort(key=lambda e: e.time_range.start)
     return [e.time_range.elapsed_us() / 1e3 for e in kernels]
 
@@ -579,11 +595,54 @@ def phase_huffman_kernels_vs_plain(device) -> None:
     book = huffman.build_codebook(torch.zeros(4, dtype=torch.int64).numpy())
     for chunk in CHECK_CHUNKS:
         check_decode("empty stream", empty, *plain_stream(empty, book, chunk), chunk)
+    for nb in (HIST_SHARED_BINS, HIST_SHARED_BINS + 1, WIDE_BINS):
+        if hist_kernel.launch_info(nb)["smem_bytes"] != 4 * HIST_SHARED_BINS:
+            raise PhaseError(f"histogram of {nb} bins: {hist_kernel.launch_info(nb)}, "
+                             f"expected a shared window of {HIST_SHARED_BINS} bins")
+    contention = histogram_contention_cases(device)
+    for what, keys, nb in contention:
+        for start in range(4):  # every alignment of the first key
+            k = keys[start:]
+            got = hist_kernel.histogram(k, nb)
+            torch.cuda.synchronize()
+            if int_err(got, hist_ref.histogram(k, nb)):
+                raise PhaseError(f"histogram differs from its plain version: {what}, "
+                                 f"first key {start}")
+    log(f"phase 2 ok: histogram == plain version on the card under contention and at its "
+        f"limits ({', '.join(w for w, _, _ in contention)}), each from all four alignments")
     log(f"phase 2 ok: histogram, encode_lookup == plain versions on the card for {checked} "
         f"(alphabet, count) cases, out-of-range keys included; decode_chunks == plain "
         f"version (whole output) at chunks {CHECK_CHUNKS}, codes within the "
         f"{dec_ref.LUT_BITS}-bit table only, escaping it, up to 32 bits, empty stream "
         "(tolerance 0)")
+
+
+def histogram_contention_cases(device) -> list[tuple[str, "torch.Tensor", int]]:
+    """Key streams that stress the histogram: one value throughout (more
+    than 2^16 of it a CTA, past any 16-bit counter), two
+    alternating values, sorted keys (long runs), the bytes of N(0, 0.02^2)
+    float32 values (a few exponent bytes), alphabets at the shared window's
+    width and one past it, and a 2^16-key alphabet whose keys all lie past
+    the window (counted in global memory), a quarter of them one value."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(SEED + 9)
+    i32 = dict(dtype=torch.int32, device=device)
+    w = torch.randn(1 << 20, generator=g, device=device) * 0.02
+    past = torch.randint(HIST_SHARED_BINS, WIDE_BINS, (1 << 22,), generator=g, **i32)
+    past[::4] = WIDE_BINS - 1
+    return [
+        ("one value", torch.full((1 << 25,), 7, **i32), 256),
+        ("one value, 4096 bins", torch.zeros(3_000_001, **i32), 4096),
+        ("two alternating", torch.tensor([3, 200], **i32).repeat(1 << 20), 256),
+        ("sorted runs", torch.sort(skewed_keys(4096, 1 << 21, device, SEED + 10)).values, 4096),
+        ("float bytes", w.view(torch.uint8).to(torch.int32), 256),
+        (f"{HIST_SHARED_BINS} bins", skewed_keys(HIST_SHARED_BINS, 1_000_003, device,
+                                                 SEED + 11), HIST_SHARED_BINS),
+        (f"{HIST_SHARED_BINS + 1} bins", skewed_keys(HIST_SHARED_BINS + 1, 1_000_003, device,
+                                                     SEED + 12), HIST_SHARED_BINS + 1),
+        ("keys past the shared window", past, WIDE_BINS),
+    ]
 
 
 def policy_keys(x, method: str):
@@ -759,6 +818,8 @@ def phase_huffman_timings(api, run: dict, card: str) -> list[dict]:
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                     "ms": ms[name], "plain_ms": plain_ms[name], "bound_ms": bound_ms,
                     "bound_by": "bytes" if b_ms >= o_ms else "operations", "library_ms": lib})
+    histogram_timings(run["name"], keys, nb, card, ms["histogram.histogram"],
+                      library_ms["histogram.histogram"])
     decode_timings(run, card, ms["huffman_decode.decode_chunks"])
     xp, policy_method, _ = api.leaf_policy(x, method)
     _, enc_stages, enc_moved = api.encode_profiled(api.make_spec(xp, policy_method), xp)
@@ -774,6 +835,36 @@ def phase_huffman_timings(api, run: dict, card: str) -> list[dict]:
         f"decompress_leaf {e2e_decompress:.4f} ms ({nbytes / e2e_decompress / 1e6:.1f} GB/s "
         "of output)")
     return out
+
+
+def histogram_timings(name: str, keys, nb: int, card: str, ms: float | None = None,
+                      lib_ms: float | None = None) -> None:
+    """Phase 5: the histogram on one main-path key set, in events around a
+    call and in device time (median of TIMED_RUNS launches), beside its
+    bound and torch.bincount (events, and the device time of all its
+    kernels a call: it reduces the keys' maximum first)."""
+    import torch
+
+    from repro_torch.kernels.histogram import kernel as hist_kernel
+
+    def ours():
+        return hist_kernel.histogram(keys, nb)
+
+    def library():
+        return torch.bincount(keys, minlength=nb)
+
+    ms = median_ms(ours) if ms is None else ms
+    lib_ms = median_ms(library) if lib_ms is None else lib_ms
+    dev = kernel_device_ms(lambda: [ours() for _ in range(TIMED_RUNS)], ("hist_shared",))
+    lib_dev = sum(kernel_device_ms(lambda: [library() for _ in range(TIMED_RUNS)], None))
+    bound_ms = (4 * keys.numel() + 4 * nb) / HBM_BYTES_PER_S * 1e3
+    dev_ms = statistics.median(dev) if len(dev) == TIMED_RUNS else None
+    log(f"phase 5 [{card}] {name} histogram.histogram: {keys.numel()} keys, {nb} bins, launch "
+        f"{hist_kernel.launch_info(nb)}; {ms:.4f} ms in events, device "
+        + (f"{dev_ms:.4f} ms (torch.profiler), {bound_ms / dev_ms:.1%} of the bound"
+           if dev_ms else "not measured")
+        + f" {bound_ms:.4f} ms (bytes); torch.bincount {lib_ms:.4f} ms in events, "
+        f"{lib_dev / TIMED_RUNS:.4f} ms of device time")
 
 
 def decode_bytes(run: dict) -> int:
@@ -1288,8 +1379,64 @@ def phase_mgard_main_path(device, api) -> dict:
         f"{cl.ratio():.6f}, max |error| {leaf_err:.6e} <= bound {cl.meta['error_bound']:.6e}")
     return {"name": f"mgard {MGARD_EDGE}^3", "field": field, "c": c, "out": out,
             "counts": counts, "errs": errs, "plan": plan, "coeffs": coeffs, "keys": keys,
+            "entropy_keys": entropy_keys, "dict_size": dict_size,
             "lmap": lmap, "bins": bins, "rows": rows, "coarse": coarse, "thomas": thomas,
             **{k: ent[k] for k in ("words", "offsets", "tables", "chunk")}}
+
+
+def phase_dtypes(device, api) -> None:
+    """Phase 3, data other than float32 on the cuda backend, each call
+    counted: a 256^3 float16 field through zfp (container bytes against the
+    torch backend's, decode against its decode), and uint16 and bfloat16
+    fields through mgard (within the bound, in the data's dtype)."""
+    import torch
+
+    field = main_field(DTYPE_EDGE, device)
+    lo, hi = float(field.min()), float(field.max())
+    cases = [
+        ("zfp", field.to(torch.float16),
+         ("zfp_block.compress_blocks", "zfp_block.decompress_blocks")),
+        ("mgard", ((field - lo) / (hi - lo) * 60000).round().to(torch.int32).to(torch.uint16),
+         ("quantize_map.quantize", "histogram.histogram", "huffman_decode.decode_chunks")),
+        ("mgard", field.to(torch.bfloat16),
+         ("quantize_map.quantize", "histogram.histogram", "huffman_decode.decode_chunks")),
+    ]
+    for method, x, kernels in cases:
+        name = f"{method} {tuple(x.shape)} {x.dtype}"
+        torch.cuda.synchronize()
+        reset_counts()
+        c = api.compress(x, method, rate=RATE) if method == "zfp" else api.compress(x, method)
+        out = api.decompress(c)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if any(counts[k] <= 0 for k in kernels):
+            raise PhaseError(f"{name}: a kernel never launched: {counts}")
+        if out.device != device or out.dtype != x.dtype or out.shape != x.shape:
+            raise PhaseError(f"{name}: decoded {out.device} {out.dtype} {tuple(out.shape)}")
+        if c.meta["dtype"] != api.dtype_name(x):
+            raise PhaseError(f"{name}: the container records {c.meta['dtype']}")
+        err = float((out.to(torch.float64) - x.to(torch.float64)).abs().max())
+        if method == "zfp":
+            vrange = float(x.max().float() - x.min().float())
+            if not err / vrange <= ERR_TOL:
+                raise PhaseError(f"{name}: max |error| {err / vrange:.3e} of the range")
+            t0 = time.perf_counter()
+            plain = api.compress(x.cpu(), "zfp", rate=RATE, backend="torch")
+            if plain.to_bytes() != c.to_bytes():
+                raise PhaseError(f"{name}: container bytes differ from the torch backend's")
+            if not same_bits(out.view(torch.int16), api.decompress(plain, backend="torch")
+                             .view(torch.int16)):
+                raise PhaseError(f"{name}: cuda and torch decodes differ")
+            check = (f"max |error| {err / vrange:.3e} of the range; bytes == torch backend's "
+                     f"(its CPU encode took {time.perf_counter() - t0:.1f} s), decodes equal")
+        else:
+            eb = float(c.meta["error_bound"])
+            # a bfloat16 output holds 8 bits: its rounding adds to the bound
+            slack = float(x.abs().max().float()) * 2.0 ** -8 if x.is_floating_point() else 0.0
+            if not err <= eb + slack:
+                raise PhaseError(f"{name}: max |error| {err:.6e} > the bound {eb:.6e} + {slack}")
+            check = f"max |error| {err:.6e} <= bound {eb:.6e} (+ {slack:.3e} output rounding)"
+        log(f"phase 3 ok: {name} on cuda: ratio {c.ratio():.6f}, {check}; launches {counts}")
 
 
 def library_yardsticks(rows, coarse) -> dict:
@@ -1411,6 +1558,7 @@ def phase_mgard_timings(api, run: dict, card: str) -> list[dict]:
     else:
         log(f"phase 5 [{card}] mgard tridiag.solve_mass device time: not measured "
             f"({len(device)} kernel events)")
+    histogram_timings(run["name"], run["entropy_keys"], run["dict_size"], card)
     decode_timings(run, card)
 
     spec = api.make_spec(field, "mgard")
@@ -1482,6 +1630,8 @@ def main() -> int:
     lap("phase 3, Huffman")
     mgard_run = phase_mgard_main_path(device, api)
     lap("phase 3, MGARD")
+    phase_dtypes(device, api)
+    lap("phase 3, dtypes")
     phase_bytes_round_trip(api, c, out)
     phase_bytes_round_trip(api, huff_runs[0]["c"], huff_runs[0]["out"], leaf=True)
     again = phase_bytes_round_trip(api, mgard_run["c"], mgard_run["out"])

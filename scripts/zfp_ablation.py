@@ -206,7 +206,7 @@ def main() -> int:
 
     def encode(lib, x, payload, emax):
         rc = lib.zfp_field_compress(x.data_ptr(), payload.data_ptr(), emax.data_ptr(),
-                                    tables["enc_scale"].data_ptr(), *x.shape, 0, 3, RATE,
+                                    tables["enc_scale"].data_ptr(), *x.shape, 0, 3, RATE, 0,
                                     stream)
         if rc:
             raise RuntimeError(f"encode launch failed: CUDA error {rc}")

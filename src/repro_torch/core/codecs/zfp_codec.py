@@ -2,9 +2,11 @@
 of ``repro.core.codecs.zfp_codec``).
 
 The stage graph is a single device stage.  Validation (1-4 dims, rate in
-[1, 32], float32 data) happens at plan time: an invalid spec never enters the
-CMM.  The plan carries the sequency permutation and both scale tables on its
-device; containers are byte-identical to the reference's.
+[1, 32], a real or bool dtype) happens at plan time: an invalid spec never
+enters the CMM.  The plan carries the sequency permutation and both scale
+tables on its device; containers are byte-identical to the reference's, for
+every dtype the reference compresses (float64, int64 and uint64 arrive as
+float32, int32 and uint32, as in the reference).
 """
 
 from __future__ import annotations
@@ -17,6 +19,11 @@ from ..container import Compressed
 from ...kernels.zfp_block import ref as zfp_block_ref
 from . import register_codec
 from .base import Codec, ReductionPlan, ReductionSpec
+
+
+# what a ZFP spec may hold: the canonical dtypes (``api.as_tensor``)
+ZFP_DTYPES = ("float32", "float16", "bfloat16", "int32", "int16", "int8", "uint32",
+              "uint16", "uint8", "bool")
 
 
 @register_codec("zfp")
@@ -37,11 +44,8 @@ class ZFPCodec(Codec):
             raise ValueError("zfp supports 1-4 dimensional data")
         if not 1 <= rate <= 32:
             raise ValueError("rate must be in [1, 32] bits/value")
-        if spec.dtype != "float32":
-            raise ValueError(
-                f"zfp in repro_torch takes float32 data (float64 is recorded as "
-                f"float32, as the reference does), got {spec.dtype}"
-            )
+        if spec.dtype not in ZFP_DTYPES:
+            raise ValueError(f"zfp takes one of {ZFP_DTYPES}, got {spec.dtype}")
         device = adapters.device_for(spec.backend)
         plan = ReductionPlan(
             spec=spec,

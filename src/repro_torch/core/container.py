@@ -112,7 +112,9 @@ class Compressed:
         return sum(a.nbytes for a in self.arrays.values())
 
     def ratio(self) -> float:
-        orig = math.prod(self.meta["shape"]) * np.dtype(self.meta["dtype"]).itemsize
+        name = self.meta["dtype"]  # numpy knows bfloat16 only through ml_dtypes
+        itemsize = 2 if name == "bfloat16" else np.dtype(name).itemsize
+        orig = math.prod(self.meta["shape"]) * itemsize
         return orig / max(self.nbytes(), 1)
 
     # -- portable byte format (used by checkpoint/I-O layers) ---------------

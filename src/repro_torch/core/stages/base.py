@@ -228,7 +228,9 @@ class CompiledPipeline:
             v = state[k]
             if v.device.type != "cpu":
                 env.transfers.count_d2h(v)
-            fetched[k] = v.cpu().numpy()
+            v = v.cpu()
+            # numpy has no bfloat16: its values are exact in float32
+            fetched[k] = (v.float() if v.dtype == torch.bfloat16 else v).numpy()
         st.host_apply(env, fetched)
         return {}
 

@@ -37,6 +37,12 @@ from .. import bitstream as bs
 from .. import huffman
 from .base import CallEnv, Stage
 
+# torch.aminmax has no unsigned kernels: their range goes through a wider
+# signed carrier and back
+_RANGE_CARRIER = {torch.uint16: torch.int32, torch.uint32: torch.int64,
+                  torch.uint64: torch.int64}
+
+
 # int32 → another integer dtype with two's-complement wrap (the reference's
 # ``astype``); torch's 16/32-bit unsigned types convert through a same-width view
 _UNSIGNED_VIEW = {torch.uint16: torch.int16, torch.uint32: torch.int32}
@@ -55,6 +61,40 @@ def to_int32(data: torch.Tensor) -> torch.Tensor:
     if data.dtype == torch.uint32:
         return data.view(torch.int32)
     return data.to(torch.int32)
+
+
+def float32_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """float32 values as ``dtype``, converted the way XLA converts (the
+    reference's ``astype`` of a decoded array): floats round to nearest
+    even, a NaN becoming bfloat16's quiet NaN of its sign (0x7FC0 / 0xFFC0);
+    integers truncate toward zero and saturate at the type's range, NaN
+    becoming 0; bool is ``x != 0`` with subnormals counting as zero
+    (denormals-are-zero) and NaN as true."""
+    if dtype == torch.bfloat16:
+        bits = x.to(dtype).view(torch.int16)
+        nan = torch.where(torch.signbit(x), -64, 0x7FC0).to(torch.int16)
+        return torch.where(torch.isnan(x), nan, bits).view(dtype)
+    if dtype.is_floating_point:
+        return x.to(dtype)
+    if dtype == torch.bool:
+        return torch.isnan(x) | (x.abs() >= torch.finfo(torch.float32).tiny)
+    info = torch.iinfo(dtype)
+    wide = x.to(torch.float64).nan_to_num(0.0).clamp(info.min, info.max).trunc()
+    return wide.to(torch.int64).to(dtype)
+
+
+def value_range(data: torch.Tensor) -> torch.Tensor:
+    """``[min, max]`` of ``data`` in its own dtype (the reference's
+    ``jnp.min`` / ``jnp.max``)."""
+    carrier = _RANGE_CARRIER.get(data.dtype)
+    vmin, vmax = torch.aminmax(data if carrier is None else data.to(carrier))
+    return torch.stack([vmin, vmax]).to(data.dtype)
+
+
+def bfloat16_round(x: np.float32) -> float:
+    """A float32 value rounded to the nearest bfloat16 (ties to even), as
+    the reference's ``ml_dtypes`` bfloat16 arithmetic rounds its results."""
+    return float(torch.tensor(x, dtype=torch.float32).to(torch.bfloat16).item())
 
 
 # ---------------------------------------------------------------------------
@@ -157,17 +197,16 @@ class MgardDecorrelate(Stage):
         from .. import mgard
 
         data = state["data"]
-        vmin, vmax = torch.aminmax(data)
         return {
             "coeffs": mgard.decompose(data, self.shape, env.workspace("thomas")),
-            "value_range": torch.stack([vmin, vmax]),
+            "value_range": value_range(data),
         }
 
     def invert(self, env: CallEnv, state: dict) -> dict:
         from .. import mgard
 
         out = mgard.recompose(state["coeffs"], self.shape, env.workspace("thomas"))
-        return {"data": out.to(self._dtype)}
+        return {"data": float32_to(out, self._dtype)}
 
     def stage_meta(self, plan) -> dict:
         return {"shape": list(self.shape)}
@@ -177,8 +216,12 @@ class BinSchedule(Stage):
     """Host barrier: value range → effective bound + per-level bin sizes.
 
     The relative bound is ``eb0 * (vmax - vmin)`` with the subtraction in
-    float32 (numpy float32 scalars, as the reference fetches them); any
-    other order changes the bins.
+    the data's dtype, as the reference subtracts the numpy scalars it
+    fetches (float32 for float32 data; an unsigned range never wraps, since
+    vmax >= vmin); any other order changes the bins.  A bfloat16 range is
+    fetched as float32 (numpy has no bfloat16), so its difference is
+    rounded to bfloat16 here, as the reference's ``ml_dtypes`` scalars
+    round theirs.
     """
 
     name = "bin_schedule"
@@ -190,11 +233,15 @@ class BinSchedule(Stage):
         self.relative = bool(relative)
         self.L = int(L)
 
+    def planned(self, plan) -> None:
+        self._bfloat16 = plan.spec.dtype == "bfloat16"
+
     def host_apply(self, env: CallEnv, fetched: dict) -> None:
         from .. import mgard
 
         vmin, vmax = fetched["value_range"]
-        eb = self.eb0 * float(vmax - vmin) if self.relative else self.eb0
+        diff = bfloat16_round(vmax - vmin) if self._bfloat16 else vmax - vmin
+        eb = self.eb0 * float(diff) if self.relative else self.eb0
         eb = eb if eb > 0 else self.eb0
         bins = mgard.level_bins(eb, self.L)
         env.meta["error_bound"] = float(eb)
@@ -417,7 +464,9 @@ class ZfpBlockTransform(Stage):
     One stage because ZFP's whole chain is shape/rate-static: pad in
     PyTorch, then one ``zfp_block`` kernel launch per direction on the padded
     field where it lies, with the plan's sequency permutation and scale
-    tables.
+    tables.  Data of any dtype goes in as float32 (:func:`zfp.compress_field`
+    says how the reference's exponents are kept); decoded values go back to
+    the data's dtype as XLA converts them.
     """
 
     name = "zfp_block_transform"
@@ -428,11 +477,14 @@ class ZfpBlockTransform(Stage):
         self.dims = int(dims)
         self.shape = tuple(shape)
 
+    def planned(self, plan) -> None:
+        self._dtype = getattr(torch, plan.spec.dtype)
+
     def apply(self, env: CallEnv, state: dict) -> dict:
         from .. import zfp
 
         payload, emax = zfp.compress_field(
-            state["data"].to(torch.float32), self.rate, self.dims, self.shape,
+            state["data"], self.rate, self.dims, self.shape,
             env.backend, perm=env.workspace("perm"), scale=env.workspace("enc_scale"),
         )
         return {"payload": payload, "emax": emax}
@@ -444,7 +496,7 @@ class ZfpBlockTransform(Stage):
             state["payload"], state["emax"], self.rate, self.dims, self.shape,
             env.backend, perm=env.workspace("perm"), scale=env.workspace("dec_scale"),
         )
-        return {"data": out}
+        return {"data": float32_to(out, self._dtype)}
 
     def stage_meta(self, plan) -> dict:
         return {"rate": self.rate, "dims": self.dims}

@@ -40,6 +40,7 @@ _NBMASK_I32 = NBMASK - (1 << 32)  # the same bits as an int32
 _FLT_MIN = float(np.finfo(np.float32).tiny)
 _I32_MIN = float(-(1 << 31))
 _I32_MAX = float((1 << 31) - 1)
+SIGNED_INTS = (torch.int8, torch.int16, torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -155,6 +156,23 @@ def block_emax(blocks: torch.Tensor) -> torch.Tensor:
     return torch.where(keep, e, torch.zeros_like(e)).to(torch.int32)
 
 
+def integer_block_emax(padded: torch.Tensor, dims: int) -> torch.Tensor:
+    """Per-block emax of a padded signed-integer field, in row-major block
+    order, as the reference takes it in the input dtype: the largest
+    ``abs`` with two's-complement wrap, so the type's minimum (whose ``abs``
+    wraps to itself, a negative number) never raises it, then ``frexp`` of
+    that largest value as float32 (rounded: 2^25 - 1 has exponent 26).
+    For every other dtype the exponent of the float32 values, which the
+    kernel takes itself, is the reference's; for these it is not.
+    """
+    wide = padded.to(torch.int64 if padded.dtype == torch.int32 else torch.int32)
+    mag = torch.where(wide == torch.iinfo(padded.dtype).min, 0, wide.abs())
+    split = tuple(n for p in padded.shape for n in (p // 4, 4))
+    absmax = mag.reshape(split).amax(dim=tuple(range(1, 2 * dims, 2))).reshape(-1)
+    _, e = torch.frexp(absmax.to(torch.float32))
+    return torch.where(absmax > 0, e, 0).to(torch.int32)
+
+
 def saturating_int32(x: torch.Tensor) -> torch.Tensor:
     """float → int32 the way XLA converts: saturate at the int32 range, NaN → 0."""
     x = x.to(torch.float64).nan_to_num(0.0, posinf=_I32_MAX, neginf=_I32_MIN)
@@ -223,12 +241,14 @@ def unpack_bitplanes(words: torch.Tensor, rate: int, block_size: int) -> torch.T
 
 
 def _compress_blocks(
-    blocks: torch.Tensor, rate: int, perm: torch.Tensor, enc_scale: torch.Tensor
+    blocks: torch.Tensor, rate: int, perm: torch.Tensor, enc_scale: torch.Tensor,
+    emax: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(nb, 4, ..., 4)`` float32 → ``((nb, wpb) int32, (nb,) int32)``."""
+    """``(nb, 4, ..., 4)`` float32 → ``((nb, wpb) int32, (nb,) int32)``;
+    ``emax``, where given, replaces :func:`block_emax`."""
     nb = blocks.shape[0]
     flat = flush_subnormal(blocks.reshape(nb, -1).to(torch.float32))
-    emax = block_emax(flat)
+    emax = block_emax(flat) if emax is None else emax.to(torch.int32)
     q = to_fixed_point(flat, emax, enc_scale).reshape(blocks.shape)
     u = int_to_negabinary(fwd_transform(q).reshape(nb, -1))
     u = u.index_select(1, perm.to(device=u.device, dtype=torch.int64))
@@ -260,15 +280,21 @@ def compress_field(
     """Whole-array fixed-rate compress (the reference's ``compress_jit``).
 
     ``adapter`` binds the ``zfp_block`` kernel (``torch`` | ``cuda``), which
-    takes the padded field as it lies; ``perm`` and ``scale`` (the encode
-    scale table) are the plan's tables.
+    takes the padded field as it lies, in float32; ``perm`` and ``scale``
+    (the encode scale table) are the plan's tables.  Data of any other
+    dtype is padded as it is and cast to float32, as the reference casts
+    each block; signed integer data also hands the kernel the reference's
+    block exponents (:func:`integer_block_emax`).
     """
     from ..kernels.zfp_block import ops as zfp_block_ops  # lazy: layer order
 
-    padded = pad_to_blocks(data.reshape(shape), (4,) * dims).contiguous()
+    padded = pad_to_blocks(data.reshape(shape), (4,) * dims)
+    emax = integer_block_emax(padded, dims) if padded.dtype in SIGNED_INTS else None
+    padded = padded.to(torch.float32).contiguous()
     if padded.data_ptr() % 16:  # the kernel's bulk copies need an aligned base
         padded = padded.clone()
-    return zfp_block_ops.compress_field(padded, rate, dims, adapter, perm=perm, scale=scale)
+    return zfp_block_ops.compress_field(padded, rate, dims, adapter, perm=perm, scale=scale,
+                                        emax=emax)
 
 
 def decompress_field(

@@ -12,6 +12,8 @@ kernel launches, and nothing else.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .._launch import I64, INT, PTR, library, raise_on, require, route, stream
@@ -19,7 +21,10 @@ from . import ref
 
 launches = {"histogram": 0}
 
-_SIGNATURES = {"histogram_count": [PTR, I64, PTR, INT, PTR]}
+_SIGNATURES = {
+    "histogram_count": [PTR, I64, PTR, INT, PTR],
+    "histogram_launch_info": [INT, PTR, PTR],
+}
 
 
 def reset_launches() -> None:
@@ -46,3 +51,15 @@ def histogram(keys: torch.Tensor, num_bins: int) -> torch.Tensor:
     raise_on(rc, "histogram")
     launches["histogram"] += 1
     return out
+
+
+def launch_info(num_bins: int) -> dict[str, int]:
+    """The dynamic shared memory (bytes) and the CTAs an SM holds of the
+    launch for ``num_bins`` on the current card (both 0 where the alphabet
+    counts in global memory).  Builds the library."""
+    smem, ctas = ctypes.c_int(), ctypes.c_int()
+    rc = library("histogram", _SIGNATURES).histogram_launch_info(
+        int(num_bins), ctypes.byref(smem), ctypes.byref(ctas),
+    )
+    raise_on(rc, "histogram_launch_info")
+    return {"smem_bytes": smem.value, "ctas_per_sm": ctas.value}

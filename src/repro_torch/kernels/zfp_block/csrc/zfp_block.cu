@@ -488,7 +488,7 @@ template <int D>
 __global__ void __launch_bounds__(Cfg<D>::T)
 zfp_encode_kernel(const float* __restrict__ x, uint32_t* __restrict__ payload,
                   int* __restrict__ emax_out, const float* __restrict__ scale, Geo g,
-                  int rate) {
+                  int rate, int given_emax) {
   constexpr int BS = Cfg<D>::BS, ROWS = Cfg<D>::ROWS, T = Cfg<D>::T, NG = Cfg<D>::NG;
   extern __shared__ __align__(128) unsigned char smem[];
   const int wpb = (rate * BS + 31) >> 5;
@@ -553,12 +553,19 @@ zfp_encode_kernel(const float* __restrict__ x, uint32_t* __restrict__ payload,
 
     if (live) {
       // 2. block exponent: frexp's exponent of the largest magnitude, 0 for a
-      //    block of zeros and subnormals and for one holding inf or NaN
-      uint32_t m = 0u;
+      //    block of zeros and subnormals and for one holding inf or NaN; or
+      //    the caller's, already in emax_out (given_emax: what the reference
+      //    takes from signed integer data, whose minimum it leaves out)
+      int e;
+      if (given_emax) {
+        e = emax_out[tl.first + k];
+      } else {
+        uint32_t m = 0u;
 #pragma unroll
-      for (int i = 0; i < BS; ++i) m = max(m, v[i] & 0x7fffffffu);
-      const int e = (m < 0x00800000u || m >= 0x7f800000u) ? 0 : static_cast<int>(m >> 23) - 126;
-      emax_out[tl.first + k] = e;
+        for (int i = 0; i < BS; ++i) m = max(m, v[i] & 0x7fffffffu);
+        e = (m < 0x00800000u || m >= 0x7f800000u) ? 0 : static_cast<int>(m >> 23) - 126;
+        emax_out[tl.first + k] = e;
+      }
       const float sc = s_scale[scale_row(e)];
 
       // 3. fixed point: saturating round-half-even of x * scale, NaN -> 0
@@ -816,7 +823,7 @@ int kernel_info(int rate, int decode, int* smem, int* per_sm) {
 
 template <int D>
 int launch_encode(const void* x, void* payload, void* emax, const void* scale,
-                  const long long* shape, int rate, cudaStream_t stream) {
+                  const long long* shape, int rate, int given_emax, cudaStream_t stream) {
   Geo g;
   if (!make_geo<D>(shape, &g)) return static_cast<int>(cudaErrorInvalidValue);
   const int wpb = (rate * Cfg<D>::BS + 31) >> 5;
@@ -826,7 +833,7 @@ int launch_encode(const void* x, void* payload, void* emax, const void* scale,
   if (rc) return rc;
   zfp_encode_kernel<D><<<grid, Cfg<D>::T, smem, stream>>>(
       static_cast<const float*>(x), static_cast<uint32_t*>(payload), static_cast<int*>(emax),
-      static_cast<const float*>(scale), g, rate);
+      static_cast<const float*>(scale), g, rate, given_emax);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -851,10 +858,11 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 }  // namespace
 
 // The padded field `x` (shape p0..p{dims-1}, each a multiple of 4) -> payload
-// rows and emax in row-major block order.
+// rows and emax in row-major block order.  With given_emax, `emax` already
+// holds each block's exponent, which the encode uses instead of its own.
 extern "C" int zfp_field_compress(const void* x, void* payload, void* emax, const void* scale,
                                   long long p0, long long p1, long long p2, long long p3,
-                                  int dims, int rate, void* stream) {
+                                  int dims, int rate, int given_emax, void* stream) {
   const long long shape[4] = {p0, p1, p2, p3};
   if (rate < 1 || rate > 32) return static_cast<int>(cudaErrorInvalidValue);
   if (!aligned16(x) || !aligned16(payload) || !aligned16(emax))
@@ -864,10 +872,10 @@ extern "C" int zfp_field_compress(const void* x, void* payload, void* emax, cons
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dims) {
-    case 1: return launch_encode<1>(x, payload, emax, scale, shape, rate, s);
-    case 2: return launch_encode<2>(x, payload, emax, scale, shape, rate, s);
-    case 3: return launch_encode<3>(x, payload, emax, scale, shape, rate, s);
-    case 4: return launch_encode<4>(x, payload, emax, scale, shape, rate, s);
+    case 1: return launch_encode<1>(x, payload, emax, scale, shape, rate, given_emax, s);
+    case 2: return launch_encode<2>(x, payload, emax, scale, shape, rate, given_emax, s);
+    case 3: return launch_encode<3>(x, payload, emax, scale, shape, rate, given_emax, s);
+    case 4: return launch_encode<4>(x, payload, emax, scale, shape, rate, given_emax, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

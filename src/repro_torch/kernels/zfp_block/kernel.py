@@ -39,7 +39,7 @@ from . import ref
 launches = {"compress_blocks": 0, "decompress_blocks": 0}
 
 _SIGNATURES = {
-    "zfp_field_compress": [PTR, PTR, PTR, PTR, I64, I64, I64, I64, INT, INT, PTR],
+    "zfp_field_compress": [PTR, PTR, PTR, PTR, I64, I64, I64, I64, INT, INT, INT, PTR],
     "zfp_field_decompress": [PTR, PTR, PTR, PTR, I64, I64, I64, I64, INT, INT, PTR],
     "zfp_tile_blocks": [INT],
     "zfp_launch_info": [INT, INT, INT, PTR, PTR],
@@ -128,16 +128,21 @@ def _check_field_shape(shape: tuple[int, ...], dims: int) -> None:
                          f"got shape {shape}")
 
 
-def _encode(field: torch.Tensor, rate: int, dims: int, scale: torch.Tensor):
+def _encode(field: torch.Tensor, rate: int, dims: int, scale: torch.Tensor,
+            given: torch.Tensor | None = None):
     dev = field.device
     n = field.numel() // 4 ** dims
     wpb = core_zfp.words_per_block(4 ** dims, rate)
     payload = torch.empty((n, wpb), dtype=torch.int32, device=dev)
-    emax = torch.empty((n,), dtype=torch.int32, device=dev)
+    if given is None:
+        emax = torch.empty((n,), dtype=torch.int32, device=dev)
+    else:  # the kernel reads each block's exponent from its emax output
+        require(given, "emax", torch.int32, (n,), dev)
+        emax = given.clone()
     if n:
         rc = library("zfp_block", _SIGNATURES).zfp_field_compress(
             field.data_ptr(), payload.data_ptr(), emax.data_ptr(), scale.data_ptr(),
-            *_field_dims(tuple(field.shape)), dims, rate, stream(dev),
+            *_field_dims(tuple(field.shape)), dims, rate, int(given is not None), stream(dev),
         )
         raise_on(rc, "zfp_encode_kernel")
         launches["compress_blocks"] += 1
@@ -167,23 +172,25 @@ def _decode(payload: torch.Tensor, emax: torch.Tensor, rate: int, dims: int,
 def compress_field(
     padded: torch.Tensor, rate: int, dims: int, *,
     perm: torch.Tensor | None = None, scale: torch.Tensor | None = None,
+    emax: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Padded float32 field → ``((N, wpb) int32 words, (N,) int32 emax)``,
     rows in ``block_view``'s block order.
 
     ``perm`` (int32, the sequency permutation) and ``scale`` (float32, the
     encode scale table) are the plan's carried tables; missing ones are
-    built for this call.
+    built for this call.  ``emax`` (int32, one per block), where given, is
+    used instead of the exponent the kernel would take of each block.
     """
     if route(padded, "zfp_block"):
-        return ref.compress_field(padded, rate, dims, perm=perm, scale=scale)
+        return ref.compress_field(padded, rate, dims, perm=perm, scale=scale, emax=emax)
     _check_params(rate, dims)
     shape = tuple(padded.shape)
     _check_field_shape(shape, dims)
     require(padded, "field", torch.float32, shape, padded.device)
     _require_aligned(padded, "field")
     scale = _tables(perm, scale, dims, padded.device, "enc_scale")
-    return _encode(padded, rate, dims, scale)
+    return _encode(padded, rate, dims, scale, emax)
 
 
 def decompress_field(

@@ -41,9 +41,10 @@ def decompress_blocks(
 def compress_field(
     padded: torch.Tensor, rate: int, dims: int, adapter: str | None = None, *,
     perm: torch.Tensor | None = None, scale: torch.Tensor | None = None,
+    emax: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     return adapters.dispatch("zfp_field_compress", adapter)(
-        padded, rate, dims, perm=perm, scale=scale
+        padded, rate, dims, perm=perm, scale=scale, emax=emax
     )
 
 

@@ -35,9 +35,10 @@ def _check_shape(block_size: int, dims: int) -> None:
 def compress_blocks(
     blocks: torch.Tensor, rate: int, dims: int, *,
     perm: torch.Tensor | None = None, scale: torch.Tensor | None = None,
-    chunk: int = CHUNK_BLOCKS,
+    chunk: int = CHUNK_BLOCKS, emax: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(N, 4^dims)`` float32 → ``((N, wpb) int32 words, (N,) int32 emax)``."""
+    """``(N, 4^dims)`` float32 → ``((N, wpb) int32 words, (N,) int32 emax)``;
+    ``emax``, where given, replaces the exponent taken of each block."""
     n, block_size = blocks.shape
     _check_shape(block_size, dims)
     if perm is None or scale is None:
@@ -48,9 +49,10 @@ def compress_blocks(
     payloads, emaxes = [], []
     for lo in range(0, n, chunk):
         part = blocks[lo : lo + chunk].reshape((-1,) + block_shape)
-        payload, emax = core_zfp._compress_blocks(part, rate, perm, scale)
+        given = None if emax is None else emax[lo : lo + chunk]
+        payload, part_emax = core_zfp._compress_blocks(part, rate, perm, scale, given)
         payloads.append(payload)
-        emaxes.append(emax)
+        emaxes.append(part_emax)
     if not payloads:
         wpb = core_zfp.words_per_block(block_size, rate)
         return (blocks.new_empty((0, wpb), dtype=torch.int32),
@@ -86,13 +88,13 @@ def decompress_blocks(
 def compress_field(
     padded: torch.Tensor, rate: int, dims: int, *,
     perm: torch.Tensor | None = None, scale: torch.Tensor | None = None,
-    chunk: int = CHUNK_BLOCKS,
+    chunk: int = CHUNK_BLOCKS, emax: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Padded field → payload rows and emax in block order: ``block_view``,
     then :func:`compress_blocks`."""
     blocks, _counts = block_view(padded, (4,) * dims)
     return compress_blocks(blocks.reshape(blocks.shape[0], -1), rate, dims,
-                           perm=perm, scale=scale, chunk=chunk)
+                           perm=perm, scale=scale, chunk=chunk, emax=emax)
 
 
 def decompress_field(

@@ -162,3 +162,13 @@ def test_context_cache_hits_and_lru():
     stats = cache.stats()
     assert (stats["hits"], stats["misses"], stats["evictions"]) == (1, 3, 1)
     assert stats["bytes"] == 2 * 16  # torch tensors' nbytes are counted
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16", "uint16", "int8", "bool"])
+def test_ratio_matches_reference_for_every_dtype(dtype):
+    """The original size counts the recorded dtype's width; numpy knows
+    bfloat16 only through ml_dtypes, which the port does not import."""
+    meta = dict(_sample_meta(), dtype=dtype)
+    j = jcont.Compressed("zfp", meta, _sample_arrays())
+    t = tcont.Compressed.from_bytes(j.to_bytes())
+    assert t.ratio() == j.ratio()

@@ -183,11 +183,80 @@ def test_histogram_kernel_matches_plain_version(cuda_device, num_bins, n):
     keys[::97] = -3          # out of range on both sides: counted nowhere
     keys[1::101] = num_bins
     before = hist_kernel.launches["histogram"]
-    for k in (keys, keys[1:]):  # aligned and misaligned (scalar loads)
+    for k in (keys, keys[1:]):  # aligned and misaligned (a peeled head)
         got = hist_kernel.histogram(k.to(cuda_device), num_bins)
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), hist_ref.histogram(k, num_bins))
     assert hist_kernel.launches["histogram"] == before + (2 if n > 1 else 1)
+
+
+def _float_bytes(n: int, seed: int) -> np.ndarray:
+    """The byte view of N(0, 0.02^2) float32 values as int32 keys (256 bins):
+    the exponent byte takes a handful of values."""
+    w = (np.random.default_rng(seed).normal(size=n // 4) * 0.02).astype(np.float32)
+    return w.view(np.uint8).astype(np.int32)
+
+
+def _past_window(n: int, seed: int) -> np.ndarray:
+    """Keys of a 2^16-key alphabet that all lie past the kernel's shared
+    window of 58,112 bins (counted in global memory), a quarter of them
+    one value."""
+    keys = np.random.default_rng(seed).integers(58112, 1 << 16, n).astype(np.int32)
+    keys[::4] = (1 << 16) - 1
+    return keys
+
+
+HIST_CONTENTION = {  # name: (keys, num_bins); 2^25 of one value: > 2^16 a CTA
+    "one value": (lambda: np.full(1 << 25, 7, np.int32), 256),
+    "one value, 4096 bins": (lambda: np.zeros(3_000_001, np.int32), 4096),
+    "two alternating": (lambda: np.tile(np.array([3, 200], np.int32), 1 << 20), 256),
+    "sorted runs": (lambda: np.sort(_skewed_keys(4096, 1 << 21, seed=3)), 4096),
+    "float bytes": (lambda: _float_bytes(1 << 22, seed=2), 256),
+    "float bytes, odd length": (lambda: _float_bytes(1 << 20, seed=4)[:1_000_003], 256),
+    "past the shared window": (lambda: _past_window(1 << 22, seed=5), 1 << 16),
+}
+
+# Alphabets at the limit of the kernel's shared-memory window, with the
+# dynamic shared bytes ``launch_info`` must report: one copy of the
+# histogram a CTA up to 227 KB (58,112 bins); the bins past it count in
+# global memory.
+HIST_LIMITS = {256: 1024, 4096: 16384, 58112: 232448, 58113: 232448, 65536: 232448}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(HIST_CONTENTION))
+def test_histogram_kernel_under_contention(cuda_device, case):
+    make, num_bins = HIST_CONTENTION[case]
+    keys = torch.from_numpy(make())
+    for start in range(4):  # every alignment of the first key
+        k = keys[start:]
+        got = hist_kernel.histogram(k.to(cuda_device), num_bins)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), hist_ref.histogram(k, num_bins)), start
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("num_bins", sorted(HIST_LIMITS))
+def test_histogram_kernel_at_its_layout_limits(cuda_device, num_bins):
+    info = hist_kernel.launch_info(num_bins)
+    assert info["smem_bytes"] == HIST_LIMITS[num_bins] and info["ctas_per_sm"] >= 1
+    keys = torch.from_numpy(_skewed_keys(num_bins, 1_000_003, seed=num_bins))
+    keys[-3:] = num_bins - 1
+    for k in (keys, keys[3:]):
+        got = hist_kernel.histogram(k.to(cuda_device), num_bins)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), hist_ref.histogram(k, num_bins))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 7, 8, 9, 33])
+def test_histogram_kernel_short_streams_at_every_alignment(cuda_device, n):
+    keys = torch.arange(n + 3, dtype=torch.int32) % 5
+    for start in range(4):
+        k = keys[start:start + n]
+        got = hist_kernel.histogram(k.to(cuda_device), 5)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), hist_ref.histogram(k, 5)), start
 
 
 @pytest.mark.gpu
@@ -478,3 +547,77 @@ def test_cuda_mgard_api_matches_torch_backend(cuda_device, shape):
     want = api.decompress(c, backend="torch")
     assert torch.equal(out.cpu().view(torch.int32), want.view(torch.int32))
     assert float((out.cpu() - x).abs().max()) <= c.meta["error_bound"]
+
+
+# ---------------------------------------------------------------------------
+# dtypes other than float32 through the codecs: the cuda backend's
+# containers equal the torch backend's
+# ---------------------------------------------------------------------------
+
+
+def _dtype_field(shape: tuple, dtype: str, seed: int) -> torch.Tensor:
+    """Values of ``dtype``: floats over a wide exponent range with a block
+    of subnormals, integers over the type's range with its minimum planted
+    (alone in a block and beside other values)."""
+    rng = np.random.default_rng(seed)
+    tdtype = getattr(torch, dtype)
+    if dtype == "bool":
+        return torch.from_numpy(rng.random(shape) < 0.3)
+    if tdtype.is_floating_point:
+        x = torch.from_numpy(rng.normal(size=shape) * 10.0 ** rng.uniform(-6, 4, size=shape))
+        x = x.to(tdtype)
+        tiny = torch.finfo(tdtype).smallest_normal * 2.0 ** -3
+        x.view(-1)[:64] = torch.from_numpy(rng.integers(-7, 8, size=64) * tiny).to(tdtype)
+        return x
+    info = torch.iinfo(tdtype)
+    x = torch.from_numpy(rng.integers(max(info.min, -(2 ** 31)), min(info.max, 2 ** 31 - 1),
+                                      size=shape, endpoint=True)).to(tdtype)
+    x.view(-1)[:64] = info.min
+    x.view(-1)[64::13] = info.min
+    return x
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal dtype, shape and bits (NaNs compare)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.is_floating_point:
+        a, b = a.view(torch.int16 if a.element_size() == 2 else torch.int32), \
+            b.view(torch.int16 if b.element_size() == 2 else torch.int32)
+    return torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16", "int32", "int16", "int8", "uint8",
+                                   "uint16", "uint32", "bool"])
+def test_cuda_zfp_dtypes_match_torch_backend(cuda_device, dtype):
+    x = _dtype_field((13, 17, 9), dtype, seed=21)
+    c = api.compress(x.to(cuda_device), "zfp", rate=16)
+    assert c.to_bytes() == api.compress(x, "zfp", rate=16, backend="torch").to_bytes()
+    out = api.decompress(c)
+    assert out.device.type == "cuda" and out.dtype == x.dtype
+    assert _same(out, api.decompress(c, backend="torch"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["int32", "int16", "uint8"])
+def test_cuda_zfp_integer_leaf_matches_torch_backend(cuda_device, dtype):
+    x = _dtype_field((37, 50), dtype, seed=22)
+    c = api.compress_leaf(x.to(cuda_device), "zfp", rate=12)
+    assert c.to_bytes() == api.compress_leaf(x, "zfp", rate=12, backend="torch").to_bytes()
+    assert _same(api.decompress_leaf(c), api.decompress_leaf(c, backend="torch"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["uint16", "uint32", "bfloat16", "float16", "int16"])
+def test_cuda_mgard_dtypes_match_torch_backend(cuda_device, dtype):
+    rng = np.random.default_rng(23)
+    f = rng.normal(size=(17, 9, 13)).cumsum(axis=0)
+    if dtype.startswith("uint"):
+        f = (f - f.min()) * 1000.0
+    x = torch.from_numpy(f).to(getattr(torch, dtype))
+    c = api.compress(x.to(cuda_device), "mgard")
+    assert c.to_bytes() == api.compress(x, "mgard", backend="torch").to_bytes()
+    out = api.decompress(c)
+    assert out.device.type == "cuda" and out.dtype == x.dtype
+    assert _same(out, api.decompress(c, backend="torch"))

@@ -438,6 +438,83 @@ def test_compress_leaf_round_trip_within_bound(dtype):
     assert c.meta["error_bound"] == pytest.approx(jc.meta["error_bound"])
 
 
+def _unsigned_field(dtype, seed: int) -> np.ndarray:
+    """A smooth field of counts near the middle of ``dtype``'s range, with
+    its minimum and maximum planted."""
+    rng = np.random.default_rng(seed)
+    top = min(np.iinfo(dtype).max, 2 ** 32 - 1)
+    f = smooth_field_3d(12, noise=0.05)
+    x = (f - f.min()) / (f.max() - f.min()) * (0.8 * top) + 0.1 * top
+    x = x.astype(np.float64) + rng.integers(0, 3, size=x.shape)
+    x.flat[0], x.flat[-1] = 0, top
+    return x.astype(np.uint64).astype(dtype)
+
+
+def _bfloat16_field(seed: int) -> np.ndarray:
+    """bfloat16 values whose range, max - min, is no bfloat16 (3 + 3 * 2^-8):
+    the reference rounds that difference to bfloat16, 3.015625."""
+    f = smooth_field_3d(12, noise=0.05).astype(np.float64)
+    x = np.clip(f / np.abs(f).max() * 2.5, -0.01, 2.9)
+    x.flat[0], x.flat[-1] = 3.0, -0.01171875
+    return x.astype(ml_dtypes.bfloat16)
+
+
+DTYPE_CASES = {  # name: (make, params, the dtype the reference records)
+    "uint16 relative": (lambda: _unsigned_field(np.uint16, 1), {}, "uint16"),
+    "uint16 absolute": (lambda: _unsigned_field(np.uint16, 2),
+                        {"relative": False, "error_bound": 40.0}, "uint16"),
+    "uint16 tight": (lambda: _unsigned_field(np.uint16, 3), {"error_bound": 1e-4}, "uint16"),
+    "uint32 relative": (lambda: _unsigned_field(np.uint32, 4), {}, "uint32"),
+    "uint32 absolute": (lambda: _unsigned_field(np.uint32, 5),
+                        {"relative": False, "error_bound": 3e6}, "uint32"),
+    "uint64 relative": (lambda: _unsigned_field(np.uint64, 6), {}, "uint32"),
+    "uint64 absolute": (lambda: _unsigned_field(np.uint64, 7),
+                        {"relative": False, "error_bound": 3e6}, "uint32"),
+    "bfloat16 relative": (lambda: _bfloat16_field(8), {}, "bfloat16"),
+    "bfloat16 tight": (lambda: _bfloat16_field(9), {"error_bound": 1e-3}, "bfloat16"),
+    "bfloat16 absolute": (lambda: _bfloat16_field(10),
+                          {"relative": False, "error_bound": 0.05}, "bfloat16"),
+}
+
+
+def _values(a) -> np.ndarray:
+    """A decoded array of either package as float64 values."""
+    if isinstance(a, torch.Tensor):
+        return a.to(torch.float64).numpy()
+    return np.asarray(a).astype(np.float64)
+
+
+@pytest.mark.parametrize("case", sorted(DTYPE_CASES))
+def test_codec_unsigned_and_bfloat16_match_reference(case):
+    """Unsigned and bfloat16 data through ``api.compress``: the reference's
+    bound and bins (its range subtracted in the data's dtype; a bfloat16
+    difference rounded to bfloat16), the recorded dtype, and every decode
+    of either package's stream within the bound, in that dtype."""
+    make, params, dtype = DTYPE_CASES[case]
+    x = make()
+    tc = tapi.compress(x, "mgard", backend="torch", **params)
+    jc = japi.compress(x, "mgard", backend="xla", **params)
+    assert tc.meta["dtype"] == jc.meta["dtype"] == dtype
+    assert tc.meta["error_bound"] == jc.meta["error_bound"]
+    assert np.array_equal(tc.arrays["bins"], np.asarray(jc.arrays["bins"]))
+    if dtype == "bfloat16" and params.get("relative", True):
+        span = np.float32(x.max()) - np.float32(x.min())
+        assert tc.meta["error_bound"] != pytest.approx(params.get("error_bound", 1e-2) * span)
+    eb = tc.meta["error_bound"]
+    want = _values(x.astype(np.uint32) if dtype == "uint32" else x)
+    outs = {
+        "port": tapi.decompress(TCompressed.from_bytes(tc.to_bytes()), backend="torch"),
+        "port->ref": japi.decompress(JCompressed.from_bytes(tc.to_bytes())),
+        "ref->port": tapi.decompress(TCompressed.from_bytes(jc.to_bytes()), backend="torch"),
+    }
+    for name, out in outs.items():
+        got_dtype = tapi.dtype_name(out) if isinstance(out, torch.Tensor) else str(out.dtype)
+        assert got_dtype == dtype and tuple(out.shape) == x.shape, name
+        # bfloat16 holds the decoded value to 8 bits: its rounding adds to the bound
+        slack = float(np.abs(want).max()) * 2.0 ** -8 if dtype == "bfloat16" else 0.0
+        assert np.abs(_values(out) - want).max() <= eb + slack, name
+
+
 def test_mgard_progressive_still_raises():
     with pytest.raises(ValueError, match="not yet ported"):
         tapi.leaf_policy(np.zeros(4, np.float32), "mgard-progressive")

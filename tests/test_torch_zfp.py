@@ -21,6 +21,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
+import ml_dtypes
 
 from repro.core import api as japi
 from repro.core import bitstream as jbits
@@ -88,6 +89,50 @@ def _field(shape: tuple, seed: int) -> np.ndarray:
     flat[2 * k : 3 * k] *= np.float32(2.0 ** -110)
     flat[-k:] *= np.float32(3e38)
     return f
+
+
+def _int_field(shape: tuple, dtype, seed: int) -> np.ndarray:
+    """Integers over the dtype's range (int32: values past 2^24 too, which
+    round when cast to float32), with the type's minimum planted through
+    the field: alone in a block, beside zeros and beside other values."""
+    rng = np.random.default_rng(seed)
+    info = np.iinfo(dtype)
+    x = rng.integers(info.min, info.max, size=shape, endpoint=True, dtype=np.int64)
+    x = x >> rng.integers(0, 20 if info.bits > 16 else info.bits - 1, size=shape)
+    x = x.astype(dtype)
+    flat = x.reshape(-1)
+    flat[::11] = info.min
+    flat[:64] = info.min                         # whole blocks of the minimum
+    flat[64:128] = 0
+    flat[64:128:5] = info.min
+    if info.bits == 32:
+        flat[128:136] = ([2 ** 25 - 1, 2 ** 24 + 1, -(2 ** 31) + 1, 2 ** 31 - 1,
+                          -(2 ** 31) + 100, 2 ** 31 - 100, 16777217, -16777217] if info.min
+                         else [2 ** 32 - 1, 2 ** 25 - 1, 2 ** 24 + 1, 2 ** 31, 2 ** 32 - 100,
+                               2 ** 31 - 1, 16777217, 0])
+    return x
+
+
+def _float_field(shape: tuple, dtype, seed: int) -> np.ndarray:
+    """Values over a wide exponent range in ``dtype``, with blocks of the
+    dtype's subnormals only, and subnormals beside normal values."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=shape) * 10.0 ** rng.uniform(-6, 4, size=shape)
+    x = x.astype(dtype)
+    tiny = float(ml_dtypes.finfo(dtype).smallest_subnormal)
+    flat = x.reshape(-1)
+    flat[:64] = (rng.integers(-40, 40, size=64) * tiny).astype(dtype)  # subnormal blocks
+    flat[64:128:3] = (rng.integers(1, 9, size=22) * tiny).astype(dtype)
+    return x
+
+
+def _as_numpy(a) -> np.ndarray:
+    """A decoded array of either package as numpy, bfloat16 as its bits."""
+    if isinstance(a, torch.Tensor):
+        return a.view(torch.int16).numpy().view(np.uint16) if a.dtype == torch.bfloat16 \
+            else a.numpy()
+    a = np.asarray(a)
+    return a.view(np.uint16) if a.dtype == ml_dtypes.bfloat16 else a
 
 
 # ---------------------------------------------------------------------------
@@ -307,9 +352,9 @@ def test_cuda_path_hands_the_padded_field_to_the_kernel(monkeypatch, dims):
     padded field itself and gets the field back, calling no block view."""
     seen = {}
 
-    def fake_compress(padded, rate, d, *, perm, scale):
-        seen["field"] = padded
-        return tref.compress_field(padded, rate, d, perm=perm, scale=scale)
+    def fake_compress(padded, rate, d, *, perm, scale, emax=None):
+        seen["field"], seen["emax"] = padded, emax
+        return tref.compress_field(padded, rate, d, perm=perm, scale=scale, emax=emax)
 
     def fake_decompress(payload, emax, rate, d, padded_shape, *, perm, scale):
         seen["shape"] = tuple(padded_shape)
@@ -333,6 +378,7 @@ def test_cuda_path_hands_the_padded_field_to_the_kernel(monkeypatch, dims):
                                         perm=tables["perm"], scale=tables["enc_scale"])
     padded = t_pad(torch.from_numpy(x), (4,) * dims)
     assert torch.equal(seen["field"], padded) and seen["field"].is_contiguous()
+    assert seen["emax"] is None  # float32 data: the kernel takes its own exponents
     out = tzfp.decompress_field(payload, emax, 16, dims, x.shape, "cuda",
                                 perm=tables["perm"], scale=tables["dec_scale"])
     assert seen["shape"] == tuple(padded.shape)
@@ -347,9 +393,9 @@ def test_cuda_path_aligns_a_misaligned_field(monkeypatch):
     that starts elsewhere reaches the kernel as an aligned copy."""
     seen = {}
 
-    def fake_compress(padded, rate, d, *, perm, scale):
+    def fake_compress(padded, rate, d, *, perm, scale, emax=None):
         seen["ptr"] = padded.data_ptr()
-        return tref.compress_field(padded, rate, d, perm=perm, scale=scale)
+        return tref.compress_field(padded, rate, d, perm=perm, scale=scale, emax=emax)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setitem(adapters._REGISTRY, ("zfp_field_compress", "cuda"), fake_compress)
@@ -362,6 +408,33 @@ def test_cuda_path_aligns_a_misaligned_field(monkeypatch):
     assert seen["ptr"] % 16 == 0
     rp, re_ = tref.compress_field(torch.from_numpy(x), 9, 2)
     assert torch.equal(p, rp) and torch.equal(e, re_)
+
+
+def test_cuda_path_hands_integer_fields_the_reference_exponents(monkeypatch):
+    """Signed integer data reaches the kernel as its float32 cast, with the
+    reference's block exponents (the type's minimum left out), which the
+    kernel would not take of the cast."""
+    seen = {}
+
+    def fake_compress(padded, rate, d, *, perm, scale, emax=None):
+        seen["field"], seen["emax"] = padded, emax
+        return tref.compress_field(padded, rate, d, perm=perm, scale=scale, emax=emax)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setitem(adapters._REGISTRY, ("zfp_field_compress", "cuda"), fake_compress)
+    x = _int_field((9, 10, 7), np.int32, seed=6)
+    tables = tref.default_tables(3, "cpu")
+    p, e = tzfp.compress_field(torch.from_numpy(x), 16, 3, x.shape, "cuda",
+                               perm=tables["perm"], scale=tables["enc_scale"])
+    assert seen["field"].dtype == torch.float32 and seen["emax"].dtype == torch.int32
+    jblocks, _ = j_block_view(j_pad(jnp.asarray(x), (4, 4, 4)), (4, 4, 4))
+    want = np.asarray(jax.vmap(jzfp.block_emax)(jblocks))
+    np.testing.assert_array_equal(seen["emax"].numpy(), want)
+    # the float32 cast alone would give other exponents (its minimum counts)
+    assert not np.array_equal(want, tref.compress_field(seen["field"], 16, 3)[1].numpy())
+    tc = tapi.compress(x, "zfp", rate=16, backend="torch")
+    assert torch.equal(p, torch.from_numpy(tc.arrays["payload"].view(np.int32)).reshape(p.shape))
+    assert torch.equal(e, torch.from_numpy(tc.arrays["emax"]))
 
 
 def test_kernel_field_wrapper_takes_plain_version_for_cpu_tensors():
@@ -465,6 +538,93 @@ def test_leaf_policy_casts_float16_like_reference():
     got = tapi.decompress_leaf(tc, backend="torch")
     assert got.dtype == torch.float16
     np.testing.assert_array_equal(got.numpy(), japi.decompress_leaf(jc))
+
+
+ZFP_DTYPE_CASES = {  # name: (make, meta dtype the reference records)
+    "float16": (lambda: _float_field((13, 17, 9), np.float16, 1), "float16"),
+    "float16 2-D": (lambda: _float_field((33, 47), np.float16, 2), "float16"),
+    "bfloat16": (lambda: _float_field((13, 17, 9), ml_dtypes.bfloat16, 3), "bfloat16"),
+    "float64": (lambda: _field((13, 17, 9), 4).astype(np.float64) * (1 + 1e-9), "float32"),
+    "int32": (lambda: _int_field((13, 17, 9), np.int32, 5), "int32"),
+    "int32 1-D": (lambda: _int_field((1001,), np.int32, 6), "int32"),
+    "int16": (lambda: _int_field((13, 17, 9), np.int16, 7), "int16"),
+    "int8": (lambda: _int_field((33, 47), np.int8, 8), "int8"),
+    "int64": (lambda: _int_field((13, 17, 9), np.int32, 9).astype(np.int64), "int32"),
+    "uint8": (lambda: _int_field((33, 47), np.uint8, 10), "uint8"),
+    "uint16": (lambda: _int_field((13, 17, 9), np.uint16, 11), "uint16"),
+    "uint32": (lambda: _int_field((13, 17, 9), np.uint32, 12), "uint32"),
+    "bool": (lambda: np.random.default_rng(13).random((33, 47)) < 0.3, "bool"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ZFP_DTYPE_CASES))
+def test_compress_dtypes_bytes_identical_and_cross_decode(case):
+    """Every dtype the reference compresses: the same container bytes, and
+    each package decodes the other's stream to the same values, in the
+    recorded dtype (float16/bfloat16 subnormals, the int32 minimum and
+    int32 values past 2^24 included)."""
+    make, dtype = ZFP_DTYPE_CASES[case]
+    x = make()
+    for rate in (7, 16):
+        jc = japi.compress(x, "zfp", rate=rate, backend="xla")
+        tc = tapi.compress(x, "zfp", rate=rate, backend="torch")
+        assert tc.meta["dtype"] == jc.meta["dtype"] == dtype
+        assert tc.to_bytes() == jc.to_bytes()
+        ref_out = _as_numpy(japi.decode(jc, backend="xla"))
+        outs = {
+            "port": tapi.decode(tc, backend="torch"),
+            "ref->port": tapi.decode(TCompressed.from_bytes(jc.to_bytes()), backend="torch"),
+            "port->ref": japi.decode(JCompressed.from_bytes(tc.to_bytes()), backend="xla"),
+        }
+        for name, out in outs.items():
+            out = _as_numpy(out)
+            assert out.dtype == ref_out.dtype and out.shape == x.shape, name
+            np.testing.assert_array_equal(out.view(np.uint8), ref_out.view(np.uint8), name)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int16, np.uint8])
+def test_compress_leaf_integer_leaf_bytes_identical(dtype):
+    """``leaf_policy`` passes integer leaves to ZFP uncast."""
+    x = _int_field((37, 50), dtype, seed=14)
+    jc = japi.compress_leaf(x, "zfp", rate=12, backend="xla")
+    tc = tapi.compress_leaf(x, "zfp", rate=12, backend="torch")
+    assert tc.to_bytes() == jc.to_bytes()
+    for got in (tapi.decompress_leaf(TCompressed.from_bytes(jc.to_bytes()), backend="torch"),
+                torch.from_numpy(np.asarray(
+                    japi.decompress_leaf(JCompressed.from_bytes(tc.to_bytes()))))):
+        want = np.asarray(japi.decompress_leaf(jc))
+        assert got.dtype == torch.from_numpy(want).dtype and tuple(got.shape) == x.shape
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int16, np.int8])
+@pytest.mark.parametrize("dims", [1, 2, 3])
+def test_integer_block_emax_matches_reference(dtype, dims):
+    shape = {1: (1001,), 2: (33, 47), 3: (13, 17, 9)}[dims]
+    x = _int_field(shape, dtype, seed=dims)
+    padded = j_pad(jnp.asarray(x), (4,) * dims)
+    jblocks, _ = j_block_view(padded, (4,) * dims)
+    want = np.asarray(jax.vmap(jzfp.block_emax)(jblocks))
+    got = tzfp.integer_block_emax(torch.from_numpy(np.array(padded)), dims)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16", "int32", "int16", "int8", "uint8",
+                                   "uint16", "uint32", "bool"])
+def test_float32_to_converts_like_xla(dtype):
+    """The decoded values' cast: round to nearest even, truncate and
+    saturate, NaN to 0, subnormals as zero for bool."""
+    from repro_torch.core.stages.library import float32_to
+
+    v = np.array([np.nan, -np.nan, np.inf, -np.inf, 3.4e38, -3.4e38, 2.5, -2.5, 3.5, 0.49,
+                  -0.7, 65504, 65520, 1e5, -1e5, 2.0 ** 31, -(2.0 ** 31), 2.0 ** 31 - 128, 4e9,
+                  5e9, -1.0,
+                  300, -300, 40000, 70000, 6e-8, 2e-8, 3e-8, 1e-39, -1e-39, 2.0 ** -133, 0.0,
+                  -0.0, 255.9, 256.0, -128.5, 127.5], np.float32)
+    want = _as_numpy(jax.jit(lambda a: a.astype(jnp.dtype(dtype)))(jnp.asarray(v)))
+    got = _as_numpy(float32_to(torch.from_numpy(v), getattr(torch, dtype)))
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8))
 
 
 def test_plans_are_cached_and_profiled():
