@@ -67,10 +67,29 @@ any fails:
      leaf within its bound.  Dtypes — a 256^3 float16 field through
      ``zfp`` (bytes and decode against the ``torch`` backend's) and uint16
      and bfloat16 fields through ``mgard`` (within the bound), each call
-     counted;
+     counted.  Progressive — the MGARD field through
+     ``api.compress(field, "mgard-progressive")`` (3 tiers, ratio 8),
+     ``progressive.refactor`` at the same bound, ``ProgressiveStream.write``
+     to a segment file, ``ProgressiveReader.retrieve(tiers=1)`` then
+     ``refine`` to tiers 2 and 3, and ``api.decompress``, each call counted
+     (exactly the kernels the call should launch, and how often); every
+     tier within its bound, ``refine`` bit-identical to a direct retrieve,
+     the reader's file reads equal to the trailer and directory plus
+     ``nbytes_upto(k)``, the kernels against their plain versions on tier
+     0's inputs, and the ``cuda`` and ``torch`` backends' containers of a
+     129^3 field byte for byte.  Pytree — ``compress_pytree`` /
+     ``decompress_pytree`` of qwen2.5-3b's embedding and first 4 layers
+     (about 620M float32 parameters, N(0, 0.02^2)) under
+     ``default_select``: ZFP buckets stacked into one launch each, every
+     container and decoded leaf against ``compress_leaf`` /
+     ``decompress_leaf`` on the card, the stacked kernels against their
+     plain versions on one bucket, layer 0 against the ``torch`` backend's
+     bytes; then a select sending the norms to ``huffman-bytes`` and the
+     ``wo`` matrices to ``mgard-progressive`` (the per-leaf futures path),
+     each call counted;
   4. the container bytes round trip on the card (one ZFP, one Huffman, one
-     MGARD container): ``to_bytes`` -> ``from_bytes`` -> decode,
-     bit-identical;
+     MGARD and one progressive container, and the pytree's containers):
+     ``to_bytes`` -> ``from_bytes`` -> decode, bit-identical;
   5. timings with CUDA events after warm-up, median of 10 runs (one run for
      the plain Huffman decode, a Python loop over the chunk's symbols that
      takes seconds; phase 3 ran it once already): kernel
@@ -87,14 +106,19 @@ any fails:
      times beside the events for both kernels), one profiled
      call's stage times, end-to-end ms (median of 10 host-wall runs, of 5
      where 10 would take over 20 s) and the least time the card could take
-     (bytes at 3.35 TB/s, operations at 67 T/s), each printed with the
+     (bytes at 3.35 TB/s, operations at 67 T/s); host wall times
+     (synchronised, median of 5) of ``refactor`` and its tier-0 stages, each
+     ``retrieve``/``refine`` tier, ``compress_pytree`` and
+     ``decompress_pytree`` beside serial ``compress_leaf`` /
+     ``decompress_leaf`` over the same leaves; each printed with the
      card's name and power limit.
 
 The last two lines are one JSON object per kernel (``{"kernels": [...]}``;
-the Huffman kernels' times are those of the ``huffman-bytes`` leaf, their
-launches the sum over the two Huffman runs and the MGARD run, their error
-the largest of the three; the MGARD kernels' launches those of the MGARD
-run) and ``{"ok": true, "device": {...}}``.
+the Huffman kernels' times are those of the ``huffman-bytes`` leaf; a
+kernel's launches are summed over every counted main-path call (the ZFP,
+Huffman, MGARD, progressive and pytree paths; a line before gives the
+progressive and pytree calls' own), its error the largest of them) and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -145,6 +169,11 @@ CHECK_TRIDIAG_N = (2, 3, 5, 17, 129, 257, 513, 1025, 2049, 4097, 60001)
 CHECK_TRIDIAG_VIEW_N = (17, 257, 2049)
 CHECK_TRIDIAG_BATCH = (1, 31, 33, 1001)
 CHECK_TRIDIAG_H = (2.0, 4.0, 512.0)
+PROG_TIERS = 3                      # mgard-progressive's defaults: 3 tiers, ratio 8
+PROG_RATIO = 8.0
+QWEN = {"vocab": 151936, "d_model": 2048, "kv_dim": 256, "d_ff": 11008}  # hf:Qwen/Qwen2.5-3B
+QWEN_LAYERS = 4                     # the embedding and the first 4 of its 36 layers
+NEW_TIMED_RUNS = 5                  # medians of the progressive and pytree timings
 MGARD_KERNELS = {  # name: (TPU kernel it replaces, CUDA source)
     "quantize_map.quantize": ("src/repro/kernels/quantize_map/kernel.py:37",
                               "src/repro_torch/kernels/quantize_map/csrc/quantize_map.cu"),
@@ -1580,6 +1609,472 @@ def phase_mgard_timings(api, run: dict, card: str) -> list[dict]:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the progressive tier and the pytree entry points
+# ---------------------------------------------------------------------------
+
+
+def mgard_solves(shape: tuple) -> int:
+    """``solve_mass`` launches of one decomposition (or recomposition) of a
+    grid of ``shape``: one per participating axis of every level."""
+    from repro_torch.core import mgard
+
+    padded = tuple(mgard.padded_dim(n) for n in shape)
+    return sum(len(mgard._participating(tuple(len(range(n)[s]) for n, s in zip(padded, sl))))
+               for _h, sl in mgard._levels(tuple(shape)))
+
+
+def check_counts(what: str, counts: dict, want: dict) -> None:
+    """Every kernel in ``want`` launched exactly that often, every other
+    kernel not at all."""
+    extra = {k: n for k, n in counts.items() if n and k not in want}
+    if any(counts[k] != n for k, n in want.items()) or extra:
+        raise PhaseError(f"{what}: launches {counts}, expected {want} and no other")
+
+
+@contextlib.contextmanager
+def count_file_reads():
+    """Bytes and calls of every ``os.pread`` while the block runs (the segment
+    reader reads the trailer, the directory and each component with it)."""
+    import os
+
+    seen = {"calls": 0, "bytes": 0}
+    original = os.pread
+
+    def counted(fd, n, offset):
+        raw = original(fd, n, offset)
+        seen["calls"] += 1
+        seen["bytes"] += len(raw)
+        return raw
+
+    os.pread = counted
+    try:
+        yield seen
+    finally:
+        os.pread = original
+
+
+def phase_progressive(device, api) -> dict:
+    """Phase 3, the progressive tier: the MGARD cell's 512^3 field (padded to
+    513^3) through ``api.compress(field, "mgard-progressive")`` (relative
+    bound 1e-2, 4096 keys, 3 tiers, ratio 8), ``progressive.refactor`` of
+    the same field and bound, ``ProgressiveStream.write`` to a segment file,
+    ``ProgressiveReader.retrieve(tiers=1)`` then ``refine`` to tiers 2 and
+    3, and ``api.decompress``; each call counted.  Checks every tier within
+    its bound, ``refine`` bit-identical to a direct retrieve, the reader's
+    file reads (the components' bytes plus the trailer and directory), the
+    kernels against their plain versions on tier 0's inputs, and the cuda
+    and torch backends' containers of a 129^3 field byte for byte."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import mgard, progressive
+    from repro_torch.core.container import Compressed
+    from repro_torch.kernels.quantize_map import kernel as qk
+    from repro_torch.kernels.quantize_map import ref as qr
+
+    field = main_field(MGARD_EDGE, device)
+    solves = mgard_solves(tuple(field.shape))
+    tiers = PROG_TIERS
+    torch.cuda.synchronize()
+    reset_counts()
+    c = api.compress(field, "mgard-progressive")
+    torch.cuda.synchronize()
+    calls = {"api.compress": read_counts()}
+    bounds = [float(b) for b in c.meta["tier_bounds"]]
+    if len(bounds) != tiers or c.meta["padded"] != [MGARD_EDGE + 1] * 3:
+        raise PhaseError(f"progressive manifest: {c.meta}")
+    encode_want = {"tridiag.solve_mass": solves, "quantize_map.quantize": tiers,
+                   "quantize_map.dequantize": tiers, "histogram.histogram": tiers,
+                   "huffman_encode.encode_lookup": tiers}
+    check_counts("mgard-progressive api.compress", calls["api.compress"], encode_want)
+
+    reset_counts()
+    stream = progressive.refactor(field, bounds[-1], tiers=tiers, tier_ratio=PROG_RATIO,
+                                  dict_size=DICT_SIZE)
+    torch.cuda.synchronize()
+    calls["progressive.refactor"] = read_counts()
+    check_counts("progressive.refactor", calls["progressive.refactor"], encode_want)
+    if stream.components != progressive.ProgressiveStream.from_container(c).components:
+        raise PhaseError("refactor's components differ from api.compress's at the same bound")
+
+    tmp = tempfile.TemporaryDirectory(prefix="hpdr-progressive-")
+    path = Path(tmp.name) / "field.hpdr"
+    t0 = time.perf_counter()
+    directory = stream.write(path)
+    write_s = time.perf_counter() - t0
+    file_bytes = path.stat().st_size
+    dir_bytes = file_bytes - max(int(s["offset"]) + int(s["nbytes"])
+                                 for s in directory["segments"].values())
+    outs, errs = [], []
+    with count_file_reads() as reads:
+        with progressive.ProgressiveReader(path) as r:
+            opened = dict(reads)
+            for k in range(1, tiers + 1):
+                reset_counts()
+                out = r.retrieve(tiers=1) if k == 1 else r.refine(tiers=k)
+                torch.cuda.synchronize()
+                name = "reader.retrieve(tiers=1)" if k == 1 else f"reader.refine(tiers={k})"
+                calls[name] = read_counts()
+                check_counts(name, calls[name], {
+                    "huffman_decode.decode_chunks": 1, "quantize_map.dequantize": 1,
+                    "tridiag.solve_mass": solves})
+                errs.append(float((out - field).abs().max()))
+                if not errs[-1] <= bounds[k - 1]:
+                    raise PhaseError(f"tier {k}: max |error| {errs[-1]:.6e} > {bounds[k - 1]:.6e}")
+                if r.bytes_fetched != stream.nbytes_upto(k) or \
+                        reads["bytes"] != opened["bytes"] + stream.nbytes_upto(k):
+                    raise PhaseError(f"tier {k}: read {reads['bytes']} bytes, "
+                                     f"{r.bytes_fetched} of components; expected the "
+                                     f"directory's {opened['bytes']} + {stream.nbytes_upto(k)}")
+                outs.append(out)
+    if opened["bytes"] != dir_bytes:
+        raise PhaseError(f"opening the reader read {opened['bytes']} bytes, the trailer and "
+                         f"directory are {dir_bytes}")
+    if any(b > a for a, b in zip(errs, errs[1:])):
+        raise PhaseError(f"refinement made the error grow: {errs}")
+    direct = progressive.retrieve(stream)
+    if not same_bits(outs[-1], direct):
+        raise PhaseError("refine is not bit-identical to a direct retrieve")
+    reset_counts()
+    dec = api.decompress(c)
+    torch.cuda.synchronize()
+    calls["api.decompress"] = read_counts()
+    check_counts("mgard-progressive api.decompress", calls["api.decompress"], {
+        "huffman_decode.decode_chunks": tiers, "quantize_map.dequantize": tiers,
+        "tridiag.solve_mass": solves})
+    if not same_bits(dec, direct) or dec.device != device:
+        raise PhaseError("api.decompress differs from progressive.retrieve")
+    for name, counts in calls.items():
+        log(f"phase 3 launches on the progressive path, {name}: "
+            f"{ {k: n for k, n in counts.items() if n} }")
+    log(f"phase 3 ok: mgard-progressive {MGARD_EDGE}^3 (padded {MGARD_EDGE + 1}^3): tier bounds "
+        f"{bounds}, max |error| per tier {errs} (non-increasing, each within its bound), "
+        f"component bytes {stream.manifest['component_nbytes']} (ratio "
+        f"{field.numel() * 4 / stream.nbytes():.6f} at all tiers, "
+        f"{field.numel() * 4 / stream.nbytes_upto(1):.6f} at tier 1), segment file "
+        f"{file_bytes} bytes written in {write_s:.3f} s; the reader read the trailer and "
+        f"directory ({dir_bytes} bytes) once and then exactly nbytes_upto(k); refine == "
+        f"direct retrieve == api.decompress (bits)")
+
+    # the kernels against their plain versions on tier 0's inputs
+    plan = progressive._mgard_plan(tuple(field.shape), DICT_SIZE, None)
+    lmap = plan.workspace["lmap"].reshape(-1)
+    bins = progressive._level_bins(bounds[0], plan.meta["L"], device)
+    coeffs = plan.executables["decompose"](field).reshape(-1)
+    keys = qk.quantize(coeffs, lmap, bins)
+    back = qk.dequantize(keys, lmap, bins)
+    kerr = {"quantize_map.quantize": int_err(keys, qr.quantize(coeffs, lmap, bins)),
+            "quantize_map.dequantize": max_abs_err(back, qr.dequantize(keys, lmap, bins))}
+    entropy_keys = mgard._quantize_stage_impl(coeffs, lmap, bins, (coeffs.numel(),), DICT_SIZE,
+                                              "cuda")[1]
+    comp0 = Compressed.from_bytes(stream.components[0])
+    ent = check_entropy_kernels("mgard-progressive tier 0", entropy_keys,
+                                int(comp0.meta["num_keys"]), comp0, device)
+    kerr.update(ent["errs"])
+    edge = MGARD_EDGE + 1
+    coarse = mgard.pad_to_dyadic(field)[::2, ::2, ::2].reshape(-1, edge // 2 + 1).t().contiguous()
+    check_solve(coarse, 2.0, "progressive level 0", plan.workspace["thomas"][(coarse.shape[0], 2.0)])
+    kerr["tridiag.solve_mass"] = 0.0
+    if any(kerr.values()):
+        raise PhaseError(f"progressive: kernels differ from their plain versions: {kerr}")
+    log(f"phase 3 ok: mgard-progressive tier 0: quantize, dequantize, histogram, encode_lookup, "
+        f"decode_chunks ({len(comp0.arrays['chunk_offsets'])} chunks, alphabet "
+        f"{comp0.meta['num_keys']}) and solve_mass {tuple(coarse.shape)} == plain versions "
+        "(tolerance 0)")
+
+    small = main_field(MGARD_CMP_EDGE, device)
+    t0 = time.perf_counter()
+    plain = api.compress(small.cpu(), "mgard-progressive", backend="torch")
+    plain_s = time.perf_counter() - t0
+    if plain.to_bytes() != api.compress(small, "mgard-progressive").to_bytes():
+        raise PhaseError(f"mgard-progressive {MGARD_CMP_EDGE}^3: the cuda and torch backends' "
+                         "containers differ")
+    log(f"phase 3 ok: mgard-progressive {MGARD_CMP_EDGE}^3: the cuda and torch backends' "
+        f"containers are byte-identical ({len(plain.to_bytes())} bytes; the CPU encode took "
+        f"{plain_s:.1f} s)")
+    return {"field": field, "c": c, "out": dec, "stream": stream, "bounds": bounds,
+            "path": path, "tmp": tmp, "calls": calls, "errs": kerr}
+
+
+def qwen_tree(device) -> dict:
+    """The float32 parameters of qwen2.5-3b's embedding and first
+    ``QWEN_LAYERS`` decoder layers (hf:Qwen/Qwen2.5-3B: d_model 2048, 16 heads of 128, 2 KV
+    heads, d_ff 11008, vocab 151936, QKV bias), every matrix stored as
+    (in, out), every weight N(0, 0.02^2) from the seed."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(SEED + 30)
+
+    def w(*shape):
+        return torch.randn(shape, generator=g, device=device) * 0.02
+
+    d, kv, ff = QWEN["d_model"], QWEN["kv_dim"], QWEN["d_ff"]
+    return {"embed": w(QWEN["vocab"], d), "layers": [
+        {"wq": w(d, d), "wk": w(d, kv), "wv": w(d, kv), "wo": w(d, d),
+         "bq": w(d), "bk": w(kv), "bv": w(kv), "attn_norm": w(d), "mlp_norm": w(d),
+         "w_gate": w(d, ff), "w_up": w(d, ff), "w_down": w(ff, d)} for _ in range(QWEN_LAYERS)]}
+
+
+def mixed_select(api):
+    """The per-leaf futures path's select: the norms to ``huffman-bytes``,
+    the ``wo`` matrices to ``mgard-progressive``, the rest the default."""
+
+    def select(key, arr):
+        if key.endswith("_norm"):
+            return "huffman-bytes", {}
+        if key.endswith("/wo"):
+            return "mgard-progressive", {}
+        return api.default_select(key, arr)
+
+    return select
+
+
+def phase_pytree(device, api) -> dict:
+    """Phase 3, the pytree entry points: ``compress_pytree`` of the qwen2.5-3b
+    embedding and 4 layers (about 620M float32 parameters) under
+    ``default_select``, then ``decompress_pytree``, each counted; every
+    container against that leaf's ``compress_leaf`` on the card and every
+    decoded leaf against ``decompress_leaf``, byte for byte; the stacked
+    kernels against their plain versions on one bucket's inputs; layer 0's
+    containers against the ``torch`` backend's; then the mixed select
+    (norms to ``huffman-bytes``, ``wo`` to ``mgard-progressive``) through
+    the per-leaf futures path."""
+    import torch
+
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.core import zfp
+    from repro_torch.core.container import Compressed
+
+    tree = qwen_tree(device)
+    leaves = dict(api.flatten_with_keys(tree))
+    nbytes = sum(x.numel() * x.element_size() for x in leaves.values())
+    eng = engine_mod.default_engine()
+    torch.cuda.synchronize()
+    reset_counts()
+    flat, stats = api.compress_pytree(tree)
+    torch.cuda.synchronize()
+    enc_counts = read_counts()
+    reset_counts()
+    out = api.decompress_pytree(flat, tree)
+    torch.cuda.synchronize()
+    dec_counts = read_counts()
+    zkeys = [k for k, v in flat.items() if isinstance(v, Compressed)]
+    shapes = {}
+    for k in zkeys:
+        shapes.setdefault(tuple(flat[k].meta["shape"]), []).append(k)
+    check_counts("compress_pytree", enc_counts, {"zfp_block.compress_blocks": len(shapes)})
+    check_counts("decompress_pytree", dec_counts, {"zfp_block.decompress_blocks": len(shapes)})
+    stacked = sum(len(ks) for ks in shapes.values() if len(ks) > 1)
+    if stats["sharded_leaves"] != stacked or stats["buckets"] != len(shapes):
+        raise PhaseError(f"compress_pytree stats {stats}: expected {len(shapes)} buckets, "
+                         f"{stacked} stacked leaves")
+    outs = dict(api.flatten_with_keys(out))
+    worst = 0.0
+    for k, x in leaves.items():
+        got = outs[k]
+        if got.device != device or got.dtype != x.dtype or got.shape != x.shape:
+            raise PhaseError(f"pytree leaf {k}: decoded {got.device} {got.dtype} {tuple(got.shape)}")
+        if k not in zkeys:
+            if not same_bits(got, x):
+                raise PhaseError(f"pytree leaf {k}: a raw leaf changed")
+            continue
+        if api.compress_leaf(x, "zfp", rate=RATE).to_bytes() != flat[k].to_bytes():
+            raise PhaseError(f"pytree leaf {k}: container differs from compress_leaf's")
+        if not same_bits(got, api.decompress_leaf(flat[k])):
+            raise PhaseError(f"pytree leaf {k}: decoded differs from decompress_leaf's")
+        worst = max(worst, float((got - x).abs().max()) / float(x.max() - x.min()))
+    if not worst <= ERR_TOL:
+        raise PhaseError(f"pytree: max |error| {worst:.3e} of a leaf's range")
+    log(f"phase 3 launches on the pytree path: compress_pytree "
+        f"{ {k: n for k, n in enc_counts.items() if n} }, decompress_pytree "
+        f"{ {k: n for k, n in dec_counts.items() if n} }")
+    log(f"phase 3 ok: pytree qwen2.5-3b embed + {QWEN_LAYERS} layers: {len(leaves)} leaves, "
+        f"{nbytes} bytes, {len(zkeys)} compressed in {len(shapes)} buckets "
+        f"({sorted(len(ks) for ks in shapes.values())} leaves), ratio {stats['ratio']:.6f}, "
+        f"max |error| {worst:.3e} of a leaf's range; every container == compress_leaf's and "
+        f"every leaf == decompress_leaf's (bytes), raw leaves unchanged; engine {eng.stats()}")
+
+    # the stacked kernels against their plain versions on one bucket's inputs
+    shape, keys = min(((s, ks) for s, ks in shapes.items() if len(ks) > 1),
+                      key=lambda item: math.prod(item[0]))
+    xs = torch.stack([api.as_blocked_3d(leaves[k]) for k in keys])
+    tables = api.get_plan(api.make_spec(xs[0], "zfp", rate=RATE)).workspace
+    enc = {a: zfp.compress_stacked(xs, RATE, 3, shape, a, perm=tables["perm"],
+                                   scale=tables["enc_scale"]) for a in ("cuda", "torch")}
+    decs = {a: zfp.decompress_stacked(*enc["cuda"], RATE, 3, shape, a, perm=tables["perm"],
+                                      scale=tables["dec_scale"]) for a in ("cuda", "torch")}
+    zerr = {"zfp_block.compress_blocks": max(int_err(enc["cuda"][0], enc["torch"][0]),
+                                             int_err(enc["cuda"][1], enc["torch"][1])),
+            "zfp_block.decompress_blocks": max_abs_err(decs["cuda"], decs["torch"])}
+    if any(zerr.values()):
+        raise PhaseError(f"pytree bucket {shape} x {len(keys)}: kernels differ from plain: {zerr}")
+    log(f"phase 3 ok: pytree bucket of {len(keys)} x {shape}: the stacked compress_blocks / "
+        "decompress_blocks == plain versions (tolerance 0)")
+
+    layer0 = {"layers": [{k: v.cpu() for k, v in tree["layers"][0].items()}]}
+    t0 = time.perf_counter()
+    with engine_mod.ExecutionEngine([torch.device("cpu")], backend="torch") as cpu_eng:
+        cflat, _ = cpu_eng.compress_pytree(layer0)
+    cpu_s = time.perf_counter() - t0
+    for k, v in cflat.items():
+        if isinstance(v, Compressed) != isinstance(flat[k], Compressed) or (
+                isinstance(v, Compressed) and v.to_bytes() != flat[k].to_bytes()):
+            raise PhaseError(f"pytree layer 0 {k}: the cuda and torch backends differ")
+    log(f"phase 3 ok: pytree layer 0 ({len(cflat)} leaves): containers == the torch backend's "
+        f"(its CPU engine took {cpu_s:.1f} s)")
+
+    select = mixed_select(api)
+    torch.cuda.synchronize()
+    reset_counts()
+    mflat, mstats = api.compress_pytree(tree, select)
+    torch.cuda.synchronize()
+    menc = read_counts()
+    reset_counts()
+    mout = dict(api.flatten_with_keys(api.decompress_pytree(mflat, tree)))
+    torch.cuda.synchronize()
+    mdec = read_counts()
+    wo = [k for k in leaves if k.endswith("/wo")]
+    norms = [k for k in leaves if k.endswith("_norm")]
+    mshapes = {tuple(v.meta["shape"]) for k, v in mflat.items()
+               if isinstance(v, Compressed) and v.method == "zfp"}
+    tiers, solves = PROG_TIERS, mgard_solves(tuple(leaves[wo[0]].shape))
+    check_counts("compress_pytree (mixed select)", menc, {
+        "zfp_block.compress_blocks": len(mshapes),
+        "histogram.histogram": len(norms) + tiers * len(wo),
+        "huffman_encode.encode_lookup": len(norms) + tiers * len(wo),
+        "quantize_map.quantize": tiers * len(wo), "quantize_map.dequantize": tiers * len(wo),
+        "tridiag.solve_mass": solves * len(wo)})
+    check_counts("decompress_pytree (mixed select)", mdec, {
+        "zfp_block.decompress_blocks": len(mshapes),
+        "huffman_decode.decode_chunks": len(norms) + tiers * len(wo),
+        "quantize_map.dequantize": tiers * len(wo), "tridiag.solve_mass": solves * len(wo)})
+    for k in norms + wo:
+        c = mflat[k]
+        method = "huffman-bytes" if k in norms else "mgard-progressive"
+        if c.method != method or c.to_bytes() != api.compress_leaf(leaves[k], method).to_bytes():
+            raise PhaseError(f"mixed pytree {k}: container differs from compress_leaf's")
+        if k in norms and not same_bits(mout[k], leaves[k]):
+            raise PhaseError(f"mixed pytree {k}: the norm's round trip is not exact")
+        if k in wo:
+            err = float((mout[k] - leaves[k]).abs().max())
+            if not err <= c.meta["tier_bounds"][-1]:
+                raise PhaseError(f"mixed pytree {k}: max |error| {err:.6e} > the bound")
+    log(f"phase 3 launches on the pytree path (mixed select): compress_pytree "
+        f"{ {k: n for k, n in menc.items() if n} }, decompress_pytree "
+        f"{ {k: n for k, n in mdec.items() if n} }")
+    log(f"phase 3 ok: pytree mixed select: {len(norms)} norms through huffman-bytes (one "
+        f"bucket, exact), {len(wo)} wo through mgard-progressive (per-leaf futures, within "
+        f"the bound), every container == compress_leaf's; stats {mstats}")
+    calls = {"compress_pytree": enc_counts, "decompress_pytree": dec_counts,
+             "compress_pytree (mixed)": menc, "decompress_pytree (mixed)": mdec}
+    return {"tree": tree, "leaves": leaves, "flat": flat, "out": out, "zkeys": zkeys,
+            "nbytes": nbytes, "calls": calls, "errs": zerr, "mflat": mflat}
+
+
+def phase_new_round_trips(api, prog: dict, pyt: dict) -> None:
+    """Phase 4 for the new paths: the progressive container and the
+    pytree's containers through ``to_bytes``/``from_bytes``."""
+    from repro_torch.core.container import Compressed
+
+    phase_bytes_round_trip(api, prog["c"], prog["out"])
+    carried = {k: Compressed.from_bytes(v.to_bytes()) if isinstance(v, Compressed) else v
+               for k, v in pyt["flat"].items()}
+    again = dict(api.flatten_with_keys(api.decompress_pytree(carried, pyt["tree"])))
+    direct = dict(api.flatten_with_keys(pyt["out"]))
+    if any(not same_bits(again[k], direct[k]) for k in direct):
+        raise PhaseError("pytree: decode of to_bytes/from_bytes differs from the direct decode")
+    log(f"phase 4 ok: pytree: {len(pyt['zkeys'])} containers -> to_bytes -> from_bytes -> "
+        "decompress_pytree on the card is bit-identical")
+
+
+def phase_new_timings(api, prog: dict, pyt: dict, card: str) -> None:
+    """Phase 5 for the new paths: host wall times, synchronised (median of 5):
+    refactor and its stages, each retrieve tier, refine, compress_pytree and
+    decompress_pytree beside serial compress_leaf / decompress_leaf over the
+    same leaves."""
+    import torch
+
+    from repro_torch.core import progressive
+
+    field, stream, bounds = prog["field"], prog["stream"], prog["bounds"]
+    runs = NEW_TIMED_RUNS
+    wall = {"progressive.refactor": median_wall_ms(
+        lambda: progressive.refactor(field, bounds[-1], tiers=PROG_TIERS,
+                                     tier_ratio=PROG_RATIO, dict_size=DICT_SIZE),
+        runs=runs, warmup=1)}
+    steps = {k: [] for k in ("reader.retrieve(tiers=1)", "reader.refine(tiers=2)",
+                             "reader.refine(tiers=3)", "progressive.retrieve (3 tiers)")}
+    for _ in range(runs + 1):
+        with progressive.ProgressiveReader(prog["path"]) as r:
+            for k, name in enumerate(list(steps)[:3], start=1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r.refine(tiers=k)
+                torch.cuda.synchronize()
+                steps[name].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        progressive.retrieve(stream)
+        torch.cuda.synchronize()
+        steps["progressive.retrieve (3 tiers)"].append((time.perf_counter() - t0) * 1e3)
+    wall.update({k: statistics.median(v[1:]) for k, v in steps.items()})
+
+    # refactor's stages on tier 0
+    plan = progressive._mgard_plan(tuple(field.shape), DICT_SIZE, None)
+    bins = progressive._level_bins(bounds[0], plan.meta["L"], field.device)
+    coeffs = plan.executables["decompose"](field)
+    q, keys, inlier, _ = plan.executables["quantize"](coeffs, plan.workspace["lmap"], bins)
+    hspec = progressive._huffman_spec(coeffs.numel())
+    comp = api.encode(hspec, keys.reshape(-1))
+    stage = {
+        "decompose (27 solves)": lambda: plan.executables["decompose"](field),
+        "quantize executable": lambda: plan.executables["quantize"](
+            coeffs, plan.workspace["lmap"], bins),
+        "outlier gather (nonzero + D2H)": lambda: q.reshape(-1)[
+            torch.nonzero(~inlier.reshape(-1)).reshape(-1)].cpu(),
+        "huffman api.encode of the keys": lambda: api.encode(hspec, keys.reshape(-1)),
+        "dequantize executable": lambda: plan.executables["dequantize"](
+            q, plan.workspace["lmap"], bins),
+        "component to_bytes": lambda: comp.to_bytes(),
+        "huffman api.decode of a component": lambda: api.decode(comp),
+        "recompose (27 solves)": lambda: plan.executables["recompose"](coeffs),
+    }
+    stage_ms = {k: median_wall_ms(fn, runs=runs, warmup=1) for k, fn in stage.items()}
+    nbytes = field.numel() * field.element_size()
+    log(f"phase 5 [{card}] mgard-progressive {MGARD_EDGE}^3 end to end (host wall, synchronised,"
+        f" median of {runs}): " + ", ".join(
+            f"{k} {v:.4f} ms ({nbytes / v / 1e6:.1f} GB/s of the field)" for k, v in wall.items()))
+    log(f"phase 5 [{card}] mgard-progressive {MGARD_EDGE}^3 stages of tier 0 (host wall, "
+        f"synchronised, median of {runs}): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in stage_ms.items()))
+
+    tree, flat, leaves, zkeys = pyt["tree"], pyt["flat"], pyt["leaves"], pyt["zkeys"]
+    pw = {
+        "compress_pytree": median_wall_ms(lambda: api.compress_pytree(tree), runs=runs,
+                                          warmup=1),
+        "serial compress_leaf": median_wall_ms(
+            lambda: [api.compress_leaf(leaves[k], "zfp", rate=RATE) for k in zkeys],
+            runs=runs, warmup=1),
+        "decompress_pytree": median_wall_ms(lambda: api.decompress_pytree(flat, tree),
+                                            runs=runs, warmup=1),
+        "serial decompress_leaf": median_wall_ms(
+            lambda: [api.decompress_leaf(flat[k]) for k in zkeys], runs=runs, warmup=1),
+    }
+    mflat, select = pyt["mflat"], mixed_select(api)
+    pw["compress_pytree (mixed)"] = median_wall_ms(
+        lambda: api.compress_pytree(tree, select), runs=runs, warmup=1)
+    pw["decompress_pytree (mixed)"] = median_wall_ms(
+        lambda: api.decompress_pytree(mflat, tree), runs=runs, warmup=1)
+    log(f"phase 5 [{card}] pytree qwen2.5-3b embed + {QWEN_LAYERS} layers ({pyt['nbytes']} "
+        f"bytes) end to end (host wall, synchronised, median of {runs}): " + ", ".join(
+            f"{k} {v:.4f} ms ({pyt['nbytes'] / v / 1e6:.1f} GB/s of the tree)"
+            for k, v in pw.items()))
+    log(f"phase 5 [{card}] pytree overlap: compress_pytree / serial compress_leaf "
+        f"{pw['compress_pytree'] / pw['serial compress_leaf']:.4f}, decompress_pytree / serial "
+        f"decompress_leaf {pw['decompress_pytree'] / pw['serial decompress_leaf']:.4f}")
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}; "
@@ -1632,10 +2127,15 @@ def main() -> int:
     lap("phase 3, MGARD")
     phase_dtypes(device, api)
     lap("phase 3, dtypes")
+    prog = phase_progressive(device, api)
+    lap("phase 3, progressive")
+    pyt = phase_pytree(device, api)
+    lap("phase 3, pytree")
     phase_bytes_round_trip(api, c, out)
     phase_bytes_round_trip(api, huff_runs[0]["c"], huff_runs[0]["out"], leaf=True)
     again = phase_bytes_round_trip(api, mgard_run["c"], mgard_run["out"])
     check_mgard_result("mgard from_bytes", mgard_run["c"], mgard_run["field"], again)
+    phase_new_round_trips(api, prog, pyt)
     lap("phase 4")
     kernels = phase_timings(api, kernel, field, c, main_res, tables, card)
     lap("phase 5, ZFP")
@@ -1648,11 +2148,26 @@ def main() -> int:
     lap("phase 5, Huffman")
     mgard_kernels = phase_mgard_timings(api, mgard_run, card)
     lap("phase 5, MGARD")
+    phase_new_timings(api, prog, pyt, card)
+    lap("phase 5, progressive and pytree")
+    prog["tmp"].cleanup()
     for k in huff_kernels:  # the entropy tail runs on the Huffman and the MGARD paths
         runs = huff_runs + [mgard_run]
         k["launches"] = sum(r["counts"][k["name"]] for r in runs)
         k["max_abs_err"] = max(r["errs"][k["name"]] for r in runs)
+    # the progressive and pytree paths' launches and checks join every kernel's
+    new_paths = {"progressive": prog, "pytree": pyt}
+    for k in kernels + huff_kernels + mgard_kernels:
+        for run in new_paths.values():
+            k["launches"] += sum(counts[k["name"]] for counts in run["calls"].values())
+            k["max_abs_err"] = max(k["max_abs_err"], run["errs"].get(k["name"], 0.0))
+    log("launches by path: " + json.dumps({
+        name: {call: {k: n for k, n in counts.items() if n} for call, counts in run["calls"].items()}
+        for name, run in new_paths.items()}))
     log(json.dumps({"kernels": kernels + huff_kernels + mgard_kernels}))
+    from repro_torch.core import engine as engine_mod
+
+    engine_mod.default_engine().close()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -2,9 +2,11 @@
 
 Layers, bottom-up: device adapters (`adapters`), block views (`machine`,
 `abstractions`), the CMM (`context`), the ZFP, Huffman and MGARD pipelines
-(`zfp`, `huffman`, `bitstream`, `mgard`, `quantize`) behind the codec registry (`codecs`) and stage graph
-(`stages`), and the high-level API (`api`: spec → plan → execute, with the
-`container` byte format).
+(`zfp`, `huffman`, `bitstream`, `mgard`, `quantize`) and the progressive
+tier (`progressive`) behind the codec registry (`codecs`) and stage graph
+(`stages`), the execution engine (`engine`), and the high-level API (`api`:
+spec → plan → execute, with the `container` byte format, and the pytree
+entry points).
 """
 
 from . import (  # noqa: F401
@@ -15,9 +17,11 @@ from . import (  # noqa: F401
     codecs,
     container,
     context,
+    engine,
     huffman,
     machine,
     mgard,
+    progressive,
     quantize,
     zfp,
 )
@@ -27,5 +31,7 @@ from .api import (  # noqa: F401
     ReductionPlan,
     ReductionSpec,
     compress,
+    compress_pytree,
     decompress,
+    decompress_pytree,
 )

@@ -10,20 +10,25 @@ Counterpart of ``repro.core.api`` (the subset the ported codecs need):
      consume :class:`Compressed` containers, byte-identical to the
      reference's.
 
+  4. **Fan out** — :func:`compress_pytree`/:func:`decompress_pytree` run a
+     nested ``dict``/``list``/``tuple`` of arrays or tensors on an
+     :class:`~repro_torch.core.engine.ExecutionEngine`.
+
 Entry points run on the CUDA card (backend ``auto`` = ``cuda``) unless the
 caller passes ``backend="torch"``, which runs the plain versions on the CPU.
 :func:`decode` returns a tensor on the plan's device.
 
-Ported methods: ``mgard`` (the default), ``zfp``, ``huffman`` and
-``huffman-bytes``.  Not yet ported: pytree entry points, streams, the
-engine, and ``mgard-progressive`` (see :mod:`repro_torch.core.codecs`).
+Methods: ``mgard`` (the default), ``mgard-progressive``, ``zfp``,
+``huffman`` and ``huffman-bytes``.  Not yet ported: the chunk-pipelined
+``CompressorStream``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from collections import OrderedDict
+from typing import Any, Callable, Iterator
 
 import numpy as np
 import torch
@@ -90,6 +95,10 @@ def make_spec(data: Any, method: str, **params: Any) -> ReductionSpec:
 
 def _build_context(key, codec: Codec, spec: ReductionSpec) -> ReductionContext:
     plan = codec.plan(spec)
+    if plan.device.type == "cuda":
+        # the plan's tables were copied on this thread's stream; other
+        # threads' streams read them as soon as the CMM holds the plan
+        torch.cuda.current_stream(plan.device).synchronize()
     return ReductionContext(key=key, plan=plan, buffers=plan.workspace)
 
 
@@ -210,18 +219,17 @@ def leaf_policy(
 ) -> tuple[torch.Tensor, str, dict]:
     """Shared shape/dtype policy: ``(tensor, method, params)`` to compress.
 
-    The reference's policy for the ported codecs: floating inputs (bfloat16
-    included) of the lossy codecs are cast to float32; ``zfp`` inputs are
-    re-blocked to (n, 32, 32) and >4-D or 0-D ``mgard`` inputs flattened;
+    The reference's policy: floating inputs (bfloat16 included) of the lossy
+    codecs are cast to float32; ``zfp`` inputs are re-blocked to
+    (n, 32, 32) and >4-D or 0-D ``mgard``/``mgard-progressive`` inputs
+    flattened;
     ``huffman`` keeps genuine small-alphabet integer keys (non-negative,
     below 2^16) on the integer-key codec; anything else becomes a
     ``huffman-bytes`` byte view of the original tensor, taken where it lies.
     """
     params = dict(params or {})
-    if method == "mgard-progressive":
-        get_codec(method)  # raises: not yet ported
     x = arr if isinstance(arr, torch.Tensor) else _from_numpy(np.asarray(arr))
-    if method in ("zfp", "mgard"):
+    if method in ("zfp", "mgard", "mgard-progressive"):
         if x.dtype != torch.float32 and x.dtype.is_floating_point:
             x = x.to(torch.float32)
         if method == "zfp":
@@ -277,3 +285,108 @@ def decompress_leaf(c: Compressed, backend: str | None = None) -> torch.Tensor:
     """Inverse of :func:`compress_leaf`: original dtype and shape, on the
     decode plan's device."""
     return restore_leaf(decode(c, backend), c)
+
+
+# ---------------------------------------------------------------------------
+# pytree / batch entry points
+# ---------------------------------------------------------------------------
+#
+# PyTorch has no public pytree, so the port walks nested dicts, lists and
+# tuples itself, in the order ``jax.tree_util.tree_flatten_with_path`` uses
+# (dict keys sorted, an OrderedDict in its own order, sequences by index,
+# ``None`` an empty subtree), and names each leaf as the reference does
+# (``"layers/0/wq"``): the same tree of numpy arrays feeds both packages and
+# gets the same keys.
+
+
+def _children(node: Any):
+    """``[(path entry, child)]`` of a container node, or None for a leaf."""
+    if isinstance(node, OrderedDict):
+        return list(node.items())
+    if isinstance(node, dict):
+        return [(k, node[k]) for k in sorted(node)]
+    if isinstance(node, (list, tuple)):
+        return list(enumerate(node))
+    return None
+
+
+def _path_key(path: tuple, sep: str) -> str:
+    return sep.join(str(e) for e in path)
+
+
+def flatten_with_keys(tree: Any, sep: str = "/") -> Iterator[tuple[str, Any]]:
+    """``(key, leaf)`` for every leaf of ``tree``, in the reference's order."""
+
+    def walk(node: Any, path: tuple):
+        if node is None:
+            return
+        kids = _children(node)
+        if kids is None:
+            yield _path_key(path, sep), node
+            return
+        for entry, child in kids:
+            yield from walk(child, path + (entry,))
+
+    yield from walk(tree, ())
+
+
+def unflatten_like(like: Any, leaf_for: Callable[[str], Any], sep: str = "/") -> Any:
+    """``like``'s structure with every leaf replaced by ``leaf_for(key)``."""
+
+    def build(node: Any, path: tuple):
+        if node is None:
+            return None
+        kids = _children(node)
+        if kids is None:
+            return leaf_for(_path_key(path, sep))
+        vals = {entry: build(child, path + (entry,)) for entry, child in kids}
+        if isinstance(node, dict):
+            out = {k: vals[k] for k in node}
+            return OrderedDict(out) if isinstance(node, OrderedDict) else out
+        return type(node)(vals[i] for i in range(len(node)))
+
+    return build(like, ())
+
+
+def default_select(key: str, arr: Any) -> tuple[str, dict] | None:
+    """Default per-leaf policy: ZFP for sizable float tensors (the reference's
+    numpy kind ``f``: float16/32/64, not bfloat16), raw otherwise."""
+    del key
+    name = dtype_name(arr)
+    size = arr.numel() if isinstance(arr, torch.Tensor) else int(np.size(arr))
+    if name in ("float16", "float32", "float64") and size >= 4096:
+        return "zfp", {"rate": 16}
+    return None
+
+
+def compress_pytree(
+    tree: Any,
+    select: Callable[[str, Any], tuple[str, dict] | None] | None = None,
+    *,
+    sep: str = "/",
+    engine: Any = None,
+) -> tuple[dict[str, Any], dict]:
+    """Compress every selected leaf of a pytree, fanned out over devices.
+
+    ``select(key, arr)`` returns ``(method, params)`` to compress a leaf or
+    ``None`` to pass it through raw.  Returns ``(flat, stats)`` where
+    ``flat`` maps path keys to :class:`Compressed` or raw leaves; the same
+    structure restores via :func:`decompress_pytree`.  Runs on ``engine``
+    (default: :func:`~repro_torch.core.engine.default_engine`, every visible
+    CUDA device): leaves are bucketed by post-policy spec — one plan build
+    per bucket, every further leaf a CMM hit.
+    """
+    from . import engine as engine_mod  # runtime import: peer layer
+
+    eng = engine if engine is not None else engine_mod.default_engine()
+    return eng.compress_pytree(tree, select, sep=sep)
+
+
+def decompress_pytree(comp: dict[str, Any], like: Any, *, sep: str = "/",
+                      engine: Any = None) -> Any:
+    """Rebuild the pytree ``like`` from :func:`compress_pytree` output, with
+    tensor leaves."""
+    from . import engine as engine_mod
+
+    eng = engine if engine is not None else engine_mod.default_engine()
+    return eng.decompress_pytree(comp, like, sep=sep)

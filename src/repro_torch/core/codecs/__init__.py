@@ -5,10 +5,8 @@ registered under its public name with :func:`register_codec`; the API layer
 dispatches ``compress``/``decompress`` through this registry and stores each
 codec's plan in the CMM.
 
-Ported so far: ``mgard``, ``zfp``, ``huffman`` and ``huffman-bytes``.  The
-reference's other method, ``mgard-progressive``, is named in
-:data:`NOT_YET_PORTED`, and asking for it raises a ``ValueError`` that says
-so.
+Every method of the reference is registered: ``mgard``, ``mgard-progressive``,
+``zfp``, ``huffman`` and ``huffman-bytes``.
 """
 
 from __future__ import annotations
@@ -16,9 +14,6 @@ from __future__ import annotations
 from .base import Codec, ReductionPlan, ReductionSpec  # noqa: F401
 
 _REGISTRY: dict[str, Codec] = {}
-
-NOT_YET_PORTED = ("mgard-progressive",)
-
 
 def register_codec(name: str):
     """Class decorator: instantiate ``cls(name)`` and register it."""
@@ -34,11 +29,6 @@ def get_codec(name: str) -> Codec:
     try:
         return _REGISTRY[name]
     except KeyError:
-        if name in NOT_YET_PORTED:
-            raise ValueError(
-                f"method {name!r} is not yet ported to repro_torch; "
-                f"ported: {available_methods()}"
-            ) from None
         raise ValueError(
             f"unknown method {name!r}; expected one of {available_methods()}"
         ) from None
@@ -48,4 +38,4 @@ def available_methods() -> tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
-from . import huffman_codec, mgard_codec, zfp_codec  # noqa: E402,F401  (self-register on import)
+from . import huffman_codec, mgard_codec, progressive_codec, zfp_codec  # noqa: E402,F401  (self-register on import)

@@ -5,8 +5,9 @@
     (method, shape, dtype, method parameters, backend).  Its
     :meth:`ReductionSpec.key` is the CMM hash key.
   * :class:`ReductionPlan` — what planning produces: the stage pipeline
-    bound to the spec's static arguments, plus the device-resident tables
-    (permutations, scale tables) that repeated calls reuse.
+    bound to the spec's static arguments, the plan-bound per-stage
+    ``executables`` some codecs also carry, plus the device-resident tables
+    (permutations, scale tables, level maps) that repeated calls reuse.
   * :class:`Codec` — the protocol every registered compressor implements:
     ``plan(spec)``, ``encode(plan, data)``, ``decode(plan, c)``.
 
@@ -74,11 +75,17 @@ class ReductionSpec:
         return dataclasses.replace(self, backend=concrete)
 
     def key(self) -> tuple:
-        """Canonical CMM hash key for this spec (backend-resolved)."""
+        """Canonical CMM hash key for this spec (backend-resolved).
+
+        A ``cuda`` plan holds its tables on the current CUDA device, so the
+        key names that device: an engine that places work on several cards
+        gets one plan per card.
+        """
+        backend = adapters.resolve_backend(self.backend)
+        where = {"device": torch.cuda.current_device()} if backend == adapters.CUDA else {}
         return context_key(
             self.method, self.shape, self.dtype,
-            backend=adapters.resolve_backend(self.backend),
-            **dict(self.params),
+            backend=backend, **where, **dict(self.params),
         )
 
 
@@ -89,11 +96,18 @@ class ReductionPlan:
     ``device`` is where the plan's tensors live and its kernels run (the
     CPU for ``torch``, the current CUDA device for ``cuda``).  ``workspace``
     holds the data-independent tables the kernels read — the paper's
-    persistent context allocations.
+    persistent context allocations.  ``executables`` maps a stage name to a
+    callable with the spec's statics and backend bound (MGARD's
+    ``decompose``/``quantize``/``dequantize``/``recompose``, which the
+    progressive tier runs).  An executable that takes a workspace tensor
+    hands it back; callers re-store it with :meth:`recycle` while holding
+    :attr:`lock`, as in the reference, whose executables donate the buffer
+    (PyTorch has no donation, so the tensor comes back unchanged).
     """
 
     spec: ReductionSpec
     device: torch.device
+    executables: dict[str, Any] = field(default_factory=dict)
     workspace: dict[str, Any] = field(default_factory=dict)
     meta: dict[str, Any] = field(default_factory=dict)
     pipeline: Any = field(default=None, repr=False, compare=False)
@@ -101,6 +115,10 @@ class ReductionPlan:
 
     def nbytes(self) -> int:
         return sum(int(getattr(b, "nbytes", 0)) for b in self.workspace.values())
+
+    def recycle(self, name: str, buf: Any) -> None:
+        """Re-store a workspace tensor an executable handed back."""
+        self.workspace[name] = buf
 
 
 class Codec:
@@ -171,6 +189,22 @@ class Codec:
     def decode_spec(self, c: Compressed) -> ReductionSpec:
         """Spec keying the decode-side plan, recovered from container meta."""
         raise NotImplementedError
+
+    def decode_bucket_key(self, c: Compressed) -> Any:
+        """Per-stream decode geometry beyond the decode spec (hashable): the
+        engine groups decode buckets by ``(decode spec, this key)``, as the
+        reference does; ``None`` groups by spec alone."""
+        return None
+
+    @property
+    def supports_batched_encode(self) -> bool:
+        """Whether a bucket of same-spec leaves can run the stage graph's
+        batched form (:meth:`CompiledPipeline.run_batched`)."""
+        return type(self).build_stages is not Codec.build_stages
+
+    @property
+    def supports_batched_decode(self) -> bool:
+        return type(self).decode_state is not Codec.decode_state
 
     def encode_input(self, plan: ReductionPlan, data: torch.Tensor) -> dict[str, Any]:
         """The pipeline's initial state for ``data`` (the input-policy hook:

@@ -178,6 +178,9 @@ class _EntropyCodec(Codec):
     def decode_state(self, plan: ReductionPlan, c: Compressed):
         return entropy_decode_state(plan, c)
 
+    def decode_bucket_key(self, c: Compressed) -> tuple:
+        return entropy_bucket_key(c)
+
     def decode_spec(self, c: Compressed) -> ReductionSpec:
         return ReductionSpec.create(self.name, c.meta["shape"], c.meta["dtype"])
 

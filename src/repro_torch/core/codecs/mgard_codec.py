@@ -10,7 +10,9 @@ Bracketed stages are the two host barriers: the bin schedule reads one
 (vmin, vmax) pair and the codebook build reads the dict-size histogram.
 Everything else, the outlier compaction included, stays on the plan's
 device.  The plan keeps the level map and the Thomas solver context on its
-device.  Containers hold the reference's sections and cross-decode both
+device, and carries the reference's classic per-stage executables
+(``decompose``, ``quantize``, ``dequantize``, ``recompose``), which the
+progressive tier runs through the same CMM entry.  Containers hold the reference's sections and cross-decode both
 ways; the ``cuda`` and ``torch`` backends write the same bytes.
 
 The reference pads the decode-side outlier rows to buckets of 64 with a
@@ -24,6 +26,7 @@ every stream decodes through the one pipeline.
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import numpy as np
 import torch
@@ -33,7 +36,9 @@ from .. import stages as sg
 from ..container import Compressed, ContainerError
 from . import register_codec
 from .base import Codec, ReductionPlan, ReductionSpec
-from .huffman_codec import entropy_container, entropy_decode_state, entropy_tail_stages
+from .huffman_codec import (
+    entropy_bucket_key, entropy_container, entropy_decode_state, entropy_tail_stages,
+)
 
 
 @register_codec("mgard")
@@ -64,15 +69,25 @@ class MGARDCodec(Codec):
         if not spec.shape or math.prod(spec.shape) == 0:
             raise ValueError(f"mgard needs a non-empty array of rank >= 1, got {spec.shape}")
         device = adapters.device_for(spec.backend)
-        padded = tuple(mgard.padded_dim(n) for n in spec.shape)
+        shape = spec.shape
+        padded = tuple(mgard.padded_dim(n) for n in shape)
+        dict_size = int(spec.param("dict_size", 4096))
+        thomas = mgard.plan_thomas_tables(shape, device)
         plan = ReductionPlan(
             spec=spec,
             device=device,
+            executables={
+                "decompose": partial(mgard.decompose, shape=shape, thomas=thomas),
+                "recompose": partial(mgard.recompose, shape=shape, thomas=thomas),
+                "quantize": mgard.planned_quantize_stage(padded, dict_size, spec.backend),
+                "dequantize": mgard.planned_dequantize_stage(spec.backend),
+            },
             workspace={
                 "lmap": torch.from_numpy(mgard.level_map(padded)).to(device),
-                "thomas": mgard.plan_thomas_tables(spec.shape, device),
+                "thomas": thomas,
             },
-            meta={"padded": padded, "dict_size": int(spec.param("dict_size", 4096))},
+            meta={"padded": padded, "L": mgard.total_levels(padded),
+                  "dict_size": dict_size, "backend": spec.backend},
         )
         return self._attach_pipeline(plan)
 
@@ -124,6 +139,9 @@ class MGARDCodec(Codec):
         state0["out_val"] = out_val
         meta["bins"] = np.asarray(c.arrays["bins"], np.float64)
         return state0, meta
+
+    def decode_bucket_key(self, c: Compressed) -> tuple:
+        return entropy_bucket_key(c)
 
     def decode_spec(self, c: Compressed) -> ReductionSpec:
         # Decode plans depend only on geometry + dict size: streams written

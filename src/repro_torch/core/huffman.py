@@ -357,6 +357,8 @@ def plan_decode_tables(plan, length_table: np.ndarray) -> DecodeTables:
     if tables is not None:
         return tables
     tables = decode_tables(lt, plan.device)
+    if plan.device.type == "cuda":  # other threads' streams read the cached tables
+        torch.cuda.current_stream(plan.device).synchronize()
     with plan.lock:
         tables = plan.workspace.setdefault(key, tables)
         cached = [k for k in plan.workspace

@@ -13,8 +13,11 @@ coarse),
 
 then per-level linear quantization (the ``quantize_map`` kernels), which
 the codec (``codecs/mgard_codec.py``) follows with the Huffman entropy tail.
-The reference's module-level ``compress``/``decompress`` and its planned
-quantize executables are not ported: the codec is the one MGARD path.
+The plan-bound quantize/dequantize executables
+(:func:`planned_quantize_stage`, :func:`planned_dequantize_stage`) are what
+the progressive tier (``core/progressive.py``) runs per precision tier.  The
+reference's module-level ``compress``/``decompress`` are not ported: the
+codec is the one single-bound MGARD path.
 
 Grid handling: each dim is edge-padded to 2^k+1, and dims stop decomposing
 when they reach 2 nodes.  Level-l coefficients stay at their node positions
@@ -345,3 +348,33 @@ def _quantize_stage_impl(coeffs, lmap, bins, shape, dict_size, adapter):
     inlier = (u >= 0) & (u < escape)
     keys = torch.where(inlier, u, escape)
     return q, keys, inlier
+
+
+def planned_quantize_stage(shape: tuple[int, ...], dict_size: int, adapter: str):
+    """Plan-bound quantize executable: ``(coeffs, lmap, bins) -> (q, keys,
+    inlier, lmap)``, the ``quantize_map`` kernel on a CUDA plan.
+
+    The level map comes back as the last output, the reference's donation
+    contract; the plan re-stores it (``ReductionPlan.recycle``).  PyTorch
+    has no donation, so it is the same tensor.
+    """
+
+    def stage(coeffs, lmap, bins):
+        q, keys, inlier = _quantize_stage_impl(coeffs, lmap, bins, shape, dict_size, adapter)
+        return q, keys, inlier, lmap
+
+    return stage
+
+
+def planned_dequantize_stage(adapter: str):
+    """Plan-bound dequantize executable: signed ``q`` → ``(coeffs, lmap)``
+    (the level map handed back as in :func:`planned_quantize_stage`)."""
+
+    def stage(q, lmap, bins):
+        from ..kernels.quantize_map import ops as quantize_ops  # lazy: layer order
+        from .quantize import signed_to_unsigned
+
+        coeffs = quantize_ops.dequantize(signed_to_unsigned(q), lmap, bins, adapter=adapter)
+        return coeffs.reshape(q.shape), lmap
+
+    return stage

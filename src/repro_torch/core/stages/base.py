@@ -15,8 +15,16 @@
     layout the reference writes.
   * :class:`CompiledPipeline` — the graph bound to one plan.  PyTorch runs
     eagerly, so :meth:`~CompiledPipeline.run` and
-    :meth:`~CompiledPipeline.invert` call the stages in order.  Fused
-    segments, batched runs and buffer donation are not ported yet.
+    :meth:`~CompiledPipeline.invert` call the stages in order.
+    :meth:`~CompiledPipeline.run_batched` and
+    :meth:`~CompiledPipeline.invert_batched` drive a bucket of same-spec
+    leaves for the execution engine: where the reference vmaps each fused
+    device segment over the stacked leaves under ``shard_map``, the port
+    stacks the leaves along a new leading axis on the plan's device and runs
+    each stage that takes a stack (``Stage.stacks``) once over it, and loops
+    every other stage over the leaves.  Each leaf's state, and so its
+    container, is what a run of that leaf alone gives.  Fused segments and
+    buffer donation have no PyTorch counterpart.
 """
 
 from __future__ import annotations
@@ -130,6 +138,7 @@ class Stage:
     device: bool = True
     fetches: tuple[str, ...] = ()      # host stages only
     inv_writes: tuple[str, ...] = ()   # device stages with an inverse
+    stacks: bool = False               # takes same-shape leaves stacked on axis 0
 
     def planned(self, plan: Any) -> None:
         """Plan-time hook: record plan-constant statics/workspace/meta."""
@@ -139,6 +148,15 @@ class Stage:
 
     def invert(self, env: CallEnv, state: dict) -> dict:
         raise NotImplementedError(f"{self.name} has no inverse")
+
+    def apply_stacked(self, env: CallEnv, state: dict) -> dict:
+        """:meth:`apply` over a stack of leaves (every state tensor with a
+        new leading leaf axis), for stages with ``stacks = True``."""
+        raise NotImplementedError(f"{self.name} takes no stack")
+
+    def invert_stacked(self, env: CallEnv, state: dict) -> dict:
+        """:meth:`invert` over a stack of leaves."""
+        raise NotImplementedError(f"{self.name} takes no stack")
 
     def host_apply(self, env: CallEnv, fetched: dict[str, np.ndarray]) -> None:
         raise NotImplementedError(f"{self.name} is not a host stage")
@@ -178,6 +196,17 @@ class CompiledPipeline:
         for st in graph.stages:
             st.planned(plan)
         plan.meta.setdefault("stage_graph", graph.describe(plan))
+        stages = graph.stages
+        # the reference's segments: maximal runs of device stages between
+        # host barriers (encode), and the one fused inverse run (decode)
+        self.n_segments = sum(
+            1 for i, st in enumerate(stages) if st.device and (i == 0 or not stages[i - 1].device))
+        self.n_inv_segments = int(any(st.device and st.inv_writes for st in stages))
+        # the leading stages that take a stack; the rest loop over the leaves
+        self.n_stacked = 0
+        while self.n_stacked < len(stages) and stages[self.n_stacked].device \
+                and stages[self.n_stacked].stacks:
+            self.n_stacked += 1
 
     def _stage_in(self, env: CallEnv, state0: dict[str, Any]) -> dict[str, torch.Tensor]:
         """Move the initial state onto the plan's device (counting H2D)."""
@@ -255,6 +284,67 @@ class CompiledPipeline:
             if st.device and st.inv_writes:
                 state.update(self._timed(profile, f"invert[{st.name}]", st.invert, env, state))
         return state, env
+
+    # -- execution: a bucket of same-spec leaves (the engine's batched path) --
+
+    @staticmethod
+    def _stack(rows: list[dict]) -> dict[str, torch.Tensor]:
+        """The leaves' state stacked along a new leading axis, every key
+        whose tensors agree in shape (others stay per leaf)."""
+        return {k: torch.stack([r[k] for r in rows]) for k in rows[0]
+                if all(r[k].shape == rows[0][k].shape for r in rows)}
+
+    def run_batched(self, states0: list[dict[str, Any]], envs: list[CallEnv]) -> list[dict]:
+        """Execute the encode direction for a bucket of same-spec leaves.
+
+        ``states0`` holds each leaf's initial state and ``envs`` its call
+        environment.  The graph's leading stages that take a stack
+        (``Stage.stacks``: ZFP's block transform, one kernel launch for the
+        bucket) run once over the leaves stacked along a new axis 0 on the
+        plan's device; every later stage loops over the leaves (MGARD's
+        decomposition and quantization and the entropy tail, between host
+        barriers that give each leaf its own bins, codebook and stream
+        length).  Returns each leaf's final state, in order: what :meth:`run`
+        of that leaf alone returns.
+        """
+        stages = self.graph.stages
+        rows = [self._stage_in(env, s0) for env, s0 in zip(envs, states0)]
+        if self.n_stacked:
+            stacked = self._stack(rows)
+            for st in stages[: self.n_stacked]:
+                stacked.update(st.apply_stacked(envs[0], stacked))
+            rows = [{k: v[i] for k, v in stacked.items()} for i in range(len(envs))]
+        for env, row in zip(envs, rows):
+            for st in stages[self.n_stacked:]:
+                if st.device:
+                    row.update(st.apply(env, row))
+                else:
+                    self._host_step(st, env, row)
+        return rows
+
+    def invert_batched(self, states0: list[dict[str, Any]], envs: list[CallEnv]) -> list[dict]:
+        """Execute the decode direction for a bucket of same-spec leaves
+        (``states0``: each container's sections; ``envs``: each call's
+        environment holding its stream's metadata).  Host stages prepare per
+        leaf; the inverses of the looping stages run leaf by leaf, then
+        those of the stacking prefix once over the stacked leaves."""
+        stages = self.graph.stages
+        for env in envs:
+            for st in stages:
+                if not st.device:
+                    st.host_prepare(env)
+        rows = [self._stage_in(env, s0) for env, s0 in zip(envs, states0)]
+        for env, row in zip(envs, rows):
+            for st in reversed(stages[self.n_stacked:]):
+                if st.device and st.inv_writes:
+                    row.update(st.invert(env, row))
+        stacked_inv = [st for st in reversed(stages[: self.n_stacked]) if st.inv_writes]
+        if stacked_inv:
+            stacked = self._stack(rows)
+            for st in stacked_inv:
+                stacked.update(st.invert_stacked(envs[0], stacked))
+            rows = [{k: v[i] for k, v in stacked.items()} for i in range(len(envs))]
+        return rows
 
 
 class LeafView:

@@ -97,6 +97,25 @@ def bfloat16_round(x: np.float32) -> float:
     return float(torch.tensor(x, dtype=torch.float32).to(torch.bfloat16).item())
 
 
+def span(vmin, vmax, bfloat16: bool) -> float:
+    """``vmax - vmin`` of two fetched numpy scalars, subtracted in their
+    dtype as the reference subtracts (float32 for float32 data; integers
+    with numpy's wrap), a bfloat16 range (fetched as float32) rounded to
+    bfloat16 as the reference's ``ml_dtypes`` scalars round it."""
+    diff = vmax - vmin
+    return bfloat16_round(diff) if bfloat16 else float(diff)
+
+
+def value_span(data: torch.Tensor) -> float:
+    """``max - min`` of ``data`` as :func:`span` subtracts (0.0 if empty)."""
+    if data.numel() == 0:
+        return 0.0
+    v = value_range(data).cpu()
+    bf = v.dtype == torch.bfloat16
+    vmin, vmax = (v.float() if bf else v).numpy()
+    return span(vmin, vmax, bf)
+
+
 # ---------------------------------------------------------------------------
 # entry normalisation
 # ---------------------------------------------------------------------------
@@ -240,8 +259,7 @@ class BinSchedule(Stage):
         from .. import mgard
 
         vmin, vmax = fetched["value_range"]
-        diff = bfloat16_round(vmax - vmin) if self._bfloat16 else vmax - vmin
-        eb = self.eb0 * float(diff) if self.relative else self.eb0
+        eb = self.eb0 * span(vmin, vmax, self._bfloat16) if self.relative else self.eb0
         eb = eb if eb > 0 else self.eb0
         bins = mgard.level_bins(eb, self.L)
         env.meta["error_bound"] = float(eb)
@@ -471,6 +489,7 @@ class ZfpBlockTransform(Stage):
 
     name = "zfp_block_transform"
     inv_writes = ("data",)
+    stacks = True  # a stack of same-shape leaves is more blocks: one launch
 
     def __init__(self, rate: int, dims: int, shape: tuple[int, ...]):
         self.rate = int(rate)
@@ -493,6 +512,24 @@ class ZfpBlockTransform(Stage):
         from .. import zfp
 
         out = zfp.decompress_field(
+            state["payload"], state["emax"], self.rate, self.dims, self.shape,
+            env.backend, perm=env.workspace("perm"), scale=env.workspace("dec_scale"),
+        )
+        return {"data": float32_to(out, self._dtype)}
+
+    def apply_stacked(self, env: CallEnv, state: dict) -> dict:
+        from .. import zfp
+
+        payload, emax = zfp.compress_stacked(
+            state["data"], self.rate, self.dims, self.shape,
+            env.backend, perm=env.workspace("perm"), scale=env.workspace("enc_scale"),
+        )
+        return {"payload": payload, "emax": emax}
+
+    def invert_stacked(self, env: CallEnv, state: dict) -> dict:
+        from .. import zfp
+
+        out = zfp.decompress_stacked(
             state["payload"], state["emax"], self.rate, self.dims, self.shape,
             env.backend, perm=env.workspace("perm"), scale=env.workspace("dec_scale"),
         )

@@ -310,3 +310,48 @@ def decompress_field(
         perm=perm, scale=scale,
     )
     return full[tuple(slice(0, d) for d in shape)]
+
+
+# ---------------------------------------------------------------------------
+# a stack of same-shape fields in one launch (the engine's batched buckets)
+# ---------------------------------------------------------------------------
+
+
+def _merged_shape(k: int, dims: int, shape: tuple[int, ...]) -> tuple[int, ...]:
+    """The padded fields of a stack of ``k``, laid end to end along axis 0."""
+    full = padded_shape(shape, (4,) * dims)
+    return (k * full[0],) + tuple(full[1:])
+
+
+def compress_stacked(
+    data: torch.Tensor, rate: int, dims: int, shape: tuple[int, ...],
+    adapter: str, *, perm: torch.Tensor, scale: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`compress_field` of ``k`` same-shape fields stacked on a new
+    axis 0, in one kernel launch: ``(k, blocks, words)`` payload rows and
+    ``(k, blocks)`` exponents, row ``i`` equal to field ``i``'s alone.
+
+    Each field is padded on its own (edge mode), then the padded fields are
+    laid end to end along axis 0: every field is whole blocks, so field
+    ``i``'s blocks are the ``i``-th run of the merged field's block order.
+    """
+    k = int(data.shape[0])
+    padded = pad_to_blocks(data.reshape((k,) + tuple(shape)), (1,) + (4,) * dims)
+    merged = _merged_shape(k, dims, shape)
+    payload, emax = compress_field(padded.reshape(merged), rate, dims, merged, adapter,
+                                   perm=perm, scale=scale)
+    return payload.reshape(k, -1, payload.shape[-1]), emax.reshape(k, -1)
+
+
+def decompress_stacked(
+    payload: torch.Tensor, emax: torch.Tensor, rate: int, dims: int,
+    shape: tuple[int, ...], adapter: str, *, perm: torch.Tensor, scale: torch.Tensor,
+) -> torch.Tensor:
+    """Inverse of :func:`compress_stacked`: ``(k, *shape)`` fields from one
+    kernel launch (the crop is a view)."""
+    k = int(payload.shape[0])
+    merged = _merged_shape(k, dims, shape)
+    full = decompress_field(payload.reshape(-1, payload.shape[-1]), emax.reshape(-1), rate,
+                            dims, merged, adapter, perm=perm, scale=scale)
+    full = full.reshape((k, merged[0] // k) + tuple(merged[1:]))
+    return full[(slice(None),) + tuple(slice(0, d) for d in shape)]

@@ -5,12 +5,23 @@ launch.  Nothing here runs at import."""
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
 from . import _build
 
 PTR, I64, INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(launches: dict[str, int], name: str) -> None:
+    """Add one launch of ``name`` to a wrapper's counter, under a lock: the
+    engine's tasks launch from several threads at once, and nothing in the
+    language makes ``launches[name] += 1`` atomic."""
+    with _COUNT_LOCK:
+        launches[name] += 1
 
 
 def library(name: str, signatures: dict[str, list]) -> ctypes.CDLL:

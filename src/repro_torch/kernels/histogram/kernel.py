@@ -16,7 +16,7 @@ import ctypes
 
 import torch
 
-from .._launch import I64, INT, PTR, library, raise_on, require, route, stream
+from .._launch import I64, INT, PTR, count_launch, library, raise_on, require, route, stream
 from . import ref
 
 launches = {"histogram": 0}
@@ -49,7 +49,7 @@ def histogram(keys: torch.Tensor, num_bins: int) -> torch.Tensor:
         keys.data_ptr(), n, out.data_ptr(), num_bins, stream(dev),
     )
     raise_on(rc, "histogram")
-    launches["histogram"] += 1
+    count_launch(launches, "histogram")
     return out
 
 

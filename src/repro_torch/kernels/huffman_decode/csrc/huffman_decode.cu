@@ -249,6 +249,14 @@ __host__ __device__ constexpr int lane_words(int max_len) {
   return 2 * window_words(max_len) + ((window_words(max_len) / 2) % 2 == 0 ? 4 : 0);
 }
 
+// Dynamic shared memory of a launch for codes of up to max_len bits: the
+// lookup table, the warps' output stages and the lanes' windows.
+constexpr int decode_smem(int max_len) {
+  return static_cast<int>(sizeof(uint32_t)) * (1 << kLutBits) +
+         static_cast<int>(sizeof(int)) * kWarps * 32 * kStageStride +
+         static_cast<int>(sizeof(uint32_t)) * kThreads * lane_words(max_len);
+}
+
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const uint32_t* __restrict__ words, long long n_words,
               const int* __restrict__ chunk_offsets, int n_chunks,
@@ -322,11 +330,12 @@ extern "C" int huffman_decode_chunks(const void* words, long long n_words,
       (reinterpret_cast<uintptr_t>(words) & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_chunks == 0) return 0;
-  const int smem = static_cast<int>(sizeof(uint32_t)) * (1 << kLutBits) +
-                   static_cast<int>(sizeof(int)) * kWarps * 32 * kStageStride +
-                   static_cast<int>(sizeof(uint32_t)) * kThreads * lane_words(max_len);
-  cudaError_t err =
-      cudaFuncSetAttribute(decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int smem = decode_smem(max_len);
+  // The limit is the kernel's, shared by every host thread: set it to what the
+  // longest codes need, so a concurrent launch for shorter codes never lowers
+  // it under this launch's size.
+  cudaError_t err = cudaFuncSetAttribute(decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         decode_smem(kMaxLen));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (n_chunks + kThreads - 1) / kThreads;
   decode_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(

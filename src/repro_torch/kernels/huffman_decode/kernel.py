@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from .._launch import I64, INT, PTR, library, raise_on, require, route, stream
+from .._launch import I64, INT, PTR, count_launch, library, raise_on, require, route, stream
 from . import ref
 
 launches = {"decode_chunks": 0}
@@ -75,5 +75,5 @@ def decode_chunks(
             sym_sorted.data_ptr(), n_sym, max_len, chunk_size, out.data_ptr(), stream(dev),
         )
         raise_on(rc, "huffman_decode_chunks")
-        launches["decode_chunks"] += 1
+        count_launch(launches, "decode_chunks")
     return out

@@ -99,8 +99,12 @@ extern "C" int huffman_encode_lookup(const void* keys, long long n, const void* 
   int* l = static_cast<int*>(lens);
   if (num_keys <= kSharedKeys) {
     const int smem = static_cast<int>(sizeof(int2)) * num_keys;
+    // The limit is the kernel's, shared by every host thread: set it to the
+    // largest table, so a concurrent launch for a smaller alphabet never
+    // lowers it under this launch's size.
     cudaError_t err = cudaFuncSetAttribute(encode_kernel<true>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(sizeof(int2)) * kSharedKeys);
     if (err != cudaSuccess) return static_cast<int>(err);
     const int per_sm = smem > 64 * 1024 ? 1 : (smem > 32 * 1024 ? 2 : 4);
     long long grid = static_cast<long long>(sm_count()) * per_sm;

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from .._launch import I64, INT, PTR, library, raise_on, require, route, stream
+from .._launch import I64, INT, PTR, count_launch, library, raise_on, require, route, stream
 from . import ref
 
 launches = {"encode_lookup": 0}
@@ -49,5 +49,5 @@ def encode_lookup(
             codes.data_ptr(), lens.data_ptr(), stream(dev),
         )
         raise_on(rc, "huffman_encode_lookup")
-        launches["encode_lookup"] += 1
+        count_launch(launches, "encode_lookup")
     return codes, lens

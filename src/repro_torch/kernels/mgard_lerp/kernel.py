@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from .._launch import I64, PTR, library, raise_on, require, route, stream
+from .._launch import I64, PTR, count_launch, library, raise_on, require, route, stream
 from . import ref
 
 launches = {"lerp_coefficients": 0}
@@ -41,5 +41,5 @@ def lerp_coefficients(rows: torch.Tensor) -> torch.Tensor:
         rc = library("mgard_lerp", _SIGNATURES).mgard_lerp(
             rows.data_ptr(), out.data_ptr(), batch, m, stream(dev))
         raise_on(rc, "mgard_lerp")
-        launches["lerp_coefficients"] += 1
+        count_launch(launches, "lerp_coefficients")
     return out

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from .._launch import I64, INT, PTR, library, raise_on, require, route, stream
+from .._launch import I64, INT, PTR, count_launch, library, raise_on, require, route, stream
 from . import ref
 
 launches = {"quantize": 0, "dequantize": 0}
@@ -48,7 +48,7 @@ def _launch(name: str, entry: str, src, levels, bins, src_dtype, out_dtype) -> t
             stream(dev),
         )
         raise_on(rc, entry)
-        launches[name] += 1
+        count_launch(launches, name)
     return out
 
 

@@ -22,7 +22,7 @@ import ctypes
 
 import torch
 
-from .._launch import I64, INT, PTR, library, raise_on, require, route, stream
+from .._launch import I64, INT, PTR, count_launch, library, raise_on, require, route, stream
 from ...core import mgard
 from . import ref
 
@@ -62,7 +62,7 @@ def solve_columns(v: torch.Tensor, h: float,
             mgard.thomas_sub(h), stream(dev),
         )
         raise_on(rc, "tridiag_solve")
-        launches["solve_mass"] += 1
+        count_launch(launches, "solve_mass")
     return out
 
 

@@ -784,10 +784,14 @@ bool make_geo(const long long* shape, Geo* g) {
   return true;
 }
 
+// The shared-memory limit is the kernel's, shared by every host thread: it is
+// set to what the largest rate needs (`smem_max`), so a concurrent launch at
+// a lower rate never lowers it under this launch's size.
 template <typename Kernel>
-int launch_info(Kernel kernel, int threads, uint32_t smem, int* smem_out, int* per_sm) {
+int launch_info(Kernel kernel, int threads, uint32_t smem, uint32_t smem_max, int* smem_out,
+                int* per_sm) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+                                         static_cast<int>(smem_max));
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, threads, smem);
   }
@@ -797,15 +801,15 @@ int launch_info(Kernel kernel, int threads, uint32_t smem, int* smem_out, int* p
 
 // A grid of as many CTAs as fit on the device at once, or one per tile.
 template <typename Kernel>
-int launch_persistent(Kernel kernel, int threads, uint32_t smem, long long tiles,
-                      unsigned* grid) {
+int launch_persistent(Kernel kernel, int threads, uint32_t smem, uint32_t smem_max,
+                      long long tiles, unsigned* grid) {
   int device = 0, sms = 0, per_sm = 0, smem_set = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int rc = launch_info(kernel, threads, smem, &smem_set, &per_sm);
+  const int rc = launch_info(kernel, threads, smem, smem_max, &smem_set, &per_sm);
   if (rc) return rc;
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   *grid = static_cast<unsigned>(std::min(tiles, static_cast<long long>(per_sm) * sms));
@@ -815,10 +819,10 @@ int launch_persistent(Kernel kernel, int threads, uint32_t smem, long long tiles
 template <int D>
 int kernel_info(int rate, int decode, int* smem, int* per_sm) {
   const int wpb = (rate * Cfg<D>::BS + 31) >> 5;
-  return decode ? launch_info(zfp_decode_kernel<D>, Cfg<D>::T, dec_layout<D>(wpb).total, smem,
-                              per_sm)
-                : launch_info(zfp_encode_kernel<D>, Cfg<D>::T, enc_layout<D>(wpb).total, smem,
-                              per_sm);
+  return decode ? launch_info(zfp_decode_kernel<D>, Cfg<D>::T, dec_layout<D>(wpb).total,
+                              dec_layout<D>(Cfg<D>::BS).total, smem, per_sm)
+                : launch_info(zfp_encode_kernel<D>, Cfg<D>::T, enc_layout<D>(wpb).total,
+                              enc_layout<D>(Cfg<D>::BS).total, smem, per_sm);
 }
 
 template <int D>
@@ -829,7 +833,8 @@ int launch_encode(const void* x, void* payload, void* emax, const void* scale,
   const int wpb = (rate * Cfg<D>::BS + 31) >> 5;
   const uint32_t smem = enc_layout<D>(wpb).total;
   unsigned grid = 0;
-  const int rc = launch_persistent(zfp_encode_kernel<D>, Cfg<D>::T, smem, g.tiles, &grid);
+  const int rc = launch_persistent(zfp_encode_kernel<D>, Cfg<D>::T, smem,
+                                   enc_layout<D>(Cfg<D>::BS).total, g.tiles, &grid);
   if (rc) return rc;
   zfp_encode_kernel<D><<<grid, Cfg<D>::T, smem, stream>>>(
       static_cast<const float*>(x), static_cast<uint32_t*>(payload), static_cast<int*>(emax),
@@ -845,7 +850,8 @@ int launch_decode(const void* payload, const void* emax, void* out, const void* 
   const int wpb = (rate * Cfg<D>::BS + 31) >> 5;
   const uint32_t smem = dec_layout<D>(wpb).total;
   unsigned grid = 0;
-  const int rc = launch_persistent(zfp_decode_kernel<D>, Cfg<D>::T, smem, g.tiles, &grid);
+  const int rc = launch_persistent(zfp_decode_kernel<D>, Cfg<D>::T, smem,
+                                   dec_layout<D>(Cfg<D>::BS).total, g.tiles, &grid);
   if (rc) return rc;
   zfp_decode_kernel<D><<<grid, Cfg<D>::T, smem, stream>>>(
       static_cast<const uint32_t*>(payload), static_cast<const int*>(emax),

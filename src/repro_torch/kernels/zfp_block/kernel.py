@@ -31,7 +31,7 @@ import weakref
 import numpy as np
 import torch
 
-from .._launch import I64, INT, PTR, library, raise_on, require, route, stream
+from .._launch import I64, INT, PTR, count_launch, library, raise_on, require, route, stream
 from ...core import zfp as core_zfp
 from ...core import zfp_tables
 from . import ref
@@ -145,7 +145,7 @@ def _encode(field: torch.Tensor, rate: int, dims: int, scale: torch.Tensor,
             *_field_dims(tuple(field.shape)), dims, rate, int(given is not None), stream(dev),
         )
         raise_on(rc, "zfp_encode_kernel")
-        launches["compress_blocks"] += 1
+        count_launch(launches, "compress_blocks")
     return payload, emax
 
 
@@ -165,7 +165,7 @@ def _decode(payload: torch.Tensor, emax: torch.Tensor, rate: int, dims: int,
             *_field_dims(shape), dims, rate, stream(dev),
         )
         raise_on(rc, "zfp_decode_kernel")
-        launches["decompress_blocks"] += 1
+        count_launch(launches, "decompress_blocks")
     return out
 
 

@@ -1,0 +1,2 @@
+"""Launch-side helpers of the port (counterpart of ``repro.launch``): the
+multi-controller host topology (:mod:`.mesh`)."""

@@ -621,3 +621,128 @@ def test_cuda_mgard_dtypes_match_torch_backend(cuda_device, dtype):
     out = api.decompress(c)
     assert out.device.type == "cuda" and out.dtype == x.dtype
     assert _same(out, api.decompress(c, backend="torch"))
+
+
+# ---------------------------------------------------------------------------
+# the progressive tier and the pytree engine on the card: the cuda
+# backend's containers equal the torch backend's
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(17, 9, 13), (33, 20)])
+def test_cuda_progressive_matches_torch_backend(cuda_device, shape, tmp_path):
+    from repro_torch.core import progressive
+
+    x = torch.from_numpy(np.random.default_rng(24).normal(size=shape).cumsum(axis=0)
+                         .astype(np.float32))
+    c = api.compress(x.to(cuda_device), "mgard-progressive")
+    assert c.to_bytes() == api.compress(x, "mgard-progressive", backend="torch").to_bytes()
+    stream = progressive.ProgressiveStream.from_container(c)
+    stream.write(tmp_path / "p.hpdr")
+    with progressive.ProgressiveReader(tmp_path / "p.hpdr") as r:
+        coarse = r.retrieve(tiers=1)
+        assert coarse.device.type == "cuda"
+        assert float((coarse.cpu() - x).abs().max()) <= r.tier_bounds[0]
+        refined = r.refine()
+        assert r.bytes_fetched == stream.nbytes()
+    direct = progressive.retrieve(stream)
+    assert _same(refined, direct)
+    assert _same(direct, progressive.retrieve(stream, backend="torch"))
+    assert float((direct.cpu() - x).abs().max()) <= stream.tier_bounds[-1]
+
+
+@pytest.mark.gpu
+def test_cuda_pytree_matches_torch_backend(cuda_device):
+    from repro_torch.core import engine
+
+    rng = np.random.default_rng(25)
+    tree = {"layers": [{"wq": rng.normal(0, 0.02, (64, 128)).astype(np.float32),
+                        "wo": rng.normal(0, 0.02, (128, 64)).astype(np.float32),
+                        "norm": np.ones(256, np.float32)} for _ in range(3)],
+            "embed": rng.normal(0, 0.02, (96, 64)).astype(np.float32),
+            "ids": rng.integers(0, 300, 5000).astype(np.int32)}
+
+    def select(key, arr):
+        if key == "ids":
+            return "huffman", {}
+        if key.endswith("norm"):
+            return "huffman-bytes", {}
+        if key == "layers/0/wo":
+            return "mgard-progressive", {}
+        return api.default_select(key, arr)
+
+    with engine.ExecutionEngine() as eng, \
+            engine.ExecutionEngine([torch.device("cpu")], backend="torch") as cpu:
+        flat, stats = eng.compress_pytree(tree, select)
+        want, _ = cpu.compress_pytree(tree, select)
+        assert list(flat) == list(want) and stats["sharded_leaves"] == 5 + 3
+        for key, c in flat.items():
+            assert c.to_bytes() == want[key].to_bytes(), key
+        out = dict(api.flatten_with_keys(eng.decompress_pytree(flat, tree)))
+        back = dict(api.flatten_with_keys(cpu.decompress_pytree(want, tree)))
+        for key, got in out.items():
+            assert got.device.type == "cuda" and _same(got, back[key]), key
+        assert eng.stats()["devices"] == torch.cuda.device_count()
+
+
+@pytest.mark.gpu
+def test_kernels_launch_from_threads_at_other_shared_sizes(cuda_device):
+    """The engine launches from several host threads at once.  A kernel's
+    dynamic shared-memory limit is one per process: a thread launching with
+    less shared memory (codes of 9 against 32 bits, alphabets of 256 against
+    16,384 keys, ZFP at rate 4 against rate 32) must not lower the limit
+    under another thread's launch.  Every launch succeeds and gives its
+    plain version's result."""
+    import threading
+
+    fib = [1, 1]
+    while len(fib) < 40:
+        fib.append(fib[-1] + fib[-2])
+    rng = np.random.default_rng(31)
+    decodes = []
+    for keys, freq, chunk in ((rng.integers(0, 300, 40_000).astype(np.int32), None, 4096),
+                              (rng.integers(0, 40, 40_000).astype(np.int32),
+                               np.array(fib, np.int64), 256)):
+        words, offsets, tables, book = _stream(keys, chunk, freq=freq)
+        args = [t.to(cuda_device) for t in (words, offsets) + tables]
+        want = dec_ref.decode_chunks(words, offsets, *tables, chunk, book.max_len)
+        decodes.append((args, chunk, book.max_len, want))
+    lookups = []
+    for num_keys in (256, 1 << 14):
+        ct = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, num_keys).astype(np.int32))
+        lt = torch.from_numpy(rng.integers(0, 33, num_keys).astype(np.int32))
+        keys = torch.from_numpy(rng.integers(0, num_keys, 200_003).astype(np.int32))
+        lookups.append(([t.to(cuda_device) for t in (keys, ct, lt)],
+                        enc_ref.encode_lookup(keys, ct, lt)))
+    blocks = _blocks(3, 4096, seed=32).to(cuda_device)
+    fields = [(rate, ref.compress_blocks(blocks.cpu(), rate, 3)) for rate in (4, 32)]
+
+    def work(i, barrier, errors):
+        stream = torch.cuda.Stream(cuda_device)
+        barrier.wait()
+        try:
+            with torch.cuda.stream(stream):
+                for _ in range(40):
+                    args, chunk, max_len, want = decodes[i % 2]
+                    got = dec_kernel.decode_chunks(*args, chunk, max_len)
+                    args, want_cl = lookups[i % 2]
+                    codes, lens = enc_kernel.encode_lookup(*args)
+                    rate, want_z = fields[i % 2]
+                    payload, emax = kernel.compress_blocks(blocks, rate, 3)
+                stream.synchronize()
+            assert torch.equal(got.cpu(), want)
+            assert torch.equal(codes.cpu(), want_cl[0]) and torch.equal(lens.cpu(), want_cl[1])
+            assert torch.equal(payload.cpu(), want_z[0]) and torch.equal(emax.cpu(), want_z[1])
+        except BaseException as e:  # reported below: a thread's failure fails the test
+            errors.append(e)
+
+    errors = []
+    barrier = threading.Barrier(6)
+    threads = [threading.Thread(target=work, args=(i, barrier, errors)) for i in range(6)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors

@@ -458,8 +458,13 @@ def test_leaf_policy_routes_like_reference(values, dtype, want):
 
 
 def test_leaf_policy_of_unported_method_raises():
-    with pytest.raises(ValueError, match="not yet ported"):
-        tapi.leaf_policy(np.zeros(4, np.float32), "mgard-progressive")
+    # mgard-progressive, once the one method not ported, now takes the
+    # reference's policy: floats to float32, > 4-D flattened
+    for arr in (np.zeros(4, np.float16), np.zeros((1, 2, 1, 2, 2), np.float32)):
+        x, method, _ = tapi.leaf_policy(arr, "mgard-progressive")
+        jx, jmethod, _ = japi.leaf_policy(arr, "mgard-progressive")
+        assert method == jmethod == "mgard-progressive"
+        assert tapi.dtype_name(x) == str(jx.dtype) and tuple(x.shape) == jx.shape
 
 
 def test_leaf_policy_routes_mgard_like_reference():

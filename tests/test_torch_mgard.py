@@ -516,8 +516,15 @@ def test_codec_unsigned_and_bfloat16_match_reference(case):
 
 
 def test_mgard_progressive_still_raises():
-    with pytest.raises(ValueError, match="not yet ported"):
-        tapi.leaf_policy(np.zeros(4, np.float32), "mgard-progressive")
+    # ported now: it still raises where the reference raises, on a tier
+    # ladder it cannot build
+    x = np.zeros(4, np.float32)
+    assert tapi.leaf_policy(x, "mgard-progressive")[1] == "mgard-progressive"
+    for params in ({"tiers": 0}, {"tier_ratio": 1.0}):
+        with pytest.raises(ValueError, match="tier"):
+            tapi.compress(x, "mgard-progressive", backend="torch", **params)
+        with pytest.raises(ValueError, match="tier"):
+            japi.compress(x, "mgard-progressive", **params)
 
 
 # ---------------------------------------------------------------------------
