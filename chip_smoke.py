@@ -86,7 +86,31 @@ any fails:
      plain versions on one bucket, layer 0 against the ``torch`` backend's
      bytes; then a select sending the norms to ``huffman-bytes`` and the
      ``wo`` matrices to ``mgard-progressive`` (the per-leaf futures path),
-     each call counted;
+     each call counted.  Stream — the 512^3 field from pageable host
+     memory through ``CompressorStream("zfp", rate=16, mode="fixed",
+     c_fixed_elems=8 << 20)`` (16 chunks of 32 planes, staged through
+     page-locked slot buffers and a copy stream) at windows 1, 2 and 3:
+     ``to_bytes`` identical, every chunk equal to the one-shot
+     ``api.compress`` of its rows, chunk 0 to the ``torch`` backend's bytes,
+     the decode to the chunk-wise ``api.decompress``, at most ``window``
+     chunks in flight, exactly 16 ``compress_blocks`` a run and no other
+     kernel; 128 chunks at windows 1 and 3 with the same bytes (a chunk
+     computed before its staging copy completed would differ);
+     ``to_file``/``from_file`` reading chunk 0 with one segment pread; the
+     4096x4096 weight leaf through ``huffman-bytes`` (4 chunks) and the
+     513^3 MGARD field (nine (57, 513, 513) chunks, within each chunk's
+     bound) at window 2, each launch counted; and ``chunk_size="auto",
+     window="auto"`` from a cold calibration in a temporary directory, whose
+     plan must be ``calibrated`` and whose second run must run no sweep.
+     Checkpoint — ``CheckpointManager.save`` of the pytree's qwen2.5-3b
+     tree with the default policy (zfp rate 28; 21 leaves streamed, 8
+     one-shot zfp, 20 ``huffman-bytes``: the routing checked), ``restore``
+     flat and with ``target`` (exact leaves bit-identical, zfp leaves equal
+     to the one-shot decode of the same chunks), ``save_async`` + ``wait``,
+     ``restore(leaves=[...])`` reading only those segments, and a
+     ``mgard-progressive`` policy on the four ``wo`` leaves whose
+     ``restore(max_error=<tier-2 bound>)`` reads fewer bytes than the full
+     restore; each call's launches exact;
   4. the container bytes round trip on the card (one ZFP, one Huffman, one
      MGARD and one progressive container, and the pytree's containers):
      ``to_bytes`` -> ``from_bytes`` -> decode, bit-identical;
@@ -110,14 +134,20 @@ any fails:
      (synchronised, median of 5) of ``refactor`` and its tier-0 stages, each
      ``retrieve``/``refine`` tier, ``compress_pytree`` and
      ``decompress_pytree`` beside serial ``compress_leaf`` /
-     ``decompress_leaf`` over the same leaves; each printed with the
-     card's name and power limit.
+     ``decompress_leaf`` over the same leaves; the stream at windows 1-3
+     and auto beside the one-shot ``api.compress`` of the same host field
+     (median of 5) with its lane seconds, overlap efficiency and staging
+     rates, and page-locked copy rates (events); the checkpoint's save and
+     restore wall times, bytes written and filesystem, apart from a plain
+     write of as many bytes there (the machine's disk, not the card); each
+     printed with the card's name and power limit.
 
 The last two lines are one JSON object per kernel (``{"kernels": [...]}``;
 the Huffman kernels' times are those of the ``huffman-bytes`` leaf; a
 kernel's launches are summed over every counted main-path call (the ZFP,
-Huffman, MGARD, progressive and pytree paths; a line before gives the
-progressive and pytree calls' own), its error the largest of them) and
+Huffman, MGARD, progressive, pytree, stream and checkpoint paths; a line
+before gives the last four paths' calls' own), its error the largest of
+them) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -173,7 +203,13 @@ PROG_TIERS = 3                      # mgard-progressive's defaults: 3 tiers, rat
 PROG_RATIO = 8.0
 QWEN = {"vocab": 151936, "d_model": 2048, "kv_dim": 256, "d_ff": 11008}  # hf:Qwen/Qwen2.5-3B
 QWEN_LAYERS = 4                     # the embedding and the first 4 of its 36 layers
-NEW_TIMED_RUNS = 5                  # medians of the progressive and pytree timings
+NEW_TIMED_RUNS = 5                  # medians of the progressive, pytree and stream timings
+STREAM_CHUNK = 8 << 20              # elements: 32 planes of the 512^3 field, 16 chunks
+STREAM_WINDOWS = (1, 2, 3)
+RACE_CHUNK = 1 << 20                # 4 planes: 128 chunks, the staging copy's event check
+HUFF_STREAM_CHUNK = 4 << 20         # 1024 rows of the 4096x4096 weight leaf: 4 chunks
+MGARD_STREAM_ROWS = 57              # 513 = 9 x 57: nine (57, 513, 513) chunks
+CKPT_ROUTING = (21, 8, 20)          # leaves streamed / one-shot zfp / huffman-bytes
 MGARD_KERNELS = {  # name: (TPU kernel it replaces, CUDA source)
     "quantize_map.quantize": ("src/repro/kernels/quantize_map/kernel.py:37",
                               "src/repro_torch/kernels/quantize_map/csrc/quantize_map.cu"),
@@ -1973,6 +2009,504 @@ def phase_pytree(device, api) -> dict:
             "nbytes": nbytes, "calls": calls, "errs": zerr, "mflat": mflat}
 
 
+# ---------------------------------------------------------------------------
+# the chunk-pipelined stream and the checkpoint manager
+# ---------------------------------------------------------------------------
+
+
+def counted(what: str, fn, want):
+    """``fn()`` with every counter zeroed just before and read just after;
+    the launches must be ``want`` (or ``want(result)``)."""
+    import torch
+
+    torch.cuda.synchronize()
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check_counts(what, counts, want(out) if callable(want) else want)
+    return out, counts
+
+
+def run_stream(api, what: str, data, want, **kw):
+    """One counted ``CompressorStream.compress`` of ``data``."""
+    stream = api.CompressorStream(**kw)
+    res, counts = counted(what, lambda: stream.compress(data), want)
+    if res.max_in_flight > res.window:
+        raise PhaseError(f"{what}: {res.max_in_flight} chunks in flight at window {res.window}")
+    return stream, res, counts
+
+
+def check_chunks_one_shot(api, what: str, res, x, method: str, **params) -> None:
+    """Every chunk of a stream == the one-shot ``api.compress`` of its rows."""
+    ends = res.boundaries[1:] + [x.shape[res.axis]]
+    for i, (b, e) in enumerate(zip(res.boundaries, ends)):
+        one = api.compress(x.narrow(res.axis, b, e - b), method, **params)
+        if one.to_bytes() != res.chunks[i].to_bytes():
+            raise PhaseError(f"{what}: chunk {i} differs from the one-shot api.compress")
+
+
+def phase_stream(device, api, field, mgard_field) -> dict:
+    """Phase 3, the stream: the 512^3 field from pageable host memory through
+    ``CompressorStream("zfp", rate=16, mode="fixed", c_fixed_elems=8 << 20)``
+    (16 chunks of 32 planes) at windows 1, 2 and 3, 128 chunks at windows 1
+    and 3 (a chunk read before its staging copy completed would change the
+    bytes), the 4096x4096 weight leaf through ``huffman-bytes`` (4 chunks)
+    and the 513^3 MGARD field (nine (57, 513, 513) chunks) at window 2, and
+    the auto plan from a cold calibration; every run's launches exact."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import mgard
+    from repro_torch.runtime import calibrate
+
+    calls, errs = {}, {}
+    host = field.cpu()              # pageable host memory, as a caller's array holds it
+    planes = FIELD_EDGE * FIELD_EDGE
+    n = host.numel() // STREAM_CHUNK
+    zfp_runs, blobs = {}, {}
+    for w in STREAM_WINDOWS:
+        what = f"zfp stream (window {w})"
+        _s, res, calls[what] = run_stream(
+            api, what, host, lambda r: {"zfp_block.compress_blocks": n}, method="zfp",
+            rate=RATE, mode="fixed", c_fixed_elems=STREAM_CHUNK, window=w)
+        if len(res.chunks) != n or res.window != w or res.axis != 0:
+            raise PhaseError(f"{what}: {len(res.chunks)} chunks on axis {res.axis} at window "
+                             f"{res.window}")
+        zfp_runs[w], blobs[w] = res, api.CompressorStream.to_bytes(res)
+    if len(set(blobs.values())) != 1:
+        raise PhaseError("zfp stream: to_bytes differs between windows 1, 2 and 3")
+    res = zfp_runs[2]
+    check_chunks_one_shot(api, "zfp stream", res, field, "zfp", rate=RATE)
+    rows = STREAM_CHUNK // planes
+    t0 = time.perf_counter()
+    plain = api.compress(host[:rows], "zfp", rate=RATE, backend="torch")
+    plain_s = time.perf_counter() - t0
+    if plain.to_bytes() != res.chunks[0].to_bytes():
+        raise PhaseError("zfp stream: chunk 0 differs from the torch backend's")
+    out, calls["zfp stream decompress"] = counted(
+        "zfp stream decompress", lambda: api.CompressorStream.decompress(res),
+        {"zfp_block.decompress_blocks": n})
+    chunkwise = torch.cat([api.decompress(c) for c in res.chunks])
+    if not same_bits(out, chunkwise):
+        raise PhaseError("zfp stream: decode differs from the chunk-wise api.decompress")
+    if not same_bits(out[:rows], api.decompress(plain, backend="torch")):
+        raise PhaseError("zfp stream: chunk 0 decodes differently from the torch backend")
+    errs["zfp_block.compress_blocks"] = errs["zfp_block.decompress_blocks"] = 0.0
+    err = float((out - field).abs().max()) / float(field.max() - field.min())
+    if not err <= ERR_TOL:
+        raise PhaseError(f"zfp stream: max |error| {err:.3e} of the range")
+    again = api.CompressorStream.decompress(api.CompressorStream.from_bytes(blobs[2]))
+    if not same_bits(again, out):
+        raise PhaseError("zfp stream: decode of to_bytes/from_bytes differs")
+    log(f"phase 3 ok: zfp stream {FIELD_EDGE}^3 from host memory, {n} chunks of {rows} planes: "
+        f"to_bytes identical at windows {STREAM_WINDOWS} (max in flight "
+        f"{[zfp_runs[w].max_in_flight for w in STREAM_WINDOWS]}), every chunk == one-shot "
+        f"api.compress, chunk 0 == torch backend's bytes (CPU encode {plain_s:.1f} s), decode == "
+        f"chunk-wise api.decompress and to_bytes/from_bytes, max |error| {err:.3e} of the range")
+
+    race = {}
+    nr = host.numel() // RACE_CHUNK
+    for w in (1, 3):
+        what = f"zfp stream {nr} chunks (window {w})"
+        _s, r, calls[what] = run_stream(
+            api, what, host, lambda r: {"zfp_block.compress_blocks": nr}, method="zfp",
+            rate=RATE, mode="fixed", c_fixed_elems=RACE_CHUNK, window=w)
+        race[w] = api.CompressorStream.to_bytes(r)
+    if race[1] != race[3]:
+        raise PhaseError(f"zfp stream of {nr} chunks: window 3 bytes differ from window 1's "
+                         "(a chunk computed before its staging copy completed?)")
+    log(f"phase 3 ok: zfp stream of {nr} chunks of {RACE_CHUNK // planes} planes: window 3 "
+        "bytes == window 1 bytes")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "stream.hpds"
+        directory = api.CompressorStream.to_file(res, path)
+        with count_file_reads() as seen:
+            back = api.CompressorStream.from_file(path)
+            first = back.chunks[0]
+        ok = (back.chunks.reader.preads == 1 and back.chunks.materialized == 1
+              and first.to_bytes() == res.chunks[0].to_bytes())
+        back.chunks.reader.close()
+        if not ok:
+            raise PhaseError(f"zfp stream file: chunk 0 took {back.chunks.reader.preads} "
+                             "segment preads or differs")
+        log(f"phase 3 ok: zfp stream to_file ({path.stat().st_size} bytes, "
+            f"{len(directory['segments'])} segments) -> from_file -> chunk 0 read with one "
+            f"segment pread ({seen['calls']} preads and {seen['bytes']} bytes in all, the "
+            "trailer and directory included)")
+
+    g = torch.Generator(device=device).manual_seed(SEED + 40)
+    leaf = torch.randn(HUFF_LEAF_SHAPE, generator=g, device=device) * 0.02
+    hk = leaf.numel() // HUFF_STREAM_CHUNK
+    hb = {}
+    for w in (1, 2):
+        what = f"huffman-bytes stream (window {w})"
+        _s, hres, calls[what] = run_stream(
+            api, what, leaf.cpu(), lambda r: {"histogram.histogram": hk,
+                                              "huffman_encode.encode_lookup": hk},
+            method="huffman-bytes", mode="fixed", c_fixed_elems=HUFF_STREAM_CHUNK, window=w)
+        hb[w] = api.CompressorStream.to_bytes(hres)
+    if hb[1] != hb[2]:
+        raise PhaseError("huffman-bytes stream: to_bytes differs between windows 1 and 2")
+    check_chunks_one_shot(api, "huffman-bytes stream", hres, leaf, "huffman-bytes")
+    hout, calls["huffman-bytes stream decompress"] = counted(
+        "huffman-bytes stream decompress", lambda: api.CompressorStream.decompress(hres),
+        {"huffman_decode.decode_chunks": hk})
+    if not same_bits(hout, leaf) or not same_bits(
+            hout, torch.cat([api.decompress(c) for c in hres.chunks])):
+        raise PhaseError("huffman-bytes stream: the round trip is not exact")
+    log(f"phase 3 ok: huffman-bytes stream {HUFF_LEAF_SHAPE} float32 weights, {hk} chunks: "
+        f"to_bytes identical at windows 1 and 2, every chunk == one-shot api.compress, exact "
+        f"round trip, ratio {hres.ratio():.6f}")
+
+    mhost = mgard_field.cpu()
+    edge = mgard_field.shape[1]
+    mk = mgard_field.shape[0] // MGARD_STREAM_ROWS
+    solves = mgard_solves((MGARD_STREAM_ROWS, edge, edge))
+    what = "mgard stream (window 2)"
+    _s, mres, calls[what] = run_stream(
+        api, what, mhost, lambda r: {
+            "quantize_map.quantize": mk, "histogram.histogram": mk,
+            "huffman_encode.encode_lookup": mk, "tridiag.solve_mass": mk * solves},
+        method="mgard", mode="fixed", c_fixed_elems=MGARD_STREAM_ROWS * edge * edge, window=2)
+    if len(mres.chunks) != mk:
+        raise PhaseError(f"mgard stream: {len(mres.chunks)} chunks, expected {mk}")
+    check_chunks_one_shot(api, "mgard stream", mres, mgard_field, "mgard")
+    mout, calls["mgard stream decompress"] = counted(
+        "mgard stream decompress", lambda: api.CompressorStream.decompress(mres),
+        {"quantize_map.dequantize": mk, "huffman_decode.decode_chunks": mk,
+         "tridiag.solve_mass": mk * solves})
+    worst = 0.0
+    for i, b in enumerate(mres.boundaries):
+        sl = slice(b, b + MGARD_STREAM_ROWS)
+        e = float((mout[sl] - mgard_field[sl]).abs().max())
+        if not e <= mres.chunks[i].meta["error_bound"]:
+            raise PhaseError(f"mgard stream chunk {i}: max |error| {e:.6e} > its bound")
+        worst = max(worst, e / mres.chunks[i].meta["error_bound"])
+    log(f"phase 3 ok: mgard stream {tuple(mgard_field.shape)}, {mk} chunks of "
+        f"{MGARD_STREAM_ROWS} planes ({solves} solves each way a chunk): every chunk == one-shot "
+        f"api.compress, within its bound (worst {worst:.4f} of it), ratio {mres.ratio():.6f}")
+
+    sweeps0 = calibrate.SWEEPS_RUN
+    t0 = time.perf_counter()
+    mc = calibrate.get_method_calibration("zfp", "float32", params={"rate": RATE})
+    cal_s = time.perf_counter() - t0
+    sweeps_cold = calibrate.SWEEPS_RUN - sweeps0
+    auto = {}
+    for run in (1, 2):
+        sweeps_before = calibrate.SWEEPS_RUN
+        what = f"zfp stream auto (run {run})"
+        astream, ares, calls[what] = run_stream(
+            api, what, host, lambda r: {"zfp_block.compress_blocks": len(r.chunks)},
+            method="zfp", rate=RATE, chunk_size="auto", window="auto")
+        if ares.tuned is None or ares.tuned["source"] != "calibrated":
+            raise PhaseError(f"{what}: the plan is {ares.tuned}, not a calibrated one")
+        if calibrate.SWEEPS_RUN != sweeps_before:
+            raise PhaseError(f"{what}: SWEEPS_RUN grew {sweeps_before} -> {calibrate.SWEEPS_RUN}")
+        auto[run] = (ares, sweeps_before)
+    ares = auto[1][0]
+    explicit = api.CompressorStream("zfp", rate=RATE, mode="fixed",
+                                    c_fixed_elems=ares.tuned["chunk_elems"],
+                                    window=ares.tuned["window"]).compress(host)
+    if api.CompressorStream.to_bytes(ares) != api.CompressorStream.to_bytes(explicit):
+        raise PhaseError("zfp stream auto: bytes differ from the explicit stream of its plan")
+    log(f"phase 3 ok: zfp stream auto from a cold calibration ({cal_s:.3f} s, {sweeps_cold} "
+        f"sweeps; phi gamma {mc.phi.gamma / 1e9:.3f} GB/s, h2d {mc.h2d.bps / 1e9:.3f} GB/s + "
+        f"{mc.h2d.t0 * 1e6:.1f} us, serialize {mc.serialize.bps / 1e9:.3f} GB/s + "
+        f"{mc.serialize.t0 * 1e6:.1f} us, window overhead "
+        f"{calibrate.window_overhead_s() * 1e6:.1f} us): "
+        + "; ".join(f"run {k}: plan chunk_elems {r.tuned['chunk_elems']}, window "
+                    f"{r.tuned['window']}, {len(r.chunks)} chunks, source {r.tuned['source']}, "
+                    f"predicted {r.tuned['predicted_s'] * 1e3:.3f} ms, measured "
+                    f"{r.wall_time * 1e3:.3f} ms, SWEEPS_RUN {s} -> {calibrate.SWEEPS_RUN}"
+                    for k, (r, s) in auto.items())
+        + "; bytes == the explicit stream of the plan")
+    return {"host": host, "res": res, "calls": calls, "errs": errs, "auto_stream": astream,
+            "hleaf": leaf.cpu(), "mhost": mhost}
+
+
+def pinned_copy_rates(device, nbytes: int) -> tuple[float, float]:
+    """GB/s of one ``nbytes`` copy between page-locked host memory and the
+    card, each way (CUDA events, median of 10)."""
+    import torch
+
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    h2d = median_ms(lambda: dev.copy_(host, non_blocking=True))
+    d2h = median_ms(lambda: host.copy_(dev, non_blocking=True))
+    return nbytes / h2d / 1e6, nbytes / d2h / 1e6
+
+
+def phase_stream_timings(api, st: dict, card: str, device) -> None:
+    """Phase 5 for the stream: host wall (synchronised, median of 5) of each
+    window and the auto plan beside the one-shot ``api.compress`` of the same
+    host field; the last run's lane seconds, overlap and staging rates."""
+    import torch
+
+    host, runs = st["host"], NEW_TIMED_RUNS
+    nbytes = host.numel() * host.element_size()
+    wall = {"one-shot api.compress": median_wall_ms(
+        lambda: api.compress(host, "zfp", rate=RATE), runs=runs, warmup=1)}
+    last = {}
+    for w in STREAM_WINDOWS:
+        stream = api.CompressorStream("zfp", rate=RATE, mode="fixed", c_fixed_elems=STREAM_CHUNK,
+                                      window=w)
+        wall[f"stream window {w}"] = median_wall_ms(
+            lambda: last.__setitem__(w, stream.compress(host)), runs=runs, warmup=1)
+    auto = st["auto_stream"]
+    wall["stream auto"] = median_wall_ms(lambda: last.__setitem__("auto", auto.compress(host)),
+                                         runs=runs, warmup=1)
+    log(f"phase 5 [{card}] zfp stream {FIELD_EDGE}^3 from host memory (host wall, synchronised, "
+        f"median of {runs}): " + ", ".join(
+            f"{k} {v:.4f} ms ({nbytes / v / 1e6:.1f} GB/s of the field)" for k, v in wall.items()))
+    for k, r in last.items():
+        lanes = r.lane_seconds()
+        staged = sum(t.nbytes for t in r.timings)
+        log(f"phase 5 [{card}] zfp stream {k}: window {r.window}, {len(r.chunks)} chunks, wall "
+            f"{r.wall_time * 1e3:.3f} ms, lane_seconds " + ", ".join(
+                f"{n} {s * 1e3:.3f} ms" for n, s in lanes.items())
+            + f", overlap_efficiency {r.overlap_efficiency():.4f}, staging H2D "
+            f"{staged / lanes['h2d'] / 1e9:.3f} GB/s, io lane {r.nbytes() / lanes['serialize'] / 1e9:.3f}"
+            " GB/s of compressed bytes (fetch into page-locked memory + container)"
+            + (f", plan {r.tuned}" if r.tuned else ""))
+    for size in (STREAM_CHUNK * 4, STREAM_CHUNK * 2):
+        h2d, d2h = pinned_copy_rates(device, size)
+        log(f"phase 5 [{card}] page-locked copies of {size} bytes (events, median of 10): "
+            f"H2D {h2d:.3f} GB/s, D2H {d2h:.3f} GB/s")
+    torch.cuda.synchronize()
+
+
+def fs_type(path) -> str:
+    out = subprocess.run(["stat", "-f", "-c", "%T", str(path)], capture_output=True,
+                         text=True, timeout=60)
+    return out.stdout.strip() or "unknown"
+
+
+def write_probe_gbps(directory: Path, nbytes: int) -> float:
+    """GB/s of writing ``nbytes`` to a file in ``directory`` in 64 MiB pieces
+    (the machine's disk and page cache; no card involved)."""
+    import os
+
+    piece = b"\0" * (64 << 20)
+    path = directory / "write_probe.bin"
+    t0 = time.perf_counter()
+    with open(path, "wb") as f:
+        for _ in range(max(1, nbytes // len(piece))):
+            f.write(piece)
+    s = time.perf_counter() - t0
+    written = path.stat().st_size
+    os.unlink(path)
+    return written / s / 1e9
+
+
+def stream_rows(leaf, tuned: dict, device) -> tuple[int, list[int]]:
+    """The axis and the row counts the stream cuts ``leaf`` into under the
+    plan ``tuned``."""
+    from repro_torch.core import pipeline as pl
+
+    axis = max(range(leaf.ndim), key=lambda a: leaf.shape[a])
+    pipe = pl.ChunkedPipeline(compute_fn=None, finish_fn=None, mode="fixed",
+                              c_fixed_elems=tuned["chunk_elems"], devices=[device])
+    return axis, pipe._row_schedule(leaf, axis)
+
+
+def streamed_decode(api, leaf, tuned: dict, device, rate: int):
+    """``leaf`` cut as the stream cuts it, each chunk through the one-shot
+    ``api.compress``/``decompress``, concatenated (the stream's decode)."""
+    import torch
+
+    axis, rows = stream_rows(leaf, tuned, device)
+    parts, start = [], 0
+    for r in rows:
+        parts.append(api.decompress(api.compress(leaf.narrow(axis, start, r), "zfp", rate=rate)))
+        start += r
+    return torch.cat(parts, dim=axis)
+
+
+def phase_checkpoint(device, api, tree, card: str) -> dict:
+    """Phase 3, the checkpoint manager: ``CheckpointManager.save`` of the
+    pytree phase's qwen2.5-3b tree with the default policy (zfp rate 28,
+    stream threshold 8 MiB, lossless below 16384 elements), its routing and
+    launches checked exactly; ``restore`` flat and with ``target``;
+    ``save_async`` + ``wait``; a partial restore; and a
+    ``mgard-progressive`` policy on the four ``wo`` leaves, whose
+    ``restore(max_error=<tier-2 bound>)`` reads fewer bytes than a full one."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager, CheckpointPolicy
+    from repro_torch.runtime import calibrate
+    from repro_torch.runtime.io import AggregatedReader
+
+    policy = CheckpointPolicy()
+    leaves = dict(api.flatten_with_keys(tree, "::"))
+    nbytes = sum(x.numel() * x.element_size() for x in leaves.values())
+    big = {k for k, x in leaves.items() if x.numel() * x.element_size() >= policy.stream_threshold}
+    zfp1 = {k for k, x in leaves.items() if k not in big and x.numel() >= policy.lossless_small}
+    exact = set(leaves) - big - zfp1
+    if (len(big), len(zfp1), len(exact)) != CKPT_ROUTING:
+        raise PhaseError(f"checkpoint tree: {len(big)}/{len(zfp1)}/{len(exact)} leaves to stream"
+                         f"/zfp/huffman-bytes, expected {CKPT_ROUTING}")
+    calls, out = {}, {}
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    try:
+        mgr = CheckpointManager(root / "ckpt", policy)
+        sweeps = calibrate.SWEEPS_RUN
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        manifest = mgr.save(1, tree)
+        torch.cuda.synchronize()
+        save_s = time.perf_counter() - t0
+        counts = calls["CheckpointManager.save"] = read_counts()
+        entries = manifest["leaves"]
+        streamed = {k for k, e in entries.items() if e.get("stream")}
+        if streamed != big or calibrate.SWEEPS_RUN != sweeps:
+            raise PhaseError(f"checkpoint: streamed {sorted(streamed)}, expected {sorted(big)} "
+                             f"(SWEEPS_RUN {sweeps} -> {calibrate.SWEEPS_RUN})")
+        if any(entries[k]["tuned"]["source"] != "calibrated" for k in streamed):
+            raise PhaseError("checkpoint: a streamed leaf's plan is not calibrated")
+        methods = {}
+        with AggregatedReader(root / "ckpt" / "step_00000001" / "leaves.hpdr") as r:
+            for k in zfp1 | exact:
+                methods[k] = api.Compressed.from_bytes(r.read(entries[k]["segment"])).method
+        if any(methods[k] != "zfp" for k in zfp1) or any(
+                methods[k] != "huffman-bytes" for k in exact):
+            raise PhaseError(f"checkpoint: one-shot leaves routed {methods}")
+        chunks = {k: len(stream_rows(leaves[k], entries[k]["tuned"], device)[1]) for k in big}
+        n_chunks = sum(chunks.values())
+        check_counts("CheckpointManager.save", counts, {
+            "zfp_block.compress_blocks": n_chunks + len(zfp1),
+            "histogram.histogram": len(exact), "huffman_encode.encode_lookup": len(exact)})
+        log(f"phase 3 ok: checkpoint routing: {len(big)} streamed leaves ({n_chunks} chunks in "
+            f"all; embed {chunks['embed']}), {len(zfp1)} one-shot zfp leaves, {len(exact)} "
+            f"huffman-bytes leaves; launches {({k: v for k, v in counts.items() if v})}")
+
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        flat, _ = mgr.restore(1)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        rcounts = calls["CheckpointManager.restore"] = read_counts()
+        check_counts("CheckpointManager.restore", rcounts, {
+            "zfp_block.decompress_blocks": n_chunks + len(zfp1),
+            "huffman_decode.decode_chunks": len(exact)})
+        worst = 0.0
+        for k, x in leaves.items():
+            got = flat[k]
+            if got.device != device or got.dtype != x.dtype or got.shape != x.shape:
+                raise PhaseError(f"checkpoint leaf {k}: restored {got.device} {got.dtype} "
+                                 f"{tuple(got.shape)}")
+            if k in exact:
+                want = x
+            elif k in zfp1:
+                want = api.decompress_leaf(api.compress_leaf(x, "zfp", rate=policy.zfp_rate))
+            else:
+                want = streamed_decode(api, x, entries[k]["tuned"], device, policy.zfp_rate)
+            if not same_bits(got, want):
+                raise PhaseError(f"checkpoint leaf {k}: restored values differ from the decode "
+                                 "of the same containers")
+            if k not in exact:
+                worst = max(worst, float((got - x).abs().max()) / float(x.max() - x.min()))
+        if not worst <= ERR_TOL:
+            raise PhaseError(f"checkpoint: max |error| {worst:.3e} of a leaf's range")
+        t0 = time.perf_counter()
+        target, _ = mgr.restore(1, target=tree)
+        torch.cuda.synchronize()
+        target_s = time.perf_counter() - t0
+        if any(not same_bits(v, flat[k]) for k, v in api.flatten_with_keys(target, "::")):
+            raise PhaseError("checkpoint: restore(target=) differs from the flat restore")
+        log(f"phase 3 ok: checkpoint restore: every leaf on the card with its dtype and shape, "
+            f"huffman-bytes leaves bit-exact, zfp leaves == the one-shot decode of the same "
+            f"chunks (max |error| {worst:.3e} of a leaf's range), restore(target=) == flat")
+
+        sel = ["layers::0::wk", "layers::0::bq"]
+        with count_file_reads() as seen:
+            part, _ = mgr.restore(1, leaves=sel)
+        io = mgr.last_restore_io
+        want_bytes = sum(entries[k]["bytes"] for k in sel)
+        if sorted(part) != sorted(sel) or io["local_preads"] != 2 or \
+                io["local_bytes"] != want_bytes:
+            raise PhaseError(f"checkpoint: restore(leaves={sel}) read {io}")
+        log(f"phase 3 ok: checkpoint restore(leaves={sel}): 2 segment preads of {want_bytes} "
+            f"bytes ({seen['calls']} preads, {seen['bytes']} bytes with the trailer and "
+            "directory)")
+
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        sub = mgr.save_async(2, tree)
+        submit_s = time.perf_counter() - t0
+        m2 = mgr.wait()
+        torch.cuda.synchronize()
+        async_s = time.perf_counter() - t0
+        acounts = calls["CheckpointManager.save_async"] = read_counts()
+        e2 = m2["leaves"]
+        n2 = sum(len(stream_rows(leaves[k], e2[k]["tuned"], device)[1]) for k in big)
+        check_counts("CheckpointManager.save_async", acounts, {
+            "zfp_block.compress_blocks": n2 + len(zfp1),
+            "histogram.histogram": len(exact), "huffman_encode.encode_lookup": len(exact)})
+        if sub.result()["step"] != 2 or mgr.latest_step() != 2 or any(
+                e2[k]["bytes"] != entries[k]["bytes"] for k in zfp1 | exact):
+            raise PhaseError("checkpoint: save_async wrote another checkpoint")
+        log(f"phase 3 ok: checkpoint save_async(2) + wait: one-shot leaves' bytes == save(1)'s, "
+            f"latest_step 2")
+
+        wo = {"layers": [{"wo": layer["wo"]} for layer in tree["layers"]]}
+        pm = CheckpointManager(root / "prog", CheckpointPolicy(float_method="mgard-progressive"))
+        solves = mgard_solves(tuple(tree["layers"][0]["wo"].shape))
+        nwo, tiers = len(tree["layers"]), policy.progressive_tiers
+        pman, calls["CheckpointManager.save (mgard-progressive)"] = counted(
+            "CheckpointManager.save (mgard-progressive)", lambda: pm.save(1, wo), {
+                "quantize_map.quantize": tiers * nwo, "quantize_map.dequantize": tiers * nwo,
+                "histogram.histogram": tiers * nwo, "huffman_encode.encode_lookup": tiers * nwo,
+                "tridiag.solve_mass": solves * nwo})
+        (full, _), calls["CheckpointManager.restore (mgard-progressive)"] = counted(
+            "CheckpointManager.restore (mgard-progressive)", lambda: pm.restore(1), {
+                "huffman_decode.decode_chunks": tiers * nwo,
+                "quantize_map.dequantize": tiers * nwo, "tridiag.solve_mass": solves * nwo})
+        full_io = dict(pm.last_restore_io)
+        bound = max(e["progressive"]["tier_bounds"][1] for e in pman["leaves"].values())
+        (coarse, _), calls["CheckpointManager.restore (max_error)"] = counted(
+            "CheckpointManager.restore (max_error)", lambda: pm.restore(1, max_error=bound), {
+                "huffman_decode.decode_chunks": 2 * nwo,
+                "quantize_map.dequantize": 2 * nwo, "tridiag.solve_mass": solves * nwo})
+        cio = pm.last_restore_io
+        if not (cio["local_preads"] == 2 * nwo and full_io["local_preads"] == tiers * nwo
+                and cio["local_bytes"] < full_io["local_bytes"]):
+            raise PhaseError(f"checkpoint restore(max_error=): read {cio}, full read {full_io}")
+        for k, e in pman["leaves"].items():
+            x = leaves[k]
+            for got, b in ((full[k], e["progressive"]["tier_bounds"][-1]), (coarse[k], bound)):
+                err = float((got - x).abs().max())
+                if not err <= b:
+                    raise PhaseError(f"checkpoint progressive {k}: max |error| {err:.3e} > {b:.3e}")
+        log(f"phase 3 ok: checkpoint mgard-progressive on {nwo} wo leaves: restore(max_error="
+            f"{bound:.3e}) read {cio['local_preads']} segments / {cio['local_bytes']} bytes, the "
+            f"full restore {full_io['local_preads']} / {full_io['local_bytes']}; every leaf within "
+            "its tier's bound")
+
+        files = sum(p.stat().st_size for p in (root / "ckpt" / "step_00000001").iterdir())
+        disk = write_probe_gbps(root, files)
+        log(f"phase 5 [{card}] checkpoint of qwen2.5-3b embed + {QWEN_LAYERS} layers ({nbytes} "
+            f"bytes on the card, {len(leaves)} leaves) to {fs_type(root)} (host wall, one run "
+            f"each): save {save_s * 1e3:.1f} ms ({nbytes / save_s / 1e9:.3f} GB/s of the tree; "
+            f"{files} bytes written, ratio {manifest['ratio']:.6f}), restore "
+            f"{restore_s * 1e3:.1f} ms ({nbytes / restore_s / 1e9:.3f} GB/s), restore(target=) "
+            f"{target_s * 1e3:.1f} ms, save_async {submit_s * 1e3:.1f} ms to return and "
+            f"{async_s * 1e3:.1f} ms to wait(); the machine's disk (not the card): a plain "
+            f"write of {files} bytes there {disk:.3f} GB/s")
+    finally:
+        tmp.cleanup()
+    return {"calls": calls, "errs": {}}
+
+
+
 def phase_new_round_trips(api, prog: dict, pyt: dict) -> None:
     """Phase 4 for the new paths: the progressive container and the
     pytree's containers through ``to_bytes``/``from_bytes``."""
@@ -2131,6 +2665,17 @@ def main() -> int:
     lap("phase 3, progressive")
     pyt = phase_pytree(device, api)
     lap("phase 3, pytree")
+    import tempfile
+
+    from repro_torch.core import mgard
+    from repro_torch.runtime import calibrate
+
+    cal_dir = tempfile.TemporaryDirectory()   # a cold calibration, removed at the end
+    calibrate.set_calibration_dir(cal_dir.name)
+    st = phase_stream(device, api, field, mgard.pad_to_dyadic(mgard_run["field"]))
+    lap("phase 3, stream")
+    ckpt = phase_checkpoint(device, api, pyt["tree"], card)
+    lap("phase 3, checkpoint")
     phase_bytes_round_trip(api, c, out)
     phase_bytes_round_trip(api, huff_runs[0]["c"], huff_runs[0]["out"], leaf=True)
     again = phase_bytes_round_trip(api, mgard_run["c"], mgard_run["out"])
@@ -2150,13 +2695,18 @@ def main() -> int:
     lap("phase 5, MGARD")
     phase_new_timings(api, prog, pyt, card)
     lap("phase 5, progressive and pytree")
+    phase_stream_timings(api, st, card, device)
+    lap("phase 5, stream")
     prog["tmp"].cleanup()
+    calibrate.set_calibration_dir(None)
+    cal_dir.cleanup()
     for k in huff_kernels:  # the entropy tail runs on the Huffman and the MGARD paths
         runs = huff_runs + [mgard_run]
         k["launches"] = sum(r["counts"][k["name"]] for r in runs)
         k["max_abs_err"] = max(r["errs"][k["name"]] for r in runs)
-    # the progressive and pytree paths' launches and checks join every kernel's
-    new_paths = {"progressive": prog, "pytree": pyt}
+    # the progressive, pytree, stream and checkpoint paths' launches and
+    # checks join every kernel's
+    new_paths = {"progressive": prog, "pytree": pyt, "stream": st, "checkpoint": ckpt}
     for k in kernels + huff_kernels + mgard_kernels:
         for run in new_paths.values():
             k["launches"] += sum(counts[k["name"]] for counts in run["calls"].values())

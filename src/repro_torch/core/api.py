@@ -13,27 +13,33 @@ Counterpart of ``repro.core.api`` (the subset the ported codecs need):
   4. **Fan out** — :func:`compress_pytree`/:func:`decompress_pytree` run a
      nested ``dict``/``list``/``tuple`` of arrays or tensors on an
      :class:`~repro_torch.core.engine.ExecutionEngine`.
+  5. **Stream** — :class:`CompressorStream` compresses one large array in
+     chunks on the HDEM :class:`~repro_torch.core.pipeline.ChunkedPipeline`
+     (page-locked staging, a copy stream, compute and io lanes), with its
+     own framed byte format and aggregated file layout.
 
 Entry points run on the CUDA card (backend ``auto`` = ``cuda``) unless the
 caller passes ``backend="torch"``, which runs the plain versions on the CPU.
 :func:`decode` returns a tensor on the plan's device.
 
 Methods: ``mgard`` (the default), ``mgard-progressive``, ``zfp``,
-``huffman`` and ``huffman-bytes``.  Not yet ported: the chunk-pipelined
-``CompressorStream``.
+``huffman`` and ``huffman-bytes``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import io
+import json
 import math
 from collections import OrderedDict
-from typing import Any, Callable, Iterator
+from typing import Any, Callable, Iterator, Sequence
 
 import numpy as np
 import torch
 
 from . import adapters
+from . import pipeline as pl
 from .codecs import available_methods, get_codec  # noqa: F401
 from .codecs.base import Codec, ReductionPlan, ReductionSpec  # noqa: F401
 from .codecs.huffman_codec import INT_DTYPES, byte_view
@@ -52,6 +58,9 @@ _NP_NAMES = {
 # the reference runs JAX with 64-bit types off: its ``jnp.asarray`` narrows
 _CANONICAL = {"float64": "float32", "int64": "int32", "uint64": "uint32"}
 
+_STREAM_MAGIC = b"HPDS"
+_STREAM_VERSION = 1
+
 
 def dtype_name(data: Any) -> str:
     """numpy name of ``data``'s dtype (``"float32"``, ``"bfloat16"``, ...)."""
@@ -67,19 +76,11 @@ def as_tensor(data: Any) -> torch.Tensor:
     int32/uint32 (with wrap); the port does the same.  A numpy bfloat16
     array (``ml_dtypes``) becomes a torch bfloat16 tensor.
     """
-    if not isinstance(data, torch.Tensor):
-        data = _from_numpy(np.asarray(data))
+    data = pl.host_tensor(data)
     name = _CANONICAL.get(dtype_name(data))
     if name is not None:
         data = data.to(getattr(torch, name))
     return data
-
-
-def _from_numpy(arr: np.ndarray) -> torch.Tensor:
-    arr = arr if arr.flags.writeable else arr.copy()
-    if arr.dtype.name == "bfloat16":
-        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
-    return torch.from_numpy(arr)
 
 
 # ---------------------------------------------------------------------------
@@ -228,7 +229,7 @@ def leaf_policy(
     ``huffman-bytes`` byte view of the original tensor, taken where it lies.
     """
     params = dict(params or {})
-    x = arr if isinstance(arr, torch.Tensor) else _from_numpy(np.asarray(arr))
+    x = pl.host_tensor(arr)
     if method in ("zfp", "mgard", "mgard-progressive"):
         if x.dtype != torch.float32 and x.dtype.is_floating_point:
             x = x.to(torch.float32)
@@ -390,3 +391,372 @@ def decompress_pytree(comp: dict[str, Any], like: Any, *, sep: str = "/",
 
     eng = engine if engine is not None else engine_mod.default_engine()
     return eng.decompress_pytree(comp, like, sep=sep)
+
+
+# ---------------------------------------------------------------------------
+# chunked streaming (HDEM pipeline)
+# ---------------------------------------------------------------------------
+
+
+class CompressorStream:
+    """Chunked streaming compression on the lane-overlapped HDEM pipeline.
+
+    Chunks share a spec whenever their shapes agree, so every chunk after
+    the first hits the CMM plan cache.  Each chunk runs as a *two-phase*
+    encode: ``encode_begin`` on the executor's compute lane (the stage
+    pipeline, device-resident, its CUDA stream synchronised) while the
+    previous chunk's ``encode_finish`` — the fetch into page-locked host
+    memory and the container build — runs on the io lane, and the next
+    chunk stages through its slot's page-locked buffer and the copy stream:
+    the paper's Fig. 9 overlap, bounded at ``window`` in-flight chunks.  A
+    stream's bytes are those of the one-shot :func:`encode` of each chunk,
+    at every window.
+
+    ``backend`` binds the plans as in :func:`compress`: ``auto`` (``cuda``,
+    which raises without a card) or ``torch`` (the plain versions on the
+    CPU).  ``to_bytes``/``from_bytes`` frame the per-chunk containers with
+    an offset index so chunks can be located (and fetched lazily)
+    independently; ``to_file``/``from_file`` add an aligned, aggregated
+    on-disk layout with a segment directory, so a reader ``pread``s exactly
+    the chunks it needs.  Passing ``engine=`` places chunks round-robin
+    over the engine's devices and runs the lanes on the engine's executor.
+
+    ``chunk_size="auto"`` and/or ``window="auto"`` hand the decision to the
+    auto-tuner (``core/tuner.py``): the calibrated machine cost model picks
+    the (chunk, window) with the smallest predicted makespan.  The resolved
+    values feed the same schedule and spec path as explicit settings, so
+    auto streams are bit-identical to explicitly configured ones; the
+    decision is at ``result.tuned``.  An explicit integer ``chunk_size``
+    (elements) is shorthand for ``mode="fixed", c_fixed_elems=chunk_size``.
+    """
+
+    def __init__(
+        self,
+        method: str = "zfp",
+        mode: str = "adaptive",
+        *,
+        c_init_elems: int = 1 << 20,
+        c_fixed_elems: int = 8 << 20,
+        c_limit_elems: int = 1 << 28,
+        phi=None,
+        theta=None,
+        engine: Any = None,
+        backend: str | None = None,
+        window: int | str = 2,
+        chunk_size: int | str | None = None,
+        frame: bool = False,
+        **params: Any,
+    ):
+        self.method = method
+        self.params = params
+        if backend is None and engine is not None:
+            backend = engine.backend
+        self.backend = adapters.resolve_backend(backend or adapters.AUTO)
+        self.window = window if window == "auto" else max(1, int(window))
+        # frame=True moves wire serialization (container framing + crc32)
+        # onto the io lane too: each chunk's byte frame is produced while
+        # the next chunk computes, and to_bytes/to_file reuse it
+        self.frame = bool(frame)
+        auto = chunk_size == "auto" or window == "auto"
+        self.pipeline = pl.ChunkedPipeline(
+            mode=mode,
+            c_init_elems=c_init_elems,
+            c_fixed_elems=c_fixed_elems,
+            c_limit_elems=c_limit_elems,
+            phi=phi,
+            theta=theta,
+            devices=engine.devices if engine is not None
+            else [adapters.device_for(self.backend)],
+            compute_fn=self._compute_chunk,
+            finish_fn=self._finish_chunk,
+            executor=engine.executor if engine is not None else None,
+            window=window,
+            chunk_size=chunk_size,
+            tuner=self._tuned_plan if auto else None,
+        )
+
+    def _tuned_plan(self, total_elems: int, itemsize: int, dtype: str,
+                    chunk_elems: int | None):
+        """Tuner binding: this stream's codec/backend/params, the payload's
+        size/dtype.  Called by the pipeline when resolving ``auto``."""
+        from . import tuner as tuner_mod
+
+        return tuner_mod.plan_stream(
+            total_elems, itemsize, method=self.method, dtype=dtype,
+            backend=self.backend, chunk_elems=chunk_elems,
+            params=self.params,
+        )
+
+    # -- two-phase chunk encode ---------------------------------------------
+    #
+    # The reference gives every (plan, window slot) a private copy of the
+    # plan's workspace, because XLA donates the workspace buffers its
+    # executables take.  The port's stages only read the plan's workspace
+    # (an executable hands back the tensor it was given), so concurrent
+    # chunks share it and there is nothing to copy per slot.
+
+    def _compute_chunk(self, chunk: torch.Tensor, slot: int):
+        """Phase 1 (compute lane): the stage pipeline, state stays put."""
+        del slot
+        chunk = as_tensor(chunk)
+        spec = make_spec(chunk, self.method, backend=self.backend, **self.params)
+        codec = get_codec(spec.method)
+        plan = get_plan(spec)
+        if plan.pipeline is None:  # codec without a stage graph: one phase
+            return ("container", codec.encode(plan, chunk))
+        state, env = codec.encode_begin(plan, chunk)
+        # synchronise here, on the compute lane: serialization must only see
+        # finished device buffers, and lane timings must be honest
+        if chunk.is_cuda:
+            torch.cuda.current_stream(chunk.device).synchronize()
+        return ("state", codec, plan, state, env)
+
+    def _finish_chunk(self, payload, slot: int) -> Compressed:
+        """Phase 2 (io lane): exact-sized fetch into page-locked memory +
+        container build."""
+        del slot
+        if payload[0] == "container":
+            c = payload[1]
+        else:
+            _tag, codec, plan, state, env = payload
+            c = codec.encode_finish(plan, state, env, pinned=True)
+        if self.frame:
+            c._frame_bytes = c.to_bytes()
+        return c
+
+    def compress(self, data: Any) -> pl.ChunkedResult:
+        """Compress ``data`` (an array, or a tensor on the host or the card)."""
+        return self.pipeline.run(data)
+
+    @staticmethod
+    def decompress(result: pl.ChunkedResult, backend: str | None = None) -> torch.Tensor:
+        """The chunks decoded (on ``backend``'s device) and concatenated."""
+        return pl.decompress_chunked(result, lambda c: decode(c, backend))
+
+    # -- framed multi-chunk byte format -------------------------------------
+
+    @staticmethod
+    def _chunk_blobs(result: pl.ChunkedResult) -> list[bytes]:
+        """Per-chunk wire frames (reusing io-lane frames from ``frame=True``)."""
+        return [
+            getattr(c, "_frame_bytes", None) or c.to_bytes()
+            for c in result.chunks
+        ]
+
+    @staticmethod
+    def to_bytes(result: pl.ChunkedResult) -> bytes:
+        blobs = CompressorStream._chunk_blobs(result)
+        offsets = []
+        off = 0
+        for b in blobs:
+            offsets.append(off)
+            off += len(b)
+        header = {
+            "axis": result.axis,
+            "shape": list(result.shape),
+            "boundaries": list(result.boundaries),
+            "chunks": [
+                {"offset": o, "nbytes": len(b)} for o, b in zip(offsets, blobs)
+            ],
+        }
+        hbytes = json.dumps(header).encode()
+        buf = io.BytesIO()
+        buf.write(_STREAM_MAGIC)
+        buf.write(np.uint32(_STREAM_VERSION).tobytes())
+        buf.write(np.uint64(len(hbytes)).tobytes())
+        buf.write(hbytes)
+        for b in blobs:
+            buf.write(b)
+        return buf.getvalue()
+
+    @staticmethod
+    def from_bytes(raw: bytes, lazy: bool = True) -> pl.ChunkedResult:
+        """Parse a framed stream; chunks are parsed lazily by default.
+
+        Framing and every chunk's byte range are validated eagerly (a
+        truncated stream raises here); the per-chunk containers are only
+        materialised on first access.  ``lazy=False`` parses them all.
+        """
+        raw = bytes(raw)
+        if len(raw) < 16 or raw[:4] != _STREAM_MAGIC:
+            raise ContainerError("not an HPDR chunked stream")
+        version = int(np.frombuffer(raw[4:8], np.uint32)[0])
+        if version != _STREAM_VERSION:
+            raise ContainerError(f"unsupported HPDR stream version {version}")
+        hlen = int(np.frombuffer(raw[8:16], np.uint64)[0])
+        if len(raw) < 16 + hlen:
+            raise ContainerError("truncated HPDR chunked stream")
+        try:
+            header = json.loads(raw[16 : 16 + hlen].decode())
+        except (UnicodeDecodeError, json.JSONDecodeError) as e:
+            raise ContainerError(f"corrupt HPDR stream header: {e}") from e
+        base = 16 + hlen
+        ranges = []
+        for entry in header["chunks"]:
+            lo = base + entry["offset"]
+            hi = lo + entry["nbytes"]
+            if hi > len(raw):
+                raise ContainerError("truncated HPDR chunked stream")
+            ranges.append((lo, hi))
+        chunks: Sequence = LazyChunks(raw, ranges)
+        if not lazy:
+            chunks = list(chunks)
+        return pl.ChunkedResult(
+            chunks=chunks,
+            boundaries=list(header["boundaries"]),
+            axis=int(header["axis"]),
+            shape=tuple(header["shape"]),
+        )
+
+    # -- aggregated on-disk layout (runtime/io segment directory) -----------
+
+    @staticmethod
+    def to_file(
+        result: pl.ChunkedResult,
+        path,
+        *,
+        align: int = 4096,
+        parallel: bool = True,
+    ) -> dict:
+        """Write a framed stream to ``path`` with aligned, aggregated I/O.
+
+        The layout is the ``to_bytes`` frame with every chunk placed at an
+        ``align``-rounded offset (the header JSON is space-padded so the
+        payload base is aligned too), written through
+        :class:`repro_torch.runtime.io.AggregatedWriter`, whose segment
+        directory trailer records every chunk's byte range and crc32.
+        :meth:`from_bytes` still parses the file (the trailer is ignored).
+        Returns the directory dict (``segments``, ``meta``).
+        """
+        from ..runtime.io import AggregatedWriter, align_up
+
+        blobs = CompressorStream._chunk_blobs(result)
+        offsets = []
+        off = 0
+        for b in blobs:
+            offsets.append(off)
+            off = align_up(off + len(b), align)
+        header = {
+            "axis": result.axis,
+            "shape": list(result.shape),
+            "boundaries": list(result.boundaries),
+            "chunks": [
+                {"offset": o, "nbytes": len(b)} for o, b in zip(offsets, blobs)
+            ],
+            "align": align,
+        }
+        hbytes = json.dumps(header).encode()
+        # pad the header so the payload base (16 + len(hbytes)) is aligned:
+        # aligned relative offsets then stay aligned absolutely
+        pad = (-(16 + len(hbytes))) % align
+        hbytes += b" " * pad
+        meta = {k: header[k] for k in ("axis", "shape", "boundaries")}
+        with AggregatedWriter(path, align=align, parallel=parallel, meta=meta) as writer:
+            writer.write_raw(_STREAM_MAGIC)
+            writer.write_raw(np.uint32(_STREAM_VERSION).tobytes())
+            writer.write_raw(np.uint64(len(hbytes)).tobytes())
+            writer.write_raw(hbytes)
+            for i, b in enumerate(blobs):
+                got = writer.add(f"chunk/{i:05d}", b)
+                if got != 16 + len(hbytes) + offsets[i]:
+                    raise ContainerError(f"chunk {i} placed at {got}, header says "
+                                         f"{16 + len(hbytes) + offsets[i]}")
+            directory = writer.close()
+        return directory
+
+    @staticmethod
+    def from_file(path, lazy: bool = True) -> pl.ChunkedResult:
+        """Open a :meth:`to_file` stream; chunks ``pread`` lazily on access.
+
+        The segment directory locates every chunk, so restoring a prefix
+        (or one chunk) reads exactly those byte ranges.  Files without a
+        directory (raw :meth:`to_bytes` dumps) are parsed in memory through
+        :meth:`from_bytes`.
+        """
+        from ..runtime import io as rio
+
+        if not rio.has_directory(path):
+            with open(path, "rb") as f:
+                return CompressorStream.from_bytes(f.read(), lazy=lazy)
+        reader = rio.AggregatedReader(path)
+        # numeric sort: the zero-padded names widen past 5 digits on huge
+        # streams, where a lexicographic sort would reorder chunks
+        names = sorted(
+            (n for n in reader.names() if n.startswith("chunk/")),
+            key=lambda n: int(n.rsplit("/", 1)[1]),
+        )
+        chunks: Sequence = FileChunks(reader, names)
+        if not lazy:
+            chunks = list(chunks)
+            reader.close()
+        meta = reader.meta
+        return pl.ChunkedResult(
+            chunks=chunks,
+            boundaries=list(meta["boundaries"]),
+            axis=int(meta["axis"]),
+            shape=tuple(meta["shape"]),
+        )
+
+
+class LazyChunks(Sequence):
+    """Sequence of per-chunk containers, parsed on first access.
+
+    Backed by the framed stream's bytes and the header's offset index;
+    ``materialized`` counts how many chunks have been parsed.
+    """
+
+    def __init__(self, raw: bytes, ranges: list[tuple[int, int]]):
+        self._raw = raw
+        self._ranges = ranges
+        self._cache: list[Compressed | None] = [None] * len(ranges)
+
+    def __len__(self) -> int:
+        return len(self._ranges)
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return [self[j] for j in range(*i.indices(len(self)))]
+        if i < 0:
+            i += len(self)
+        if not 0 <= i < len(self):
+            raise IndexError(i)
+        if self._cache[i] is None:
+            lo, hi = self._ranges[i]
+            self._cache[i] = Compressed.from_bytes(self._raw[lo:hi])
+        return self._cache[i]
+
+    @property
+    def materialized(self) -> int:
+        return sum(c is not None for c in self._cache)
+
+
+class FileChunks(Sequence):
+    """Sequence of per-chunk containers backed by segment-file ``pread``s.
+
+    Accessing chunk *i* ``pread``s exactly that chunk's byte range
+    (crc-checked) and caches the parsed container.  ``materialized`` counts
+    parsed chunks and ``reader.preads`` the positional reads.
+    """
+
+    def __init__(self, reader, names: list[str]):
+        self.reader = reader
+        self._names = list(names)
+        self._cache: list[Compressed | None] = [None] * len(names)
+
+    def __len__(self) -> int:
+        return len(self._names)
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return [self[j] for j in range(*i.indices(len(self)))]
+        if i < 0:
+            i += len(self)
+        if not 0 <= i < len(self):
+            raise IndexError(i)
+        if self._cache[i] is None:
+            self._cache[i] = Compressed.from_bytes(self.reader.read(self._names[i]))
+        return self._cache[i]
+
+    @property
+    def materialized(self) -> int:
+        return sum(c is not None for c in self._cache)

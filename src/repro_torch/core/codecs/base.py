@@ -149,6 +149,40 @@ class Codec:
         """Build the persistent plan for ``spec`` (called once per CMM miss)."""
         raise NotImplementedError
 
+    def encode_begin(
+        self,
+        plan: ReductionPlan,
+        data: Any,
+        *,
+        env: Any = None,
+        profile: dict | None = None,
+    ) -> tuple[dict, Any]:
+        """Phase 1 of a two-phase encode: run the forward pipeline only.
+
+        Returns ``(state, env)`` with every array-scale product still on the
+        plan's device; nothing has been fetched for the container yet.  The
+        chunk-pipelined stream runs this on its compute lane while the
+        previous chunk's :meth:`encode_finish` runs on the io lane.  (The
+        reference also takes a per-slot ``workspace`` here, because XLA
+        donates it; the port's stages only read the plan's workspace.)
+        """
+        return plan.pipeline.run(self.encode_input(plan, data), env=env, profile=profile)
+
+    def encode_finish(
+        self, plan: ReductionPlan, state: dict, env: Any, *, pinned: bool = False
+    ) -> Compressed:
+        """Phase 2: fetch the exact-sized sections and build the container.
+
+        ``pinned=True`` copies each section from the card into page-locked
+        host memory (the stream's io lane); the bytes are the same either way.
+        The one-shot path keeps pageable memory: its caller may hold a
+        container of any size for as long as it likes, and page-locked host
+        memory is scarce.
+        """
+        from ..stages.base import LeafView  # local: codecs ↔ stages layering
+
+        return self.finish_container(plan, env, LeafView(state, env, pinned=pinned))
+
     def encode(
         self,
         plan: ReductionPlan,
@@ -157,14 +191,11 @@ class Codec:
         env: Any = None,
         profile: dict | None = None,
     ) -> Compressed:
-        """Run the stage pipeline, then serialise the sections."""
-        from ..stages.base import LeafView  # local: codecs ↔ stages layering
-
-        state, env = plan.pipeline.run(
-            self.encode_input(plan, data), env=env, profile=profile
-        )
+        """Exactly :meth:`encode_begin` followed by :meth:`encode_finish`, so
+        the stream's two-phase path writes the same bytes by construction."""
+        state, env = self.encode_begin(plan, data, env=env, profile=profile)
         t0 = time.perf_counter()
-        c = self.finish_container(plan, env, LeafView(state, env))
+        c = self.encode_finish(plan, state, env)
         if profile is not None:  # the sections' copy to host memory
             profile["fetch"] = profile.get("fetch", 0.0) + time.perf_counter() - t0
         return c

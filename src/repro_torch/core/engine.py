@@ -114,11 +114,20 @@ class ExecutionEngine:
         return self.executor.submit(lambda: api.decode(c, self.backend), device=device)
 
     def stream(self, method: str = "zfp", **kwargs: Any):
-        """A chunk-pipelined ``CompressorStream`` bound to this engine: not
-        ported yet (it waits for the port's ``CompressorStream``)."""
-        raise NotImplementedError(
-            "ExecutionEngine.stream needs CompressorStream, which is not ported yet "
-            "(ROADMAP.md, queue 1 item 3: chunk-pipelined streaming)")
+        """A :class:`~repro_torch.core.api.CompressorStream` bound to this engine.
+
+        The stream's chunks go round-robin over the engine's devices on the
+        engine's executor lanes, with the engine's backend.  Defaults to the
+        auto-tuned schedule (``chunk_size="auto", window="auto"``); pass
+        explicit values to override.  Build streams from caller threads, not
+        from inside engine lane tasks: the stream's staging loop must not
+        occupy the lane its own chunks need.
+        """
+        from . import api  # runtime import: api ↔ engine are peer layers
+
+        kwargs.setdefault("chunk_size", "auto")
+        kwargs.setdefault("window", "auto")
+        return api.CompressorStream(method, engine=self, **kwargs)
 
     def submit(self, fn: Callable, /, *args: Any, **kwargs: Any) -> Submission:
         """Raw task submission (``lane="io"`` for orchestration work)."""

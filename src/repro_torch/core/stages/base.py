@@ -351,12 +351,14 @@ class LeafView:
     """The container serialiser's window onto pipeline state.
 
     :meth:`fetch` copies one state tensor to a host numpy array, counting
-    the bytes that leave a CUDA device.
+    the bytes that leave a CUDA device.  With ``pinned=True`` (the chunk
+    stream's io lane) a CUDA tensor is copied into page-locked memory.
     """
 
-    def __init__(self, state: dict[str, Any], env: CallEnv):
+    def __init__(self, state: dict[str, Any], env: CallEnv, pinned: bool = False):
         self.state = state
         self.env = env
+        self.pinned = pinned
 
     def fetch(self, key: str, length: int | None = None) -> np.ndarray:
         """State ``key`` on the host; with ``length``, only its first
@@ -364,6 +366,16 @@ class LeafView:
         arr = self.state[key]
         if length is not None:
             arr = arr[:length]
-        if arr.device.type != "cpu":
-            self.env.transfers.count_d2h(arr)
-        return arr.cpu().numpy()
+        if arr.device.type == "cpu":
+            return arr.numpy()
+        self.env.transfers.count_d2h(arr)
+        if not self.pinned:
+            return arr.cpu().numpy()
+        # Each fetch takes a block of its own from PyTorch's caching host
+        # allocator, and the returned array (and any view the container
+        # takes of it) keeps that block alive: no later chunk is handed
+        # memory a container still reads.
+        host = torch.empty(arr.shape, dtype=arr.dtype, pin_memory=True)
+        host.copy_(arr, non_blocking=True)
+        torch.cuda.current_stream(arr.device).synchronize()
+        return host.numpy()

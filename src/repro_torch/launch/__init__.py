@@ -1,2 +1,3 @@
 """Launch-side helpers of the port (counterpart of ``repro.launch``): the
-multi-controller host topology (:mod:`.mesh`)."""
+multi-controller host topology and the shared-filesystem barrier
+(:mod:`.mesh`)."""

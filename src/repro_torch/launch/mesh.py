@@ -1,5 +1,5 @@
-"""Multi-controller host topology (counterpart of the topology half of
-``repro.launch.mesh``).
+"""Multi-controller host topology and the shared-filesystem barrier
+(counterpart of the topology half of ``repro.launch.mesh``).
 
 The multi-host I/O layer (per-host aggregated shard files, global manifest,
 topology-aware restore) and the engine's ``owned_only`` route are
@@ -11,8 +11,10 @@ reference's rule, so both packages assign every leaf to the same host.
 from __future__ import annotations
 
 import os
+import time
 import zlib
 from dataclasses import dataclass
+from pathlib import Path
 
 ENV_HOST_ID = "HPDR_HOST_ID"
 ENV_HOST_COUNT = "HPDR_HOST_COUNT"
@@ -69,3 +71,58 @@ def detect_topology() -> HostTopology:
     if dist.is_available() and dist.is_initialized():
         return HostTopology(dist.get_rank(), dist.get_world_size())
     return HostTopology(0, 1)
+
+
+def fs_barrier(
+    directory: str | Path,
+    name: str,
+    topology: HostTopology,
+    *,
+    timeout: float = 120.0,
+    poll_s: float = 0.005,
+    payload: str = "ok",
+) -> None:
+    """Shared-filesystem rendezvous: block until every host arrives.
+
+    Each host writes ``<directory>/.barrier-<name>.<host>`` (atomically, via
+    rename) and polls until all ``n_hosts`` marker files exist — the
+    reference's marker names, so hosts of both packages meet at one
+    barrier.  This is the coordinator rendezvous of the multi-controller
+    checkpoint writer; it needs only a shared filesystem.  Markers are left
+    behind (names are unique per step) so a late arrival still sees the
+    full barrier.
+    """
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    mine = directory / f".barrier-{name}.{topology.host_id}"
+    tmp = mine.with_name(mine.name + f".tmp{os.getpid()}")
+    tmp.write_text(payload)
+    os.replace(tmp, mine)
+    deadline = time.monotonic() + timeout
+    while True:
+        present = {
+            suffix
+            for p in directory.glob(f".barrier-{name}.*")
+            if (suffix := p.name.rsplit(".", 1)[-1]).isdigit()
+        }
+        if len(present) >= topology.n_hosts:
+            return
+        if time.monotonic() > deadline:
+            raise TimeoutError(
+                f"fs_barrier {name!r}: {len(present)}/{topology.n_hosts} "
+                f"hosts after {timeout}s (present: {sorted(present)})"
+            )
+        time.sleep(poll_s)
+
+
+def barrier_payloads(
+    directory: str | Path, name: str, topology: HostTopology
+) -> dict[int, str]:
+    """Every host's barrier marker payload (after :func:`fs_barrier`): the
+    checkpoint coordinator's side channel for each host's shard stats."""
+    out: dict[int, str] = {}
+    for h in range(topology.n_hosts):
+        p = Path(directory) / f".barrier-{name}.{h}"
+        if p.exists():
+            out[h] = p.read_text()
+    return out

@@ -746,3 +746,27 @@ def test_kernels_launch_from_threads_at_other_shared_sizes(cuda_device):
         t.join(120)
     assert not any(t.is_alive() for t in threads)
     assert not errors, errors
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method,params", [("zfp", {"rate": 16}), ("huffman-bytes", {})])
+def test_cuda_stream_bytes_match_torch_backend(cuda_device, method, params):
+    """48 small chunks from pageable host memory at window 3: every chunk's
+    compute must wait on its staging copy's event (a chunk read half-copied
+    changes the bytes), so the bytes equal window 1's and the ``torch``
+    backend's."""
+    rng = np.random.default_rng(40)
+    host = torch.from_numpy(rng.normal(0.0, 0.02, (48 * 4, 64, 64)).astype(np.float32))
+    chunk = 4 * 64 * 64
+    blobs = {}
+    for backend, window in (("cuda", 3), ("cuda", 1), ("torch", 2)):
+        stream = api.CompressorStream(method, mode="fixed", c_fixed_elems=chunk, window=window,
+                                      backend=backend, **params)
+        res = stream.compress(host)
+        assert len(res.chunks) == 48 and res.max_in_flight <= window
+        blobs[backend, window] = api.CompressorStream.to_bytes(res)
+    assert blobs["cuda", 3] == blobs["cuda", 1] == blobs["torch", 2]
+    out = api.CompressorStream.decompress(api.CompressorStream.from_bytes(blobs["cuda", 3]))
+    assert out.device.type == "cuda" and out.shape == host.shape
+    if method == "huffman-bytes":
+        assert torch.equal(out.cpu(), host)

@@ -238,8 +238,11 @@ def test_submit_result_futures():
         assert sub.device == torch.device("cpu")
         assert tuple(sub.result().shape) == f.shape
         assert eng.stats()["submitted"] == 5
-        with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-            eng.stream("zfp")
+        # the engine's stream: its backend, its executor, auto plans by default
+        stream = eng.stream("zfp", rate=8)
+        assert stream.backend == "torch" and stream.params == {"rate": 8}
+        assert stream.pipeline.executor is eng.executor and stream.pipeline.devices == CPU
+        assert stream.pipeline.auto_chunk and stream.pipeline.auto_window
 
 
 def test_default_engine_and_entry_points(monkeypatch):
