@@ -110,7 +110,36 @@ any fails:
      ``restore(leaves=[...])`` reading only those segments, and a
      ``mgard-progressive`` policy on the four ``wo`` leaves whose
      ``restore(max_error=<tier-2 bound>)`` reads fewer bytes than the full
-     restore; each call's launches exact;
+     restore; each call's launches exact.  Serving — qwen2.5-3b
+     (hf:Qwen/Qwen2.5-3B) at full width and depth, 36 layers, about 3.09B
+     float32 parameters made on the card from the seed (the reference's
+     init scheme), through ``ServingEngine(batch_size=4, max_len=8192)``
+     with a float32 cache and bfloat16 compute: 8 requests of 32 prompt
+     tokens and 16 new tokens (the refill path), twice on two engines (the
+     same tokens, every token in the vocabulary, no kernel launched), and
+     one decode step on the card against the CPU path on a depth-2 cut
+     (float32 within 1e-4 and bfloat16 within 2^-5 of 1 + max |logit|);
+     then ``ReductionService`` on the card: ``park_kv`` of the served cache
+     (k, v (36, 4, 8192, 2, 128), 2.4 GB; containers == ``compress_kv_cache``'s)
+     and of 4 long-context sessions of 2 tenants (k, v (36, 1, 8192, 2, 128)
+     N(0, 1) from the seed, 0.6 GB each) under the default 256 MiB budget
+     (>= 3 spills), ``fetch_kv`` (== the parked bytes, >= 1 load from a
+     spill), ``restore_kv`` (within 0.05 of the largest |value| at rate 12;
+     both ZFP kernels == plain on a session's own pages) and ``release_kv``
+     of each; ``park_async`` with the cache written in place at once (the
+     parked bytes are the cache's before); 4 client threads compressing one
+     layer each under the default policy (every container ==
+     ``compress_leaf``'s, >= 1 coalesced bucket) and ``wk``/``wv`` through
+     ``huffman-bytes`` (the entropy kernels == plain), decompressed back;
+     ``compress_stream`` of the 512^3 field (== a direct stream), two
+     overlapping ``decompress_stream`` requests in one dispatch cycle (>= 1
+     coalesce hit), ``quicklook(tiers=1)`` of the progressive segment file,
+     ``overload="reject"``; and the wire: a ``ReductionServer`` on a unix
+     socket and on 127.0.0.1 driven by ``ReductionClient`` (ping, stats,
+     compress / decompress of a layer, park_kv / fetch_kv / release_kv of a
+     0.6 GB session, compress_stream of the 512^3 field in a 512 MiB
+     frame, quicklook; bytes == in process; a bad-magic frame answered with
+     a protocol error, then a fresh connection served); each call counted;
   4. the container bytes round trip on the card (one ZFP, one Huffman, one
      MGARD and one progressive container, and the pytree's containers):
      ``to_bytes`` -> ``from_bytes`` -> decode, bit-identical;
@@ -139,15 +168,21 @@ any fails:
      (median of 5) with its lane seconds, overlap efficiency and staging
      rates, and page-locked copy rates (events); the checkpoint's save and
      restore wall times, bytes written and filesystem, apart from a plain
-     write of as many bytes there (the machine's disk, not the card); each
+     write of as many bytes there (the machine's disk, not the card);
+     serving: decode tokens/s and one decode step (median of 10), park_kv,
+     fetch_kv resident and spilled and restore_kv of a 0.6 GB session
+     (median and p99 of 10), 4 concurrent compress requests against their
+     serial sum (median of 5), in process against over the unix and TCP
+     sockets (one layer; one session on the unix socket; median of 3,
+     loopback GB/s), and the service's waits and dispatch cycles; each
      printed with the card's name and power limit.
 
 The last two lines are one JSON object per kernel (``{"kernels": [...]}``;
 the Huffman kernels' times are those of the ``huffman-bytes`` leaf; a
 kernel's launches are summed over every counted main-path call (the ZFP,
-Huffman, MGARD, progressive, pytree, stream and checkpoint paths; a line
-before gives the last four paths' calls' own), its error the largest of
-them) and
+Huffman, MGARD, progressive, pytree, stream, checkpoint and serving
+paths; a line before gives the last five paths' calls' own), its error
+the largest of them) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -210,6 +245,21 @@ RACE_CHUNK = 1 << 20                # 4 planes: 128 chunks, the staging copy's e
 HUFF_STREAM_CHUNK = 4 << 20         # 1024 rows of the 4096x4096 weight leaf: 4 chunks
 MGARD_STREAM_ROWS = 57              # 513 = 9 x 57: nine (57, 513, 513) chunks
 CKPT_ROUTING = (21, 8, 20)          # leaves streamed / one-shot zfp / huffman-bytes
+SERVE_BATCH = 4                     # ServingEngine slots
+SERVE_MAX_LEN = 8192                # cache positions a slot
+SERVE_REQUESTS = 8                  # two waves of requests: the refill path runs
+SERVE_PROMPT = 32
+SERVE_NEW = 16
+SERVE_CHECK_LAYERS = 2              # the depth cut of the card vs CPU decode step
+# card vs CPU decode step: max |logit difference| <= tol x (1 + max |logit|)
+SERVE_CHECK_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -5}
+KV_SESSIONS = 4                     # long-context sessions parked, of KV_TENANTS tenants
+KV_TENANTS = 2
+KV_SESSION_SHAPE = (36, 1, 8192, 2, 128)   # qwen2.5-3b's k (or v) of one 8192-token session
+KV_ERR_TOL = 0.05                   # zfp rate 12: ~0.022 of max |value| on N(0, 1) pages
+KV_TIMED_RUNS = 10
+SERVICE_CLIENTS = 4
+WIRE_TIMED_RUNS = 3
 MGARD_KERNELS = {  # name: (TPU kernel it replaces, CUDA source)
     "quantize_map.quantize": ("src/repro/kernels/quantize_map/kernel.py:37",
                               "src/repro_torch/kernels/quantize_map/csrc/quantize_map.cu"),
@@ -1079,6 +1129,59 @@ def count_block_views():
     finally:
         for mod, name in patched:
             setattr(mod, name, originals[name])
+
+
+@contextlib.contextmanager
+def held_to_plain():
+    """While the block runs, every call of the decode side's kernel wrappers
+    (``decode_chunks``, ``dequantize``, ``solve_columns``), wherever the port
+    holds them (module attributes, the adapters' registry), also runs the
+    plain version on the same inputs; yields kernel name -> [calls, largest
+    |kernel - plain|].  The plain runs launch nothing that is counted."""
+    import threading
+
+    from repro_torch.core import adapters
+    from repro_torch.kernels.huffman_decode import kernel as dk
+    from repro_torch.kernels.huffman_decode import ref as dr
+    from repro_torch.kernels.quantize_map import kernel as qk
+    from repro_torch.kernels.quantize_map import ref as qr
+    from repro_torch.kernels.tridiag import kernel as tk
+    from repro_torch.kernels.tridiag import ref as tr
+
+    pairs = {"huffman_decode.decode_chunks": (dk.decode_chunks, dr.decode_chunks),
+             "quantize_map.dequantize": (qk.dequantize, qr.dequantize),
+             "tridiag.solve_mass": (tk.solve_columns, tr.sweep_columns)}
+    seen = {name: [0, 0.0] for name in pairs}
+    lock = threading.Lock()
+
+    def spy(name, kernel_fn, plain_fn):
+        def run(*args, **kwargs):
+            out = kernel_fn(*args, **kwargs)
+            want = plain_fn(*args, **kwargs)
+            err = max_abs_err(out, want) if out.is_floating_point() else int_err(out, want)
+            with lock:
+                seen[name][0] += 1
+                seen[name][1] = max(seen[name][1], err)
+            return out
+        return run
+
+    spies = {id(k): spy(name, k, plain) for name, (k, plain) in pairs.items()}
+    kernels = {id(k): k for k, _plain in pairs.values()}
+    patched = [(mod, k.__name__, k) for mod in list(sys.modules.values())
+               if getattr(mod, "__name__", "").startswith("repro_torch")
+               for k in kernels.values() if getattr(mod, k.__name__, None) is k]
+    registered = [(op, fn) for op, fn in adapters._REGISTRY.items() if id(fn) in kernels]
+    for mod, attr, k in patched:
+        setattr(mod, attr, spies[id(k)])
+    for op, fn in registered:
+        adapters._REGISTRY[op] = spies[id(fn)]
+    try:
+        yield seen
+    finally:
+        for mod, attr, k in patched:
+            setattr(mod, attr, k)
+        for op, fn in registered:
+            adapters._REGISTRY[op] = fn
 
 
 def phase_bytes_round_trip(api, c, out, leaf: bool = False):
@@ -2609,6 +2712,736 @@ def phase_new_timings(api, prog: dict, pyt: dict, card: str) -> None:
         f"decompress_leaf {pw['decompress_pytree'] / pw['serial decompress_leaf']:.4f}")
 
 
+# ---------------------------------------------------------------------------
+# serving: qwen2.5-3b served, its sessions parked, the service and the wire
+# ---------------------------------------------------------------------------
+
+
+def _layer_of(tree, i):
+    """Layer ``i`` (or the layers of the slice ``i``) of the stacked layer
+    parameters, as its own tree."""
+    if isinstance(tree, dict):
+        return {k: _layer_of(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def zfp_buckets(api, tree) -> int:
+    """The ZFP buckets of ``tree`` under the default policy, one kernel
+    launch each: its ZFP leaves' distinct post-policy specs."""
+    specs = set()
+    for key, x in api.flatten_with_keys(tree):
+        choice = api.default_select(key, x)
+        if choice is not None:
+            xp, method, params = api.leaf_policy(x, *choice)
+            specs.add(api.make_spec(xp, method, **params))
+    return len(specs)
+
+
+def _pctl(values, q: float) -> float:
+    import numpy as np
+
+    return float(np.percentile(np.asarray(values, dtype=np.float64), q))
+
+
+def check_zfp_rate(name: str, c, x, out, tables: dict, rate: int) -> dict:
+    """A ZFP container of the blocked ``x`` (and its decode ``out``) against
+    the plain block versions at ``rate`` (tolerance 0)."""
+    import torch
+
+    from repro_torch.kernels.zfp_block import ref
+
+    blocks = blocks_of(x, 3)
+    payload = torch.from_numpy(c.arrays["payload"].view("int32")).to(x.device)
+    emax = torch.from_numpy(c.arrays["emax"]).to(x.device)
+    rp, re_ = ref.compress_blocks(blocks, rate, 3, perm=tables["perm"],
+                                  scale=tables["enc_scale"], chunk=PLAIN_CHUNK)
+    rd = ref.decompress_blocks(payload, emax, rate, 3, perm=tables["perm"],
+                               scale=tables["dec_scale"], chunk=PLAIN_CHUNK)
+    got = blocks_of(out.reshape(x.shape), 3)
+    errs = {"zfp_block.compress_blocks": max(int_err(payload, rp), int_err(emax, re_)),
+            "zfp_block.decompress_blocks": max_abs_err(got, rd.reshape(got.shape))}
+    if any(errs.values()):
+        raise PhaseError(f"{name}: kernels differ from their plain versions: {errs}")
+    return errs
+
+
+def check_kv_restored(name: str, restored: dict, cache: dict) -> float:
+    """Restored KV pages on the card, in shape and dtype, within ZFP's error
+    at the parking rate (KV_ERR_TOL of the page's largest magnitude)."""
+    import torch
+
+    worst = 0.0
+    for k, x in cache.items():
+        got = restored[k]
+        if got.device != x.device or got.dtype != x.dtype or got.shape != x.shape:
+            raise PhaseError(f"{name} {k}: restored {got.device} {got.dtype} {tuple(got.shape)}")
+        if not bool(torch.isfinite(got).all()):
+            raise PhaseError(f"{name} {k}: restored values are not all finite")
+        scale = float(x.abs().max())
+        err = float((got - x).abs().max()) / max(scale, 1e-30)
+        if not err <= KV_ERR_TOL:
+            raise PhaseError(f"{name} {k}: max |error| {err:.3e} of the largest |value| > "
+                             f"{KV_ERR_TOL}")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_serving(device, api, prog: dict, st: dict, card: str) -> dict:
+    """Phase 3, serving: qwen2.5-3b (hf:Qwen/Qwen2.5-3B) at full width and
+    depth through ``ServingEngine`` (batch 4, 8192 positions, float32 cache,
+    bfloat16 compute over float32 weights from the seed): 8 requests of 32
+    prompt tokens and 16 new tokens, twice on two engines (same tokens);
+    one decode step on the card against the CPU path on a depth-2 cut.  Then
+    ``ReductionService`` on the card: the served cache and 4 long-context
+    sessions of 2 tenants parked (zfp rate 12, the default 256 MiB budget,
+    so sessions spill), fetched, restored and released; a park whose cache
+    is written in place right after ``park_async`` returns; 4 client threads
+    compressing one layer each under the default policy (coalesced buckets)
+    and a ``huffman-bytes`` request, decompressed back; ``compress_stream``
+    of the 512^3 field; two overlapping ``decompress_stream`` requests in
+    one dispatch cycle; ``quicklook(tiers=1)`` of the progressive phase's
+    segment file; ``overload="reject"``.  Then the wire: a
+    ``ReductionServer`` on a unix socket and on 127.0.0.1, driven by the
+    port's ``ReductionClient``.  Every call counted (zero launches where the
+    call runs no kernel) and every kernel it launches held to its plain
+    version on that call's inputs."""
+    import tempfile
+    import threading
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import progressive
+    from repro_torch.core.container import Compressed
+    from repro_torch.models import build_model, load_params
+    from repro_torch.serving import (
+        ReductionClient,
+        ReductionServer,
+        ReductionService,
+        Request,
+        ServiceOverloaded,
+        ServingEngine,
+        compress_kv_cache,
+        decompress_kv_cache,
+        protocol,
+    )
+
+    calls, errs = {}, {}
+    cfg = get_config("qwen2.5-3b")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=device).manual_seed(SEED + 60), device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = dict(api.flatten_with_keys(params))
+    n_params = sum(v.numel() for v in leaves.values())
+    log(f"phase 3 serving: qwen2.5-3b ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.resolved_head_dim}, {cfg.n_kv_heads} KV heads, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, QKV bias, tied embeddings): {n_params} float32 "
+        f"parameters ({n_params * 4} bytes) made on the card in {init_s:.2f} s")
+
+    # -- the served model ---------------------------------------------------
+    rng = np.random.default_rng(SEED + 61)
+    prompts = [rng.integers(0, cfg.vocab, SERVE_PROMPT).astype(np.int32)
+               for _ in range(SERVE_REQUESTS)]
+    tokens, served = [], []
+    for run in range(2):
+        eng_s = ServingEngine(model, params, SERVE_BATCH, SERVE_MAX_LEN, torch.float32)
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=SERVE_NEW) for i, p in enumerate(prompts)]
+        stats, calls[f"ServingEngine.serve (engine {run + 1})"] = counted(
+            f"ServingEngine.serve (engine {run + 1})", lambda: eng_s.serve(reqs), {})
+        toks = [r.out_tokens for r in reqs]
+        if not all(r.done and len(r.out_tokens) == SERVE_NEW for r in reqs) or any(
+                not 0 <= t < cfg.vocab for r in toks for t in r):
+            raise PhaseError(f"serve (engine {run + 1}): tokens {toks}")
+        tokens.append(toks)
+        served.append((eng_s, stats))
+    if tokens[0] != tokens[1]:
+        raise PhaseError(f"two engines on the same weights gave different tokens: {tokens}")
+    engine, serve_stats = served[0]
+    del served
+    log(f"phase 3 ok: serve: {SERVE_REQUESTS} requests x ({SERVE_PROMPT} prompt + {SERVE_NEW} "
+        f"new tokens) on {SERVE_BATCH} slots, {serve_stats['decode_steps']} decode steps after "
+        f"prefill, {serve_stats['new_tokens']} tokens in {serve_stats['wall_s']:.3f} s; tokens "
+        f"in the vocabulary, two engines gave the same tokens (first request {tokens[0][0]})")
+
+    # one decode step on the card against the CPU path, on a depth-2 cut
+    cut = {"embed": params["embed"], "ln_f": params["ln_f"],
+           "layers": _layer_of(params["layers"], slice(0, SERVE_CHECK_LAYERS))}
+    cpu_cut = load_params(cut, torch.device("cpu"))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, SERVE_BATCH).astype(np.int32))
+    diffs = {}
+    for dtype, tol in SERVE_CHECK_TOL.items():
+        m = build_model(replace(cfg, n_layers=SERVE_CHECK_LAYERS, dtype=dtype))
+        outs = []
+        for p, dev in ((cut, device), (cpu_cut, torch.device("cpu"))):
+            cache = m.init_cache(SERVE_BATCH, 64, torch.float32, dev)
+            for step in range(3):
+                logits, cache = m.decode_step(p, toks.to(dev), cache, step)
+            outs.append(logits.float().cpu())
+        ref = outs[1]
+        diff = float((outs[0] - ref).abs().max())
+        bound = tol * (1.0 + float(ref.abs().max()))
+        if not diff <= bound:
+            raise PhaseError(f"decode_step ({dtype}, depth {SERVE_CHECK_LAYERS}): card vs CPU "
+                             f"max |logit difference| {diff:.4e} > {bound:.4e}")
+        diffs[dtype] = (diff, bound)
+    del cpu_cut
+    log(f"phase 3 ok: decode_step, depth-{SERVE_CHECK_LAYERS} cut of the served weights, 3 "
+        "steps, card vs CPU: " + ", ".join(
+            f"{k} max |logit difference| {d:.4e} <= {b:.4e} ({SERVE_CHECK_TOL[k]} x (1 + "
+            f"max |logit|))" for k, (d, b) in diffs.items()))
+
+    # -- KV parking in process ----------------------------------------------
+    tmp = tempfile.TemporaryDirectory(prefix="hpdr-serving-")
+    root = Path(tmp.name)
+    svc = ReductionService(batch_window=0.01, spill_dir=root / "kv")
+    eng = svc.engine
+    served_cache = engine.cache
+    pstats, calls["park_kv (served cache)"] = counted(
+        "park_kv (served cache)", lambda: svc.park_kv("served", served_cache, tenant="serve"),
+        {"zfp_block.compress_blocks": 1})
+    want, _ = compress_kv_cache(served_cache, rate=12)
+    got = svc.fetch_kv("served", tenant="serve")
+    for k in ("k", "v"):
+        if got[k].to_bytes() != want[k].to_bytes():
+            raise PhaseError(f"park_kv (served cache) {k}: container differs from "
+                             "compress_kv_cache's")
+    served_bytes = sum(x.numel() * 4 for x in served_cache.values())
+    log(f"phase 3 ok: park_kv of the served cache (k, v {tuple(served_cache['k'].shape)}, "
+        f"{served_bytes} bytes): one stacked launch, ratio {pstats['ratio']:.6f}, containers "
+        "== compress_kv_cache's (bytes)")
+
+    g = torch.Generator(device=device).manual_seed(SEED + 62)
+    sessions = {}
+    for i in range(KV_SESSIONS):
+        sessions[(f"t{i % KV_TENANTS}", f"session{i}")] = {
+            "k": torch.randn(KV_SESSION_SHAPE, generator=g, device=device),
+            "v": torch.randn(KV_SESSION_SHAPE, generator=g, device=device)}
+    session_bytes = sum(x.numel() * 4 for x in next(iter(sessions.values())).values())
+    containers = {}
+    for (tenant, sid), cache in sessions.items():
+        _, calls[f"park_kv ({sid})"] = counted(
+            f"park_kv ({sid})", lambda: svc.park_kv(sid, cache, tenant=tenant),
+            {"zfp_block.compress_blocks": 1})
+        containers[sid] = {k: c.to_bytes() for k, c in svc.fetch_kv(sid, tenant=tenant).items()}
+    kv = svc.stats().kv
+    if not kv["spills"] >= 3:
+        raise PhaseError(f"parking {KV_SESSIONS} sessions under the default budget spilled "
+                         f"{kv['spills']} times: {kv}")
+    worst = 0.0
+    for (tenant, sid), cache in sessions.items():
+        flat, calls[f"fetch_kv ({sid})"] = counted(
+            f"fetch_kv ({sid})", lambda: svc.fetch_kv(sid, tenant=tenant), {})
+        if {k: c.to_bytes() for k, c in flat.items()} != containers[sid]:
+            raise PhaseError(f"fetch_kv ({sid}): containers differ from those parked")
+        out, calls[f"restore_kv ({sid})"] = counted(
+            f"restore_kv ({sid})", lambda: svc.restore_kv(sid, cache, tenant=tenant),
+            {"zfp_block.decompress_blocks": 1})
+        worst = max(worst, check_kv_restored(f"restore_kv ({sid})", out, cache))
+    kv = svc.stats().kv
+    if not (kv["spills"] >= 3 and kv["loads"] >= 1):
+        raise PhaseError(f"KV store: spills {kv['spills']} (want >= 3), loads {kv['loads']} "
+                         f"(want >= 1)")
+    # the kernels against their plain versions on one session's own pages
+    (tenant0, sid0), cache0 = next(iter(sessions.items()))
+    flat0 = svc.fetch_kv(sid0, tenant=tenant0)
+    restored0 = svc.restore_kv(sid0, cache0, tenant=tenant0)
+    xb = api.as_blocked_3d(cache0["k"])
+    tables = api.get_plan(api.make_spec(xb, "zfp", rate=12)).workspace
+    for k in ("k", "v"):
+        e = check_zfp_rate(f"parked {sid0} {k}", flat0[k], api.as_blocked_3d(cache0[k]),
+                           restored0[k], tables, 12)
+        for name, v in e.items():
+            errs[name] = max(errs.get(name, 0.0), v)
+    released = []
+    for (tenant, sid), _cache in sessions.items():
+        _, calls[f"release_kv ({sid})"] = counted(
+            f"release_kv ({sid})", lambda: svc.release_kv(sid, tenant=tenant), {})
+        try:
+            svc.fetch_kv(sid, tenant=tenant)
+        except KeyError:
+            released.append(sid)
+    if len(released) != KV_SESSIONS:
+        raise PhaseError(f"release_kv: still fetchable after release: "
+                         f"{set(s for _t, s in sessions) - set(released)}")
+    kv_end = svc.stats().kv
+    log(f"phase 3 ok: {KV_SESSIONS} sessions of {KV_TENANTS} tenants (k, v {KV_SESSION_SHAPE} "
+        f"float32, {session_bytes} bytes each) parked under the {kv['capacity_bytes']}-byte "
+        f"budget: {kv['spills']} spills, {kv['loads']} loads; fetch_kv == the parked "
+        f"containers, restore_kv within {worst:.3e} of the largest |value| (<= {KV_ERR_TOL}), "
+        f"compress_blocks / decompress_blocks == plain at rate 12 on {sid0}'s pages; released "
+        f"(fetch raises KeyError); store {kv_end}")
+
+    # park_async, then the cache written in place at once, from the default
+    # stream and from a side stream (a decode loop under torch.cuda.stream(s))
+    (tenant1, sid1), cache1 = list(sessions.items())[1]
+    for label, stream in (("default stream", torch.cuda.default_stream(device)),
+                          ("side stream", torch.cuda.Stream(device))):
+        before = {k: v.clone() for k, v in cache1.items()}
+
+        def park_then_write():
+            stream.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(stream):
+                sub = svc.kv.park_async("mutated", cache1, tenant=tenant1)
+                for _ in range(8):
+                    cache1["k"].mul_(1.5).add_(1.0)
+                cache1["v"].zero_()
+            return sub.result(timeout=600)
+
+        what = f"park_async + in-place writes ({label})"
+        _, calls[what] = counted(what, park_then_write, {"zfp_block.compress_blocks": 1})
+        want, _ = compress_kv_cache(before, rate=12)
+        got = svc.fetch_kv("mutated", tenant=tenant1)
+        if any(got[k].to_bytes() != want[k].to_bytes() for k in ("k", "v")):
+            raise PhaseError(f"park_async ({label}): the parked bytes are not those the cache "
+                             "held when park_async returned")
+        svc.release_kv("mutated", tenant=tenant1)
+        cache1.update(before)
+        del before
+    log("phase 3 ok: park_async then 8 in-place writes of k and a zeroing of v at once, from the "
+        "default stream and from a side stream: the parked containers == compress_kv_cache of "
+        "the cache as it was (bytes)")
+
+    # -- the service in process ---------------------------------------------
+    def stall_dispatcher(service):
+        """Hold ``service``'s dispatcher inside a dispatch (its batch closed)
+        until the returned gate is set, so what is submitted next queues and
+        leaves in one cycle."""
+        gate, entered = threading.Event(), threading.Event()
+
+        def stalled_select(key, arr):
+            entered.set()
+            gate.wait(600)
+            return None
+
+        stall = service.submit_compress({"x": np.zeros(4, np.float32)}, stalled_select)
+        if not entered.wait(600):
+            raise PhaseError("the service's dispatcher never took the stalling request")
+        return gate, stall
+
+    layers = [_layer_of(params["layers"], i) for i in range(SERVICE_CLIENTS)]
+    outs = [None] * SERVICE_CLIENTS
+
+    def four_clients():
+        """The clients' requests queue behind a held dispatch, so they leave
+        in one cycle and share buckets."""
+        def worker(i):
+            outs[i] = svc.compress({"layers": {str(i): layers[i]}})
+
+        gate, stall = stall_dispatcher(svc)
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(SERVICE_CLIENTS)]
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + 600
+        while svc.stats().queue_depth < SERVICE_CLIENTS and time.monotonic() < deadline:
+            time.sleep(0.001)
+        gate.set()
+        stall.result(600)
+        for t in threads:
+            t.join(600)
+        if any(t.is_alive() for t in threads) or any(o is None for o in outs):
+            raise PhaseError("service compress: a client thread did not finish")
+        return outs
+
+    before_stats = svc.stats()
+    _, counts = counted("service compress (4 clients)", four_clients,
+                        lambda _o: {"zfp_block.compress_blocks": read_counts()[
+                            "zfp_block.compress_blocks"]})
+    calls["service compress (4 clients)"] = counts
+    snap = svc.stats()
+    coalesced = snap.coalesced_buckets - before_stats.coalesced_buckets
+    if counts["zfp_block.compress_blocks"] < 1 or coalesced < 1:
+        raise PhaseError(f"service compress: {counts['zfp_block.compress_blocks']} launches, "
+                         f"{coalesced} coalesced buckets (want >= 1 each)")
+    zkeys = 0
+    for i, (flat, _stats) in enumerate(outs):
+        for key, x in api.flatten_with_keys({"layers": {str(i): layers[i]}}):
+            choice = api.default_select(key, x)
+            if choice is None:
+                if isinstance(flat[key], Compressed) or not same_bits(flat[key], x):
+                    raise PhaseError(f"service compress {key}: a raw leaf changed")
+                continue
+            zkeys += 1
+            if flat[key].to_bytes() != api.compress_leaf(x, *choice[:1], **choice[1]).to_bytes():
+                raise PhaseError(f"service compress {key}: container differs from compress_leaf's")
+    hb = {k: layers[0]["attn"][k]["w"] for k in ("wk", "wv")}
+    (hflat, _), calls["service compress (huffman-bytes)"] = counted(
+        "service compress (huffman-bytes)",
+        lambda: svc.compress(hb, lambda k, a: ("huffman-bytes", {})),
+        {"histogram.histogram": 2, "huffman_encode.encode_lookup": 2})
+    for k, x in hb.items():
+        if hflat[k].to_bytes() != api.compress_leaf(x, "huffman-bytes").to_bytes():
+            raise PhaseError(f"service compress (huffman-bytes) {k}: container differs")
+    ent = check_entropy_kernels("service huffman-bytes wk", policy_keys(hb["wk"], "huffman-bytes"),
+                                256, hflat["wk"], device)
+    errs.update(ent["errs"])
+
+    def decompress_all():
+        return [svc.decompress(flat, {"layers": {str(i): layers[i]}})
+                for i, (flat, _s) in enumerate(outs)]
+
+    layer_buckets = [zfp_buckets(api, {"layers": {str(i): x}}) for i, x in enumerate(layers)]
+    decoded, calls["service decompress (4 layers)"] = counted(
+        "service decompress (4 layers)", decompress_all,
+        {"zfp_block.decompress_blocks": sum(layer_buckets)})
+    for i, tree in enumerate(decoded):
+        got = dict(api.flatten_with_keys(tree))
+        for key, c in outs[i][0].items():
+            want = api.decompress_leaf(c) if isinstance(c, Compressed) else c
+            if got[key].device != device or not same_bits(got[key], want):
+                raise PhaseError(f"service decompress {key}: differs from decompress_leaf")
+    hout, calls["service decompress (huffman-bytes)"] = counted(
+        "service decompress (huffman-bytes)", lambda: svc.decompress(hflat, hb),
+        {"huffman_decode.decode_chunks": 2})
+    if any(not same_bits(hout[k], x) for k, x in hb.items()):
+        raise PhaseError("service decompress (huffman-bytes): not exact")
+    log(f"phase 3 ok: service: {SERVICE_CLIENTS} client threads compressed one layer each "
+        f"({zkeys} zfp leaves, {counts['zfp_block.compress_blocks']} launches, {coalesced} "
+        f"coalesced buckets, fill {snap.batch_fill_ratio:.2f}); every container == "
+        f"compress_leaf's, every decoded leaf == decompress_leaf's on the card (each layer's "
+        f"decompress {layer_buckets[0]} launches, one a bucket); wk, wv through "
+        "huffman-bytes exact, histogram / encode_lookup / decode_chunks == plain")
+
+    host = st["host"]
+    n_chunks = host.numel() // STREAM_CHUNK
+    (blob, sinfo), calls["service compress_stream"] = counted(
+        "service compress_stream",
+        lambda: svc.compress_stream(host, "zfp", rate=RATE, chunk_size=STREAM_CHUNK, window=2),
+        {"zfp_block.compress_blocks": n_chunks})
+    direct = api.CompressorStream("zfp", rate=RATE, chunk_size=STREAM_CHUNK, window=2)
+    if blob != api.CompressorStream.to_bytes(direct.compress(host)):
+        raise PhaseError("service compress_stream: bytes differ from a direct CompressorStream")
+    lo_hi = ((0, n_chunks * 5 // 8), (n_chunks * 3 // 8, n_chunks))  # 16: (0, 10), (6, 16)
+
+    def two_overlapping():
+        gate, stall = stall_dispatcher(svc)
+        subs = [svc.submit_decompress_stream(blob, chunks=r) for r in lo_hi]
+        gate.set()
+        stall.result(600)
+        return [s.result(600) for s in subs]
+
+    hits0 = svc.stats().chunk_coalesce_hits
+    parts, calls["service decompress_stream (2 overlapping)"] = counted(
+        "service decompress_stream (2 overlapping)", two_overlapping,
+        {"zfp_block.decompress_blocks": n_chunks})
+    hits = svc.stats().chunk_coalesce_hits - hits0
+    res = api.CompressorStream.from_bytes(blob)
+    whole = api.CompressorStream.decompress(res)
+    ends = res.boundaries + [host.shape[res.axis]]
+    for (lo, hi), (arr, _info) in zip(lo_hi, parts):
+        if arr.device != device or not same_bits(
+                arr, whole.narrow(res.axis, ends[lo], ends[hi] - ends[lo])):
+            raise PhaseError(f"service decompress_stream {lo, hi}: differs from the stream decode")
+    if hits < 1:
+        raise PhaseError(f"service decompress_stream: {hits} coalesce hits (want >= 1)")
+    solves = mgard_solves(tuple(prog["field"].shape))
+    ql_want = {"huffman_decode.decode_chunks": 1, "quantize_map.dequantize": 1,
+               "tridiag.solve_mass": solves}
+    with held_to_plain() as held:  # each kernel also against its plain version, in the call
+        (qarr, qinfo), calls["service quicklook(tiers=1)"] = counted(
+            "service quicklook(tiers=1)", lambda: svc.quicklook(prog["path"], tiers=1), ql_want)
+    if {k: n for k, (n, _e) in held.items()} != ql_want or any(e for _n, e in held.values()):
+        raise PhaseError(f"service quicklook: kernels against their plain versions on the "
+                         f"call's own inputs (calls, max |err|): {held}")
+    for name, (_n, e) in held.items():
+        errs[name] = max(errs.get(name, 0.0), e)
+    with progressive.ProgressiveReader(prog["path"]) as r:
+        if not same_bits(qarr, r.retrieve(tiers=1)):
+            raise PhaseError("service quicklook: differs from a direct retrieve(tiers=1)")
+    small = ReductionService(eng, max_queue=1, overload="reject", batch_window=0.0,
+                             spill_dir=root / "small")
+    rejected = False
+    gate2, first = stall_dispatcher(small)
+    try:
+        second = small.submit_compress({"x": np.zeros(4, np.float32)})
+        try:
+            small.submit_compress({"x": np.zeros(4, np.float32)})
+        except ServiceOverloaded:
+            rejected = True
+    finally:
+        gate2.set()
+    first.result(600)
+    second.result(600)
+    small.close(600)
+    if not rejected or small.stats().rejected != 1:
+        raise PhaseError("overload='reject' with max_queue=1 did not raise ServiceOverloaded")
+    log(f"phase 3 ok: service compress_stream of the {FIELD_EDGE}^3 field ({n_chunks} chunks, "
+        f"window 2) == a direct CompressorStream (bytes); two decompress_stream requests "
+        f"{lo_hi} in one dispatch cycle: {n_chunks} chunk decodes, {hits} coalesce hits, each "
+        f"== the stream's decode; quicklook(tiers=1) == a direct retrieve, {qinfo['bytes_fetched']} "
+        f"of {qinfo['file_bytes']} bytes read, its decode_chunks / dequantize / {solves} "
+        f"solve_mass launches == plain on their own inputs; overload='reject' raised "
+        f"ServiceOverloaded")
+
+    # -- the wire -------------------------------------------------------------
+    server = ReductionServer(svc, unix_path=root / "hpdr.sock", tcp=("127.0.0.1", 0))
+    ucli = ReductionClient(server.unix_address, timeout=600)
+    tcli = ReductionClient(server.tcp_address, timeout=600)
+    if ucli.ping(b"ping") != b"ping" or tcli.ping(b"ping") != b"ping":
+        raise PhaseError("wire: ping did not echo")
+    wstats = ucli.stats()
+    if set(wstats) != set(svc.stats().as_dict()):
+        raise PhaseError("wire: stats keys differ from ServiceStats")
+    layer0 = {"layers": {"0": layers[0]}}
+    flat_layer0 = dict(api.flatten_with_keys(layer0))
+    for name, cli in (("unix", ucli), ("tcp", tcli)):
+        (wflat, _), calls[f"wire compress ({name})"] = counted(
+            f"wire compress ({name})", lambda: cli.compress(flat_layer0),
+            {"zfp_block.compress_blocks": layer_buckets[0]})
+        for key, c in outs[0][0].items():
+            if isinstance(c, Compressed):
+                if wflat[key].to_bytes() != c.to_bytes():
+                    raise PhaseError(f"wire compress ({name}) {key}: bytes differ from in process")
+            elif wflat[key].tobytes() != c.cpu().numpy().tobytes():
+                raise PhaseError(f"wire compress ({name}) {key}: raw leaf differs")
+    wout, calls["wire decompress (unix)"] = counted(
+        "wire decompress (unix)", lambda: ucli.decompress(wflat),
+        {"zfp_block.decompress_blocks": layer_buckets[0]})
+    dec0 = dict(api.flatten_with_keys(decoded[0]))
+    if any(wout[k].tobytes() != dec0[k].cpu().numpy().tobytes() for k in dec0):
+        raise PhaseError("wire decompress: differs from the in-process decode")
+    (tenant2, sid2), cache2 = list(sessions.items())[2]
+    _, calls["wire park_kv (tcp)"] = counted(
+        "wire park_kv (tcp)", lambda: tcli.park_kv("wire", cache2),
+        {"zfp_block.compress_blocks": 1})
+    wfetch, calls["wire fetch_kv (tcp)"] = counted(
+        "wire fetch_kv (tcp)", lambda: tcli.fetch_kv("wire"), {})
+    if {k: c.to_bytes() for k, c in wfetch.items()} != containers[sid2]:
+        raise PhaseError("wire park_kv/fetch_kv: containers differ from the in-process park")
+    _, calls["wire release_kv (tcp)"] = counted(
+        "wire release_kv (tcp)", lambda: tcli.release_kv("wire"), {})
+    (wblob, _), calls["wire compress_stream (unix)"] = counted(
+        "wire compress_stream (unix)",
+        lambda: ucli.compress_stream(host, "zfp", rate=RATE, chunk_size=STREAM_CHUNK, window=2),
+        {"zfp_block.compress_blocks": n_chunks})
+    if wblob != blob:
+        raise PhaseError("wire compress_stream: bytes differ from the in-process stream")
+    (wq, _), calls["wire quicklook (unix)"] = counted(
+        "wire quicklook (unix)", lambda: ucli.quicklook(prog["path"], tiers=1),
+        {"huffman_decode.decode_chunks": 1, "quantize_map.dequantize": 1,
+         "tridiag.solve_mass": solves})
+    if wq.tobytes() != qarr.cpu().numpy().tobytes():
+        raise PhaseError("wire quicklook: differs from the in-process quicklook")
+    import socket as socket_mod
+
+    raw = socket_mod.socket(socket_mod.AF_UNIX, socket_mod.SOCK_STREAM)
+    raw.settimeout(60)
+    raw.connect(server.unix_address)
+    raw.sendall(b"\x18\x00\x00\x00" + b"JUNK" + bytes(20))
+    frame = protocol.recv_frame(raw)
+    raw.close()
+    field_name = None
+    try:
+        protocol.raise_error_payload(frame.payload)
+    except protocol.ProtocolError as e:
+        field_name = e.field
+    if frame.opcode != protocol.OP_ERROR or field_name != "magic":
+        raise PhaseError(f"wire: a frame with bad magic got opcode {frame.opcode:#x}, "
+                         f"field {field_name}")
+    with ReductionClient(server.unix_address, timeout=60) as fresh:
+        if fresh.ping(b"after") != b"after":
+            raise PhaseError("wire: no service on a fresh connection after a bad frame")
+    log(f"phase 3 ok: wire on {server.unix_address} and {server.tcp_address}: ping, stats, "
+        f"compress of layer 0 over both (container bytes == in process), decompress (== in "
+        f"process), park_kv / fetch_kv / release_kv of {sid2} ({session_bytes} bytes; "
+        f"containers == the in-process park), compress_stream of the {FIELD_EDGE}^3 field "
+        f"(bytes == in process), quicklook (== in process); bad magic -> OP_ERROR [field=magic],"
+        f" then a fresh connection served; server {server.stats()}")
+    return {"calls": calls, "errs": errs, "model": model, "params": params, "engine": engine,
+            "serve_stats": serve_stats, "svc": svc, "server": server, "ucli": ucli, "tcli": tcli,
+            "sessions": sessions, "layers": layers, "outs": outs,
+            "session_bytes": session_bytes,
+            "tmp": tmp, "host": host, "blob": blob, "flat_layer0": flat_layer0}
+
+
+def device_trace(fn, top: int = 6) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` (after a warm-up call):
+    its device events (kernels, memcpys, memsets), the time the device was
+    busy with them (their union), the host wall time of that same call
+    (synchronised; the profiler's own host cost included), and the ``top``
+    names by total time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a profiling session now and then records no device event
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name: dict[str, list] = {}
+    for e in events:
+        entry = by_name.setdefault(e.name, [0, 0.0])
+        entry[0] += 1
+        entry[1] += e.time_range.elapsed_us() / 1e3
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    return {"launches": len(events), "busy_ms": busy / 1e3, "wall_ms": wall_ms,
+            "top": [(name, n, ms) for name, (n, ms) in ranked]}
+
+
+def phase_serving_timings(api, srv: dict, card: str) -> None:
+    """Phase 5, serving: decode tokens/s and one decode step; park_kv,
+    fetch_kv (resident and spilled) and restore_kv, median and p99 of
+    KV_TIMED_RUNS; 4 concurrent compress requests against their serial sum;
+    in process against over the socket (one layer on both listeners, one
+    parked session on the unix socket; loopback GB/s); the service's waits
+    and dispatch cycles.  Host wall, each run synchronised."""
+    import threading
+
+    import torch
+
+    from repro_torch.core.container import Compressed
+
+    model, params, engine, svc = srv["model"], srv["params"], srv["engine"], srv["svc"]
+    ss = srv["serve_stats"]
+    clock = [time.perf_counter()]
+
+    def lap(what: str) -> None:
+        now = time.perf_counter()
+        log(f"(phase 5 serving, {what}: {now - clock[0]:.1f} s)")
+        clock[0] = now
+
+    toks = torch.zeros(SERVE_BATCH, dtype=torch.int32, device=engine.device)
+    cache_len = int(engine.lens.max())
+    step_ms = median_wall_ms(
+        lambda: model.decode_step(params, toks, engine.cache, cache_len), runs=TIMED_RUNS)
+    log(f"phase 5 [{card}] serving qwen2.5-3b, batch {SERVE_BATCH}, cache {SERVE_MAX_LEN} "
+        f"positions float32: serve() {ss['new_tokens']} new tokens in {ss['wall_s']:.4f} s "
+        f"({ss['tokens_per_s']:.3f} tokens/s, {ss['decode_steps']} decode steps + "
+        f"{SERVE_REQUESTS * SERVE_PROMPT} prefill steps); one decode step (host wall, "
+        f"synchronised, median of {TIMED_RUNS}) {step_ms:.4f} ms = "
+        f"{SERVE_BATCH / step_ms * 1e3:.3f} tokens/s at batch {SERVE_BATCH}")
+    trace = device_trace(lambda: model.decode_step(params, toks, engine.cache, cache_len))
+    busy, wall = trace["busy_ms"], trace["wall_ms"]
+    log(f"phase 5 [{card}] one decode step under torch.profiler: {trace['launches']} device "
+        f"launches (kernels and copies), device busy {busy:.4f} ms of that call's {wall:.4f} ms "
+        f"(host wall, synchronised, profiler included; idle share {1 - busy / wall:.4f}); by "
+        f"time: " + ", ".join(
+            f"{name[:60]} x{n} {ms:.4f} ms" for name, n, ms in trace["top"]))
+    lap("decode step")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    sessions = list(srv["sessions"].items())
+    kv_ms = {"park_kv": [], "fetch_kv resident": [], "fetch_kv spilled": [], "restore_kv": []}
+    for i in range(KV_TIMED_RUNS):
+        (tenant, sid), cache = sessions[i % len(sessions)]
+        kv_ms["park_kv"].append(timed(lambda: svc.park_kv(sid, cache, tenant=tenant))[0])
+        kv_ms["fetch_kv resident"].append(timed(lambda: svc.fetch_kv(sid, tenant=tenant))[0])
+        kv_ms["restore_kv"].append(timed(lambda: svc.restore_kv(sid, cache, tenant=tenant))[0])
+    spills0 = svc.stats().kv["loads"]
+    for i in range(KV_TIMED_RUNS):  # the older parked sessions, spilled in turn
+        (tenant, sid), _cache = sessions[i % len(sessions)]
+        kv_ms["fetch_kv spilled"].append(timed(lambda: svc.fetch_kv(sid, tenant=tenant))[0])
+    loads = svc.stats().kv["loads"] - spills0
+    log(f"phase 5 [{card}] KV parking, sessions of {srv['session_bytes']} bytes (host wall, "
+        f"synchronised, {KV_TIMED_RUNS} runs; fetch_kv spilled: {loads} of "
+        f"{KV_TIMED_RUNS} re-materialised from disk): " + ", ".join(
+            f"{k} median {statistics.median(v):.4f} ms p99 {_pctl(v, 99):.4f} ms"
+            for k, v in kv_ms.items()))
+    lap("KV parking")
+
+    layers = srv["layers"]
+    trees = [{"layers": {str(i): layers[i]}} for i in range(SERVICE_CLIENTS)]
+    layer_bytes = sum(x.numel() * 4 for _k, x in api.flatten_with_keys(trees[0]))
+    # phase 3's containers of the same trees, which every concurrent run must give again
+    want = [{k: c.to_bytes() if isinstance(c, Compressed) else c for k, c in flat.items()}
+            for flat, _stats in srv["outs"]]
+
+    def run():
+        res, errors = [None] * len(trees), []
+
+        def worker(i):
+            try:
+                res[i] = svc.compress(trees[i])
+            except BaseException as e:  # re-raised below, in this thread
+                errors.append(e)
+
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(trees))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        if any(t.is_alive() for t in threads):
+            raise PhaseError("concurrent service compress: a client thread still runs after 600 s")
+        if errors:
+            raise errors[0]
+        return res
+
+    serial, concurrent = [], []
+    for _ in range(NEW_TIMED_RUNS):
+        serial.append(timed(lambda: [svc.compress(t) for t in trees])[0])
+        ms, res = timed(run)
+        concurrent.append(ms)
+        for i, (flat, _stats) in enumerate(res):
+            for k, w in want[i].items():
+                if not (flat[k].to_bytes() == w if isinstance(w, bytes) else same_bits(flat[k], w)):
+                    raise PhaseError(f"concurrent service compress {k}: differs from phase 3's")
+    log(f"phase 5 [{card}] service compress of {SERVICE_CLIENTS} layers ({layer_bytes} bytes "
+        f"each; host wall, synchronised, median of {NEW_TIMED_RUNS}): {SERVICE_CLIENTS} "
+        f"concurrent clients {statistics.median(concurrent):.4f} ms, serial sum "
+        f"{statistics.median(serial):.4f} ms, ratio "
+        f"{statistics.median(concurrent) / statistics.median(serial):.4f}")
+    lap("concurrent and serial compress")
+
+    flat_layer0, ucli, tcli = srv["flat_layer0"], srv["ucli"], srv["tcli"]
+    wire = {"in process": [], "unix": [], "tcp": []}
+    for _ in range(WIRE_TIMED_RUNS):
+        wire["in process"].append(timed(lambda: svc.compress(flat_layer0))[0])
+        wire["unix"].append(timed(lambda: ucli.compress(flat_layer0))[0])
+        wire["tcp"].append(timed(lambda: tcli.compress(flat_layer0))[0])
+    (tenant, sid), cache = sessions[0]
+    sess = {"in process": [], "unix": []}
+    for _ in range(WIRE_TIMED_RUNS):
+        sess["in process"].append(timed(lambda: svc.park_kv("timing", cache))[0])
+        sess["unix"].append(timed(lambda: ucli.park_kv("timing-wire", cache))[0])
+    log(f"phase 5 [{card}] in process vs over the socket (host wall, synchronised, median of "
+        f"{WIRE_TIMED_RUNS}): compress of layer 0 ({layer_bytes} bytes): " + ", ".join(
+            f"{k} {statistics.median(v):.4f} ms ({layer_bytes / statistics.median(v) / 1e6:.3f} "
+            "GB/s of the layer)" for k, v in wire.items())
+        + f"; park_kv of one session ({srv['session_bytes']} bytes): " + ", ".join(
+            f"{k} {statistics.median(v):.4f} ms "
+            f"({srv['session_bytes'] / statistics.median(v) / 1e6:.3f} GB/s of the session)"
+            for k, v in sess.items()))
+    lap("in process and over the socket")
+    s = svc.stats()
+    log(f"phase 5 [{card}] service: {s.dispatch_cycles} dispatch cycles, {s.admitted} "
+        f"admitted, {s.completed} completed, waits: " + ", ".join(
+            f"{p} p50 {h['wait_p50'] * 1e3:.4f} ms p99 {h['wait_p99'] * 1e3:.4f} ms "
+            f"({h['samples']} samples)" for p, h in s.priorities.items())
+        + f"; connections {s.connections['opened']} opened, rx {s.connections['rx_bytes']} "
+        f"bytes, tx {s.connections['tx_bytes']} bytes; kv {s.kv['spills']} spills, "
+        f"{s.kv['loads']} loads")
+    for cli in (ucli, tcli):
+        cli.close()
+    srv["server"].close(60)
+    lap("server close")
+    svc.close(600)
+    lap("service close")
+    srv["tmp"].cleanup()
+    torch.cuda.synchronize()
+    lap("spill directory removed")
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}; "
@@ -2676,6 +3509,8 @@ def main() -> int:
     lap("phase 3, stream")
     ckpt = phase_checkpoint(device, api, pyt["tree"], card)
     lap("phase 3, checkpoint")
+    srv = phase_serving(device, api, prog, st, card)
+    lap("phase 3, serving")
     phase_bytes_round_trip(api, c, out)
     phase_bytes_round_trip(api, huff_runs[0]["c"], huff_runs[0]["out"], leaf=True)
     again = phase_bytes_round_trip(api, mgard_run["c"], mgard_run["out"])
@@ -2697,6 +3532,8 @@ def main() -> int:
     lap("phase 5, progressive and pytree")
     phase_stream_timings(api, st, card, device)
     lap("phase 5, stream")
+    phase_serving_timings(api, srv, card)
+    lap("phase 5, serving")
     prog["tmp"].cleanup()
     calibrate.set_calibration_dir(None)
     cal_dir.cleanup()
@@ -2704,9 +3541,10 @@ def main() -> int:
         runs = huff_runs + [mgard_run]
         k["launches"] = sum(r["counts"][k["name"]] for r in runs)
         k["max_abs_err"] = max(r["errs"][k["name"]] for r in runs)
-    # the progressive, pytree, stream and checkpoint paths' launches and
+    # the progressive, pytree, stream, checkpoint and serving paths' launches and
     # checks join every kernel's
-    new_paths = {"progressive": prog, "pytree": pyt, "stream": st, "checkpoint": ckpt}
+    new_paths = {"progressive": prog, "pytree": pyt, "stream": st, "checkpoint": ckpt,
+                 "serving": srv}
     for k in kernels + huff_kernels + mgard_kernels:
         for run in new_paths.values():
             k["launches"] += sum(counts[k["name"]] for counts in run["calls"].values())

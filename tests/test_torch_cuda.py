@@ -770,3 +770,117 @@ def test_cuda_stream_bytes_match_torch_backend(cuda_device, method, params):
     assert out.device.type == "cuda" and out.shape == host.shape
     if method == "huffman-bytes":
         assert torch.equal(out.cpu(), host)
+
+
+# ---------------------------------------------------------------------------
+# serving: KV parking, the service and the decode path on the card
+# ---------------------------------------------------------------------------
+
+
+def _park_async_then_write(device, stream) -> None:
+    """Park a cache with ``park_async`` from ``stream`` and queue in-place
+    writes of it on that stream at once (and more of them while the io
+    lane's task waits); the parked containers must be those of the cache as
+    it was when ``park_async`` returned."""
+    from repro_torch.core import engine
+    from repro_torch.serving import KVPageStore, compress_kv_cache
+
+    g = torch.Generator(device=device).manual_seed(50)
+    cache = {"k": torch.randn((4, 2, 256, 2, 64), generator=g, device=device),
+             "v": torch.randn((4, 2, 256, 2, 64), generator=g, device=device),
+             "pos": torch.arange(8, device=device)}
+    before = {k: v.clone() for k, v in cache.items()}
+    with engine.ExecutionEngine() as eng:
+        store = KVPageStore(capacity_bytes=64 << 20, engine=eng)
+        stream.wait_stream(torch.cuda.current_stream(device))  # the cache is written
+        with torch.cuda.stream(stream):
+            sub = store.park_async("s", cache)
+            for _ in range(20):  # a queue of in-place writes behind the copy
+                cache["k"].mul_(1.5).add_(1.0)
+            cache["v"].zero_()
+            cache["pos"].fill_(-1)
+        sub.result(timeout=120)
+        want, _ = compress_kv_cache(before, rate=12, engine=eng)
+        got = store.fetch("s")
+        for key in ("k", "v"):
+            assert got[key].to_bytes() == want[key].to_bytes(), key
+        assert torch.equal(got["pos"], before["pos"])
+
+
+@pytest.mark.gpu
+def test_cuda_park_async_snapshot_survives_in_place_writes(cuda_device):
+    """``park_async`` copies the cache on the caller's stream before it
+    returns; the writes the decode loop queues next must not reach the
+    park."""
+    _park_async_then_write(cuda_device, torch.cuda.default_stream(cuda_device))
+
+
+@pytest.mark.gpu
+def test_cuda_park_async_snapshot_from_a_side_stream(cuda_device):
+    """The same from a decode loop running under ``torch.cuda.stream(s)``:
+    the copy and the writes are queued on ``s``, not the default stream."""
+    _park_async_then_write(cuda_device, torch.cuda.Stream(cuda_device))
+
+
+@pytest.mark.gpu
+def test_cuda_service_bytes_match_torch_backend(cuda_device):
+    """The service on the card (a ZFP bucket coalesced from two requests, a
+    ``huffman-bytes`` leaf, raw leaves) writes the ``torch`` backend's bytes,
+    and decodes to tensors on the card."""
+    from repro_torch.core import engine
+    from repro_torch.serving import ReductionService
+
+    rng = np.random.default_rng(51)
+    trees = [{"w": torch.from_numpy(rng.normal(0, 0.02, (96, 80)).astype(np.float32)).to(
+                  cuda_device),
+              "norm": torch.from_numpy(rng.normal(0, 0.02, (96,)).astype(np.float32)),
+              "ids": np.arange(12, dtype=np.int32)} for _ in range(2)]
+
+    def select(key, arr):
+        if key == "norm":
+            return "huffman-bytes", {}
+        return api.default_select(key, arr)
+
+    with engine.ExecutionEngine() as eng, \
+            engine.ExecutionEngine([torch.device("cpu")], backend="torch") as cpu:
+        with ReductionService(eng, batch_window=0.05) as svc:
+            subs = [svc.submit_compress(t, select) for t in trees]
+            outs = [s.result(timeout=120) for s in subs]
+            restored = svc.decompress(outs[0][0], trees[0])
+            assert svc.stats().coalesced_requests == 2
+        for tree, (flat, _stats) in zip(trees, outs):
+            want, _ = cpu.compress_pytree({k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+                                           for k, v in tree.items()}, select)
+            for key, val in want.items():
+                if isinstance(val, api.Compressed):
+                    assert flat[key].to_bytes() == val.to_bytes(), key
+    assert restored["w"].device.type == "cuda"
+    assert torch.equal(restored["norm"].cpu(), trees[0]["norm"])
+
+
+@pytest.mark.gpu
+def test_cuda_decode_step_matches_cpu(cuda_device):
+    """One decode step of qwen2.5-3b's smoke cut in float32 on the card
+    against the CPU path on the same weights: within 1e-4 (cuBLAS sums in
+    another order; TF32 is off by default for float32 matmuls)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    model = build_model(get_config("qwen2.5-3b").smoke())
+    params = model.init(torch.Generator().manual_seed(52), "cpu")
+    on_card = _to(params, cuda_device)
+    tok = torch.tensor([1, 17, 255], dtype=torch.int32)
+    out = {}
+    for name, dev, p in (("cpu", torch.device("cpu"), params), ("card", cuda_device, on_card)):
+        cache = model.init_cache(3, 16, torch.float32, device=dev)
+        for step in range(3):
+            logits, cache = model.decode_step(p, tok.to(dev), cache, step)
+        out[name] = (logits.cpu(), cache["k"].cpu())
+    assert (out["card"][0] - out["cpu"][0]).abs().max() <= 1e-4
+    assert (out["card"][1] - out["cpu"][1]).abs().max() <= 1e-4
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
