@@ -139,7 +139,35 @@ any fails:
      compress / decompress of a layer, park_kv / fetch_kv / release_kv of a
      0.6 GB session, compress_stream of the 512^3 field in a 512 MiB
      frame, quicklook; bytes == in process; a bad-magic frame answered with
-     a protocol error, then a fresh connection served); each call counted;
+     a protocol error, then a fresh connection served); each call counted.
+     Training (after serving's timings; the served model, the trees and
+     the fields freed first) — ``train_loop("qwen2.5-3b", smoke=False,
+     steps=6, batch=8, seq=128)`` through the port's entry point: 36
+     layers, 3.09B float32 parameters from the seed, bfloat16 compute,
+     float32 AdamW moments, no checkpoint and no kernel launched; every
+     loss finite and every step's update applied; its peak
+     ``max_memory_allocated``, the median of the last 4 step times,
+     tokens/s and the model-FLOP share of 989 TFLOP/s; one step under
+     ``torch.profiler``; a depth-2 full-width step (loss and every
+     gradient) on the card against the CPU, float32 within 1e-5 / 1e-3 and
+     bfloat16 within 1e-2 / 5e-2 (loss / a leaf's largest |gradient|, no
+     TF32); a resume at depth 2 under ``torch.use_deterministic_algorithms``
+     (the config resized by patching ``train.get_config``, as the
+     reference's example does): runs A and A again (6 steps), B (an exact
+     checkpoint at step 3, ``sync_ckpt``, a failure injected at step 4), C
+     restarting on B's directory (restore of step 3, steps 3-5, a
+     ``save_async`` of step 6 and ``wait()``), C's losses and final state
+     == A's bit for bit (or, were an op nondeterministic, within the
+     spread of the two A runs, named); every save and restore counted
+     exactly (one ``histogram`` and ``encode_lookup`` per ``huffman-bytes``
+     container, one ``decode_chunks`` per decoded one; the 1.24 GB
+     embedding and its moments in 128 MiB chunks) with the entropy
+     kernels held to their plain versions inside the call on the 2^27
+     byte keys and the container of the embedding's first chunk; then C's
+     state saved with the default zfp policy and restored, every launch
+     of the ZFP and entropy kernels inside both calls held to its plain
+     version on the same inputs, each leaf == the one-shot or streamed
+     decode of its containers;
   4. the container bytes round trip on the card (one ZFP, one Huffman, one
      MGARD and one progressive container, and the pytree's containers):
      ``to_bytes`` -> ``from_bytes`` -> decode, bit-identical;
@@ -174,15 +202,19 @@ any fails:
      (median and p99 of 10), 4 concurrent compress requests against their
      serial sum (median of 5), in process against over the unix and TCP
      sockets (one layer; one session on the unix socket; median of 3,
-     loopback GB/s), and the service's waits and dispatch cycles; each
-     printed with the card's name and power limit.
+     loopback GB/s), and the service's waits and dispatch cycles;
+     training: the full run's step times, tokens/s, model-FLOP share and
+     peak memory, the traced step's busy share, launches and top device
+     operations, and each checkpoint save and restore of the depth-2
+     state (host wall, one run each); each printed with the card's name
+     and power limit.
 
 The last two lines are one JSON object per kernel (``{"kernels": [...]}``;
 the Huffman kernels' times are those of the ``huffman-bytes`` leaf; a
 kernel's launches are summed over every counted main-path call (the ZFP,
-Huffman, MGARD, progressive, pytree, stream, checkpoint and serving
-paths; a line before gives the last five paths' calls' own), its error
-the largest of them) and
+Huffman, MGARD, progressive, pytree, stream, checkpoint, serving and
+training paths; a line before gives the last six paths' calls' own), its
+error the largest of them) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -191,6 +223,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -260,6 +293,16 @@ KV_ERR_TOL = 0.05                   # zfp rate 12: ~0.022 of max |value| on N(0,
 KV_TIMED_RUNS = 10
 SERVICE_CLIENTS = 4
 WIRE_TIMED_RUNS = 3
+TRAIN_ARCH = "qwen2.5-3b"           # hf:Qwen/Qwen2.5-3B at full width and depth
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 8, 128   # the reference's default batch and length
+TRAIN_TIMED = 4                     # the median step of the last 4
+TRAIN_CUT_LAYERS = 2                # the depth cut of the card vs CPU step and of the resume
+TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 1, 64
+# (loss, each gradient leaf) within these shares of the CPU's value / largest |gradient|
+TRAIN_CHECK_TOL = {"float32": (1e-5, 1e-3), "bfloat16": (1e-2, 5e-2)}
+RESUME_EVERY, RESUME_FAIL_AT = 3, 4  # checkpoint at step 3, failure injected at step 4
+LOSSY_KERNELS = ("zfp_block.compress_blocks", "zfp_block.decompress_blocks", "histogram.histogram",
+                 "huffman_encode.encode_lookup", "huffman_decode.decode_chunks")
 MGARD_KERNELS = {  # name: (TPU kernel it replaces, CUDA source)
     "quantize_map.quantize": ("src/repro/kernels/quantize_map/kernel.py:37",
                               "src/repro_torch/kernels/quantize_map/csrc/quantize_map.cu"),
@@ -1131,42 +1174,66 @@ def count_block_views():
             setattr(mod, name, originals[name])
 
 
+DECODE_SIDE = ("huffman_decode.decode_chunks", "quantize_map.dequantize", "tridiag.solve_mass")
+
+
 @contextlib.contextmanager
-def held_to_plain():
-    """While the block runs, every call of the decode side's kernel wrappers
-    (``decode_chunks``, ``dequantize``, ``solve_columns``), wherever the port
-    holds them (module attributes, the adapters' registry), also runs the
-    plain version on the same inputs; yields kernel name -> [calls, largest
-    |kernel - plain|].  The plain runs launch nothing that is counted."""
+def held_to_plain(names: tuple[str, ...] = DECODE_SIDE):
+    """While the block runs, every call of the kernel wrappers of ``names``
+    (by default the decode side's: ``decode_chunks``, ``dequantize``,
+    ``solve_columns``; ZFP's by both their block and field forms), wherever
+    the port holds them (module attributes, the adapters' registry), also
+    runs the plain version on the same inputs; yields kernel name ->
+    [calls, largest |kernel - plain|].  The plain runs launch nothing that
+    is counted."""
     import threading
 
     from repro_torch.core import adapters
+    from repro_torch.kernels.histogram import kernel as hk
+    from repro_torch.kernels.histogram import ref as hr
     from repro_torch.kernels.huffman_decode import kernel as dk
     from repro_torch.kernels.huffman_decode import ref as dr
+    from repro_torch.kernels.huffman_encode import kernel as ek
+    from repro_torch.kernels.huffman_encode import ref as er
     from repro_torch.kernels.quantize_map import kernel as qk
     from repro_torch.kernels.quantize_map import ref as qr
     from repro_torch.kernels.tridiag import kernel as tk
     from repro_torch.kernels.tridiag import ref as tr
+    from repro_torch.kernels.zfp_block import kernel as zk
+    from repro_torch.kernels.zfp_block import ref as zr
 
-    pairs = {"huffman_decode.decode_chunks": (dk.decode_chunks, dr.decode_chunks),
-             "quantize_map.dequantize": (qk.dequantize, qr.dequantize),
-             "tridiag.solve_mass": (tk.solve_columns, tr.sweep_columns)}
-    seen = {name: [0, 0.0] for name in pairs}
+    table = {
+        "zfp_block.compress_blocks": [(zk.compress_blocks, zr.compress_blocks),
+                                      (zk.compress_field, zr.compress_field)],
+        "zfp_block.decompress_blocks": [(zk.decompress_blocks, zr.decompress_blocks),
+                                        (zk.decompress_field, zr.decompress_field)],
+        "histogram.histogram": [(hk.histogram, hr.histogram)],
+        "huffman_encode.encode_lookup": [(ek.encode_lookup, er.encode_lookup)],
+        "huffman_decode.decode_chunks": [(dk.decode_chunks, dr.decode_chunks)],
+        "quantize_map.dequantize": [(qk.dequantize, qr.dequantize)],
+        "tridiag.solve_mass": [(tk.solve_columns, tr.sweep_columns)],
+    }
+    pairs = [(name, k, plain) for name in names for k, plain in table[name]]
+    seen = {name: [0, 0.0] for name in names}
     lock = threading.Lock()
+
+    def err_of(out, want) -> float:
+        if isinstance(out, tuple):
+            return max(err_of(o, w) for o, w in zip(out, want))
+        return max_abs_err(out, want) if out.is_floating_point() else int_err(out, want)
 
     def spy(name, kernel_fn, plain_fn):
         def run(*args, **kwargs):
             out = kernel_fn(*args, **kwargs)
-            want = plain_fn(*args, **kwargs)
-            err = max_abs_err(out, want) if out.is_floating_point() else int_err(out, want)
+            err = err_of(out, plain_fn(*args, **kwargs))
             with lock:
                 seen[name][0] += 1
                 seen[name][1] = max(seen[name][1], err)
             return out
         return run
 
-    spies = {id(k): spy(name, k, plain) for name, (k, plain) in pairs.items()}
-    kernels = {id(k): k for k, _plain in pairs.values()}
+    spies = {id(k): spy(name, k, plain) for name, k, plain in pairs}
+    kernels = {id(k): k for _name, k, _plain in pairs}
     patched = [(mod, k.__name__, k) for mod in list(sys.modules.values())
                if getattr(mod, "__name__", "").startswith("repro_torch")
                for k in kernels.values() if getattr(mod, k.__name__, None) is k]
@@ -3442,11 +3509,398 @@ def phase_serving_timings(api, srv: dict, card: str) -> None:
     lap("spill directory removed")
 
 
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+def checkpoint_chunks(leaf, entry: dict, device) -> int:
+    """Containers the manager writes for ``leaf``: the streamed leaf's chunks
+    (at its tuned plan, or the fixed lossless chunk), else one."""
+    from repro_torch.checkpoint import manager as ckpt_manager
+
+    if not entry.get("stream"):
+        return 1
+    if "tuned" in entry:
+        return len(stream_rows(leaf, entry["tuned"], device)[1])
+    elems = ckpt_manager.LOSSLESS_CHUNK_BYTES // leaf.element_size()
+    return len(stream_rows(leaf, {"chunk_elems": elems}, device)[1])
+
+
+def checkpoint_want(flat: dict, manifest: dict, policy, restore: bool, device) -> dict:
+    """The launches one save (or restore) of ``flat`` under ``policy`` makes:
+    per container, one ``compress_blocks`` (``decompress_blocks``) for a zfp
+    leaf or chunk, one ``histogram`` and one ``encode_lookup`` (one
+    ``decode_chunks``) for a ``huffman-bytes`` one.  Under ``exact`` every
+    leaf is ``huffman-bytes``; else a float leaf of ``lossless_small``
+    elements or more is zfp (streamed: its tuned chunks)."""
+    zfp = huff = 0
+    for k, x in flat.items():
+        n = checkpoint_chunks(x, manifest["leaves"][k], device)
+        if policy.exact or not x.dtype.is_floating_point or x.numel() < policy.lossless_small:
+            huff += n
+        else:
+            zfp += n
+    if restore:
+        want = {"zfp_block.decompress_blocks": zfp, "huffman_decode.decode_chunks": huff}
+    else:
+        want = {"zfp_block.compress_blocks": zfp, "histogram.histogram": huff,
+                "huffman_encode.encode_lookup": huff}
+    return {k: n for k, n in want.items() if n}
+
+
+@contextlib.contextmanager
+def counted_checkpoints(calls: dict, errs: dict, timings: list, device, probe: str | None = None,
+                        hold: tuple[str, ...] = ()):
+    """Every ``CheckpointManager.save``/``restore`` while the block runs (on
+    any thread: ``save_async`` saves on the engine's io lane) counted
+    exactly: the counters zeroed just before the call and read just after,
+    against :func:`checkpoint_want`; each call's wall seconds in
+    ``timings``.  Inside the same call, the kernels of ``hold`` are held to
+    their plain versions on every launch (:func:`held_to_plain`; the
+    seconds then include the plain runs), and the entropy kernels to theirs
+    on the keys and the container of leaf ``probe`` — of its first chunk,
+    where the leaf is streamed."""
+    import torch
+
+    from repro_torch.checkpoint import manager as ckpt_manager
+    from repro_torch.core import api
+    from repro_torch.core.container import Compressed
+    from repro_torch.runtime.io import AggregatedReader
+
+    cls = ckpt_manager.CheckpointManager
+    save, restore = cls.save, cls.restore
+
+    def probe_entropy(name: str, mgr, manifest: dict, x) -> None:
+        step_dir = mgr.dir / f"step_{manifest['step']:08d}"
+        entry = manifest["leaves"][probe]
+        with AggregatedReader(step_dir / manifest["aggregate"]) as r:
+            raw = r.read(entry["segment"])
+        if entry.get("stream"):
+            res = api.CompressorStream.from_bytes(raw)
+            ends = res.boundaries + [x.shape[res.axis]]
+            c, x = res.chunks[0], x.narrow(res.axis, ends[0], ends[1] - ends[0])
+            if x.numel() * x.element_size() != ckpt_manager.LOSSLESS_CHUNK_BYTES:
+                raise PhaseError(f"{name}: {probe}'s first chunk is {x.numel()} elements, not "
+                                 f"a full {ckpt_manager.LOSSLESS_CHUNK_BYTES}-byte chunk")
+        else:
+            c = Compressed.from_bytes(raw)
+        if c.method != "huffman-bytes":
+            raise PhaseError(f"{name}: leaf {probe} went through {c.method}")
+        ent = check_entropy_kernels(f"{name} {probe}", policy_keys(x, "huffman-bytes"), 256, c,
+                                    device)
+        for k, v in ent["errs"].items():
+            errs[k] = max(errs.get(k, 0.0), v)
+
+    def checked(name: str, counts: dict, want: dict, held: dict) -> None:
+        check_counts(name, counts, want)
+        for k in hold:
+            n, e = held[k]
+            if n < counts[k] or e:
+                raise PhaseError(f"{name}: {k} held to its plain version in {n} calls for "
+                                 f"{counts[k]} launches, max |kernel - plain| {e}")
+            errs[k] = max(errs.get(k, 0.0), e)
+
+    def run(fn):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with held_to_plain(hold) as held:
+            out = fn()
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        return out, seconds, read_counts(), held
+
+    def policy_name(self) -> str:
+        return ("exact" if self.policy.exact else "zfp") + (", held" if hold else "")
+
+    def counted_save(self, step, tree, extra=None):
+        manifest, seconds, counts, held = run(lambda: save(self, step, tree, extra))
+        name = f"CheckpointManager.save (step {step}, {policy_name(self)})"
+        flat = dict(api.flatten_with_keys(tree, "::"))
+        checked(name, counts, checkpoint_want(flat, manifest, self.policy, False, device), held)
+        calls[name] = counts
+        timings.append((name, seconds, manifest["raw_bytes"], manifest["compressed_bytes"]))
+        if probe is not None:
+            probe_entropy(name, self, manifest, flat[probe])
+        return manifest
+
+    def counted_restore(self, step=None, *args, **kwargs):
+        (tree, manifest), seconds, counts, held = run(
+            lambda: restore(self, step, *args, **kwargs))
+        name = f"CheckpointManager.restore (step {manifest['step']}, {policy_name(self)})"
+        flat = dict(api.flatten_with_keys(tree, "::"))
+        checked(name, counts, checkpoint_want(flat, manifest, self.policy, True, device), held)
+        calls[name] = counts
+        timings.append((name, seconds, manifest["raw_bytes"], manifest["compressed_bytes"]))
+        if probe is not None:
+            probe_entropy(name, self, manifest, flat[probe])
+        return tree, manifest
+
+    cls.save, cls.restore = counted_save, counted_restore
+    try:
+        yield
+    finally:
+        cls.save, cls.restore = save, restore
+
+
+def check_grads_close(what: str, card: dict, cpu: dict, tol: float) -> float:
+    """Every gradient leaf on the card within ``tol`` of the CPU's largest
+    |gradient| in that leaf; the key bias, whose exact gradient is 0
+    (softmax ignores a shift common to a query's scores), against the
+    query bias's largest |gradient| (both its values are rounding noise).
+    Returns the worst share."""
+    worst = 0.0
+    for k, g in cpu.items():
+        ref = cpu[k.replace("wk::b", "wq::b")] if k.endswith("attn::wk::b") else g
+        diff = float((card[k].float().cpu() - g).abs().max())
+        share = diff / max(float(ref.abs().max()), 1e-30)
+        if not share <= tol:
+            raise PhaseError(f"{what} {k}: card vs CPU max |difference| {diff:.4e} = {share:.4e} "
+                             f"of the largest |gradient| > {tol}")
+        worst = max(worst, share)
+    return worst
+
+
+def phase_training(device, api, card: str) -> dict:
+    """Phase 3 and 5, training: ``train_loop`` of qwen2.5-3b at full width and
+    depth (36 layers, 3.09B float32 parameters from the seed, bfloat16
+    compute, float32 moments, batch 8 x 128, 6 steps, no checkpoint) with
+    its peak memory, step times, tokens/s and model-FLOP share; one step
+    under ``torch.profiler``; a depth-2 full-width step on the card against
+    the same step on the CPU (float32 and bfloat16); a bit-exact resume at
+    depth 2 from an exact checkpoint (runs A, A again, B failing at step 4
+    after the step-3 save, C restarting on B's directory and saving
+    asynchronously at step 6) under deterministic algorithms, every save
+    and restore counted exactly with the entropy kernels held to their
+    plain versions inside the call on a full 128 MiB chunk of the
+    embedding; and C's state saved with the default zfp policy and
+    restored, every kernel launch inside both calls held to its plain
+    version, each leaf held to the one-shot or streamed decode."""
+    import tempfile
+    import warnings
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.checkpoint import CheckpointManager, CheckpointPolicy
+    from repro_torch.checkpoint import manager as ckpt_manager
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.launch import train as T
+    from repro_torch.models import build_model, load_params
+    from repro_torch.optim import adamw, schedule
+    from repro_torch.runtime import roofline
+
+    calls, errs = {}, {}
+    clock = [time.perf_counter()]
+
+    def lap(what: str) -> None:
+        now = time.perf_counter()
+        log(f"(phase 3 training, {what}: {now - clock[0]:.1f} s)")
+        clock[0] = now
+
+    # -- qwen2.5-3b at full width and depth --------------------------------
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    n_params = sum(x.numel() for _k, x in api.flatten_with_keys(model.param_shapes()))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, calls["train_loop (full, 6 steps)"] = counted(
+        "train_loop (full, 6 steps)", lambda: T.train_loop(
+            TRAIN_ARCH, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, smoke=False,
+            log_every=1), {})
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses, finite = out["losses"], out["finite"]
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses) or not all(finite):
+        raise PhaseError(f"train_loop (full): losses {losses}, finite {finite}")
+    step_s = statistics.median(out["step_s"][-TRAIN_TIMED:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    counts = roofline.count_params(model.param_shapes())
+    flops = roofline.model_flops(cfg, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+                                 counts)["model_flops"]
+    log(f"phase 3 ok: train_loop({TRAIN_ARCH!r}, smoke=False, steps={TRAIN_STEPS}, "
+        f"batch={TRAIN_BATCH}, seq={TRAIN_SEQ}): {cfg.n_layers} layers, {n_params} float32 "
+        f"parameters, bfloat16 compute, float32 moments; losses {[round(x, 4) for x in losses]} "
+        f"all finite, every step's update applied; no kernel launched")
+    log(f"phase 5 [{card}] training {TRAIN_ARCH} full width and depth, {tokens} tokens a step: "
+        f"step times {[round(x * 1e3, 2) for x in out['step_s']]} ms (host wall, each ending in "
+        f"the loss's read); median of the last {TRAIN_TIMED} {step_s * 1e3:.4f} ms = "
+        f"{tokens / step_s:.3f} tokens/s; model FLOPs (6·N·D + attention, N = {counts['other']} "
+        f"without the embedding) {flops:.6e} a step = {flops / step_s / 1e12:.4f} TFLOP/s, "
+        f"{flops / step_s / roofline.PEAK_FLOPS:.4f} of {roofline.PEAK_FLOPS / 1e12:.0f} TFLOP/s; "
+        f"peak torch.cuda.max_memory_allocated {peak} bytes; the run {wall_s:.2f} s with init")
+    lap("full-size train_loop")
+
+    # one step under the profiler, on the run's own state
+    state = out.pop("state")
+    step_fn = T.make_train_step(model, adamw.AdamWConfig(), schedule.cosine, 3e-4, TRAIN_STEPS)
+    batch = SyntheticLMStream(DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH), device).next_batch()
+    trace = device_trace(lambda: step_fn(state["params"], state["opt"], batch), top=8)
+    busy, wall = trace["busy_ms"], trace["wall_ms"]
+    log(f"phase 5 [{card}] one train step under torch.profiler: {trace['launches']} device "
+        f"launches (kernels and copies), device busy {busy:.4f} ms of that call's {wall:.4f} ms "
+        f"(host wall, synchronised, profiler included; idle share {1 - busy / wall:.4f}); by "
+        "time: " + ", ".join(f"{name[:60]} x{n} {ms:.4f} ms" for name, n, ms in trace["top"]))
+    del state, batch, out, step_fn
+    torch.cuda.empty_cache()
+    lap("traced step")
+
+    # -- a depth-2 full-width step on the card against the CPU -------------
+    cut = replace(cfg, n_layers=TRAIN_CUT_LAYERS)
+    params = build_model(cut).init(torch.Generator(device=device).manual_seed(SEED + 70), device)
+    cpu = torch.device("cpu")
+    cpu_params = load_params(params, cpu)
+    window = torch.from_numpy(np.random.default_rng(SEED + 71).integers(
+        0, cfg.vocab, (TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ + 1)).astype(np.int32))
+    batches = {dev: {"tokens": window[:, :-1].to(dev), "labels": window[:, 1:].to(dev)}
+               for dev in (device, cpu)}
+    diffs = {}
+    for dtype, (ltol, gtol) in TRAIN_CHECK_TOL.items():
+        m = build_model(replace(cut, dtype=dtype))
+        (l_card, _), g_card = m.value_and_grad(params, batches[device])
+        t0 = time.perf_counter()
+        (l_cpu, _), g_cpu = m.value_and_grad(cpu_params, batches[cpu])
+        cpu_s = time.perf_counter() - t0
+        ldiff = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
+        if not ldiff <= ltol:
+            raise PhaseError(f"train step ({dtype}, depth {TRAIN_CUT_LAYERS}): card loss "
+                             f"{float(l_card)} vs CPU {float(l_cpu)}: {ldiff:.4e} > {ltol}")
+        worst = check_grads_close(f"train step ({dtype})", dict(api.flatten_with_keys(g_card, "::")),
+                                  dict(api.flatten_with_keys(g_cpu, "::")), gtol)
+        diffs[dtype] = (float(l_cpu), ldiff, worst, cpu_s)
+        del g_card, g_cpu
+    del params, cpu_params
+    torch.cuda.empty_cache()
+    log(f"phase 3 ok: a train step (loss and every gradient), depth-{TRAIN_CUT_LAYERS} cut at full "
+        f"width, batch {TRAIN_CHECK_BATCH} x {TRAIN_CHECK_SEQ}, card vs CPU (no TF32): " + ", ".join(
+            f"{k} loss {v[0]:.6f} within {v[1]:.4e} (<= {TRAIN_CHECK_TOL[k][0]}), gradients within "
+            f"{v[2]:.4e} of each leaf's largest |gradient| (<= {TRAIN_CHECK_TOL[k][1]}; CPU step "
+            f"{v[3]:.1f} s)" for k, v in diffs.items()))
+    lap("card vs CPU step")
+
+    # -- resume at depth 2, bit for bit, from exact checkpoints ------------
+    tmp = tempfile.TemporaryDirectory(prefix="hpdr-train-")
+    root = Path(tmp.name)
+    timings: list = []
+    probe = "params::embed::table"  # streamed in 128 MiB chunks: 2^27 byte keys each
+    original_config = T.get_config
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    T.get_config = lambda name: cut  # the reference example's way to resize a run
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            runs = []
+            for i in range(2):
+                run, calls[f"train_loop A{i + 1} (depth 2, no checkpoint)"] = counted(
+                    f"train_loop A{i + 1}", lambda: T.train_loop(
+                        TRAIN_ARCH, steps=TRAIN_STEPS, smoke=False, log_every=TRAIN_STEPS), {})
+                runs.append(run)
+            with counted_checkpoints(calls, errs, timings, device, probe):
+                try:
+                    T.train_loop(TRAIN_ARCH, steps=TRAIN_STEPS, smoke=False, log_every=TRAIN_STEPS,
+                                 ckpt_dir=str(root / "ck"), ckpt_every=RESUME_EVERY,
+                                 sync_ckpt=True, inject_failure_at=RESUME_FAIL_AT)
+                except RuntimeError as e:
+                    if str(e) != f"injected failure at step {RESUME_FAIL_AT}":
+                        raise
+                else:
+                    raise PhaseError("train_loop B: the injected failure was not raised")
+                c = T.train_loop(TRAIN_ARCH, steps=TRAIN_STEPS, smoke=False,
+                                 log_every=TRAIN_STEPS, ckpt_dir=str(root / "ck"),
+                                 ckpt_every=RESUME_EVERY)
+        nondet = sorted({str(w.message)[:200] for w in caught
+                         if "deterministic" in str(w.message)})
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+        T.get_config = original_config
+    a1, a2 = runs
+    fa1, fa2 = (dict(api.flatten_with_keys(r["state"], "::")) for r in runs)
+    fc = dict(api.flatten_with_keys(c["state"], "::"))
+    spread = max(float((fa1[k].double() - fa2[k].double()).abs().max()) for k in fa1)
+    same_a = a1["losses"] == a2["losses"] and spread == 0.0
+    if c["steps_run"] != TRAIN_STEPS - RESUME_EVERY or not all(c["finite"]):
+        raise PhaseError(f"train_loop C: ran {c['steps_run']} steps, finite {c['finite']}")
+    if not nondet and same_a:
+        bad = [k for k in fa1 if not same_bits(fa1[k], fc[k])]
+        if c["losses"] != a1["losses"][RESUME_EVERY:] or bad:
+            raise PhaseError(f"resume: C's losses {c['losses']} vs A's "
+                             f"{a1['losses'][RESUME_EVERY:]}, leaves differing {bad[:5]}")
+        verdict = "bit for bit"
+    else:  # an op without a deterministic implementation: hold C within A's spread
+        cspread = max(float((fa1[k].double() - fc[k].double()).abs().max()) for k in fa1)
+        if not cspread <= spread:
+            raise PhaseError(f"resume: C differs from A by {cspread:.4e}, beyond the spread of "
+                             f"two A runs {spread:.4e} (ops: {nondet})")
+        verdict = f"within the spread of two A runs ({spread:.4e}; ops {nondet})"
+    log(f"phase 3 ok: resume at depth {TRAIN_CUT_LAYERS}, full width, under "
+        f"torch.use_deterministic_algorithms: A1 == A2 ({same_a}); B saved step {RESUME_EVERY} "
+        f"(exact, sync) and raised the injected failure at step {RESUME_FAIL_AT}; C restored step "
+        f"{RESUME_EVERY}, ran steps {RESUME_EVERY}-{TRAIN_STEPS - 1} (losses "
+        f"{[round(x, 4) for x in c['losses']]}) and saved step {TRAIN_STEPS} with save_async + "
+        f"wait(); C's losses and final parameters, moments and step == A's {verdict}; every save "
+        f"and restore's launches exact, the entropy kernels == plain inside each on the "
+        f"{ckpt_manager.LOSSLESS_CHUNK_BYTES} byte keys of {probe}'s first chunk")
+    del runs, a1, a2, fa1, fa2
+    torch.cuda.empty_cache()
+    lap("resume")
+
+    # -- C's state through the default (zfp) policy -------------------------
+    lossy = CheckpointManager(root / "lossy", CheckpointPolicy())
+    with counted_checkpoints(calls, errs, timings, device, hold=LOSSY_KERNELS):
+        manifest = lossy.save(TRAIN_STEPS, c["state"])
+        restored, _ = lossy.restore(TRAIN_STEPS)
+    policy = lossy.policy
+    worst, kinds = 0.0, {"streamed": 0, "zfp": 0, "huffman-bytes": 0}
+    for k, x in fc.items():
+        e, got = manifest["leaves"][k], restored[k]
+        if got.device != device or got.dtype != x.dtype or got.shape != x.shape:
+            raise PhaseError(f"lossy checkpoint {k}: restored {got.device} {got.dtype} "
+                             f"{tuple(got.shape)}")
+        if e.get("tuned"):
+            want, kind = streamed_decode(api, x, e["tuned"], device, policy.zfp_rate), "streamed"
+        elif x.dtype.is_floating_point and x.numel() >= policy.lossless_small:
+            want = api.decompress_leaf(api.compress_leaf(x, "zfp", rate=policy.zfp_rate))
+            kind = "zfp"
+        else:
+            want, kind = x, "huffman-bytes"
+        kinds[kind] += 1
+        if not same_bits(got, want):
+            raise PhaseError(f"lossy checkpoint {k} ({kind}): restored values differ from the "
+                             "decode of the same containers")
+        if kind != "huffman-bytes" and x.numel():
+            span = float(x.max() - x.min())
+            worst = max(worst, float((got - x).abs().max()) / span if span else 0.0)
+    log(f"phase 3 ok: C's state saved with the default policy (zfp rate {policy.zfp_rate}) and "
+        f"restored: {kinds} leaves, each == the one-shot or streamed decode of its containers "
+        f"(max |error| {worst:.3e} of a leaf's range), launches exact; inside both calls every "
+        f"launch of {', '.join(LOSSY_KERNELS)} == its plain version on the same inputs "
+        f"(tolerance 0)")
+    log(f"phase 5 [{card}] checkpoints of the depth-{TRAIN_CUT_LAYERS} training state (host wall, "
+        "synchronised, one run each; filesystem " + fs_type(root) + "; a held call's seconds "
+        "include its plain versions): " + ", ".join(
+            f"{name} {s:.3f} s ({raw} bytes -> {comp}, {raw / s / 1e9:.3f} GB/s of the state)"
+            for name, s, raw, comp in timings))
+    del c, fc, restored
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    lap("lossy checkpoint")
+    return {"calls": calls, "errs": errs}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}; "
               "run it from a checkout of the repository", file=sys.stderr)
         return 2
+    # cuBLAS's deterministic workspace, read when its handle is made: the
+    # training phase resumes a run bit for bit under deterministic algorithms
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -3535,16 +3989,29 @@ def main() -> int:
     phase_serving_timings(api, srv, card)
     lap("phase 5, serving")
     prog["tmp"].cleanup()
+    # keep what the report below reads; the served model, the trees and the
+    # fields go before training needs the card's memory
+    prog, pyt, st, ckpt, srv = ({"calls": r["calls"], "errs": r["errs"]}
+                                for r in (prog, pyt, st, ckpt, srv))
+    huff_runs = [{"counts": r["counts"], "errs": r["errs"]} for r in huff_runs]
+    mgard_run = {"counts": mgard_run["counts"], "errs": mgard_run["errs"]}
+    del field, c, out, main_res, tables, again
+    from repro_torch.core.context import GLOBAL_CMM
+
+    GLOBAL_CMM.clear()  # cached plans' device tables (the MGARD level map: 540 MB)
+    torch.cuda.empty_cache()
+    train = phase_training(device, api, card)
+    lap("phase 3 and 5, training")
     calibrate.set_calibration_dir(None)
     cal_dir.cleanup()
     for k in huff_kernels:  # the entropy tail runs on the Huffman and the MGARD paths
         runs = huff_runs + [mgard_run]
         k["launches"] = sum(r["counts"][k["name"]] for r in runs)
         k["max_abs_err"] = max(r["errs"][k["name"]] for r in runs)
-    # the progressive, pytree, stream, checkpoint and serving paths' launches and
-    # checks join every kernel's
+    # the progressive, pytree, stream, checkpoint, serving and training paths'
+    # launches and checks join every kernel's
     new_paths = {"progressive": prog, "pytree": pyt, "stream": st, "checkpoint": ckpt,
-                 "serving": srv}
+                 "serving": srv, "training": train}
     for k in kernels + huff_kernels + mgard_kernels:
         for run in new_paths.values():
             k["launches"] += sum(counts[k["name"]] for counts in run["calls"].values())

@@ -7,6 +7,12 @@ written by either package restores in the other).
     anything that must restore bit-exact through lossless Huffman-bytes;
   * float leaves of ``stream_threshold`` bytes or more through the
     auto-tuned chunk-pipelined ``CompressorStream``;
+  * lossless leaves larger than ``LOSSLESS_CHUNK_BYTES`` (128 MiB) through
+    the same stream in fixed chunks of that size: one Huffman stream holds
+    at most 2^31 - 1 bits (the format's int32 bit offsets, ~256 MiB of
+    codes), so a larger exact leaf — qwen2.5-3b's 1.24 GB embedding and
+    its moments — cannot be one container.  The reference has the same
+    limit and no such route; its restore reads these streamed leaves;
   * **engine-scheduled**: per-leaf compression fans out over the execution
     engine's devices (submit/result futures), and ``save_async`` runs the
     whole save on the engine's ``io`` lane against a snapshot;
@@ -154,7 +160,21 @@ def _restore_progressive(meta: dict, blobs: list[bytes], backend: str) -> torch.
     return api.restore_leaf(out, stub)
 
 
+# A Huffman code of the 256 byte values spends at most 8 bits a byte on
+# average (the fixed 8-bit code is a prefix code), so a chunk of this many
+# bytes fills at most half of the 2^31 - 1 bits one stream can hold.
+LOSSLESS_CHUNK_BYTES = 128 << 20
+
+
+def _lossless_chunks(arr: torch.Tensor, policy: CheckpointPolicy) -> bool:
+    """A ``huffman-bytes`` leaf too large for one container."""
+    return (_method_for(arr, policy)[0] == "huffman-bytes"
+            and _nbytes(arr) > LOSSLESS_CHUNK_BYTES)
+
+
 def _should_stream(arr: torch.Tensor, policy: CheckpointPolicy) -> bool:
+    if _lossless_chunks(arr, policy):
+        return True
     if policy.stream_threshold is None or policy.exact:
         return False
     if policy.float_method == "mgard-progressive":
@@ -174,8 +194,12 @@ def _stream_leaf(arr: torch.Tensor, policy: CheckpointPolicy, backend: str) -> t
     deadlock.  The standalone stream brings its own transient executor.
     """
     method, kw = _method_for(arr, policy)
+    if _lossless_chunks(arr, policy):
+        chunk, window = LOSSLESS_CHUNK_BYTES // arr.element_size(), 2
+    else:
+        chunk, window = "auto", "auto"
     stream = api.CompressorStream(
-        method, chunk_size="auto", window="auto", frame=True, backend=backend, **kw
+        method, chunk_size=chunk, window=window, frame=True, backend=backend, **kw
     )
     res = stream.compress(arr)
     info = {"window": res.window}

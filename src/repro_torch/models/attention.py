@@ -1,10 +1,13 @@
-"""GQA attention for decoding (counterpart of ``repro.models.attention``, the
-part the dense decoder runs: ``init_gqa``, ``gqa_qkv``, ``_sdpa`` and
-``gqa_decode``).
+"""GQA attention (counterpart of ``repro.models.attention``, the part the
+dense family runs: ``causal_mask``, ``init_gqa``, ``gqa_qkv``, ``_sdpa``,
+``gqa_attention`` for the training forward and ``gqa_decode``).
 
 Shapes: hidden (B, S, D); q/k/v (B, S, H, hd); the KV cache of one layer
 ``{"k": (B, S_max, KH, hd), "v": ...}``.  Scores and the softmax run in
-float32, as the reference computes them, with an additive -1e9 mask.
+float32, as the reference computes them, with an additive -1e9 mask (no
+``scaled_dot_product_attention``: its masking and accumulation differ, and
+the reference fuses nothing here).  The local window and M-RoPE positions
+belong to the hybrid and VLM families, which are not ported.
 
 ``gqa_decode`` writes the step's k/v into the cache *in place* (the
 reference returns an updated copy): the decode loop owns the cache and
@@ -25,6 +28,19 @@ from ..configs.base import ModelConfig
 from .layers import apply_rope, init_linear, linear
 
 NEG_INF = -1e9
+
+
+def causal_mask(s_q: int, s_k: int, q_offset: int = 0, device=None) -> torch.Tensor:
+    """(s_q, s_k) float32: 0 where key position <= query position, else -1e9."""
+    q_pos = torch.arange(s_q, dtype=torch.int32, device=device)[:, None] + q_offset
+    k_pos = torch.arange(s_k, dtype=torch.int32, device=device)[None, :]
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return torch.where(k_pos <= q_pos, zero, NEG_INF)
+
+
+def local_causal_mask(s_q: int, s_k: int, window: int, q_offset: int = 0, device=None):
+    raise NotImplementedError("local attention belongs to the hybrid family, which is not "
+                              "ported yet (see ROADMAP.md)")
 
 
 def _sdpa(q, k, v, mask, scale):
@@ -64,6 +80,31 @@ def gqa_qkv(x, p, cfg: ModelConfig):
     k = linear(x, p["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
     v = linear(x, p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
     return q, k, v
+
+
+def gqa_attention(
+    x: torch.Tensor,            # (B, S, D)
+    p: dict,
+    cfg: ModelConfig,
+    positions: torch.Tensor | None = None,
+    window: int = 0,
+    mrope_positions: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Causal GQA over the whole sequence (the training forward)."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    if cfg.mrope and mrope_positions is not None:
+        raise NotImplementedError("M-RoPE belongs to the VLM family, which is not ported yet "
+                                  "(see ROADMAP.md)")
+    q, k, v = gqa_qkv(x, p, cfg)
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    mask = (local_causal_mask(s, s, window, device=x.device) if window > 0
+            else causal_mask(s, s, device=x.device))
+    out = _sdpa(q, k, v, mask, 1.0 / math.sqrt(hd))
+    return linear(out.reshape(b, s, -1), p["wo"])
 
 
 def check_cache_layout(cfg: ModelConfig) -> None:

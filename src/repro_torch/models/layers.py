@@ -5,6 +5,8 @@ Parameters are plain nested dicts of tensors.  The init functions take an
 explicit ``torch.Generator`` (its device is where the weights are made) and
 a ``lead`` shape: a stack of per-layer parameters is made as one tensor of
 shape ``lead + shape``, the layout the reference's ``vmap``-ed init gives.
+:data:`META` stands in for a generator to make the parameters' shapes
+alone, on the ``meta`` device (the reference's ``jax.eval_shape`` of init).
 The arithmetic is the reference's, op for op: casts to the compute dtype
 where it casts, float32 where it computes in float32.
 """
@@ -17,7 +19,18 @@ import torch
 import torch.nn.functional as F
 
 
+class _MetaGenerator:
+    """No random state: init with it makes tensors on the ``meta`` device."""
+
+    device = torch.device("meta")
+
+
+META = _MetaGenerator()
+
+
 def _randn(gen: torch.Generator, shape: tuple, std: float, dtype: torch.dtype) -> torch.Tensor:
+    if gen is META:
+        return torch.empty(shape, dtype=dtype, device=gen.device)
     return torch.randn(shape, generator=gen, device=gen.device, dtype=dtype) * std
 
 
@@ -73,9 +86,32 @@ def init_embedding(gen: torch.Generator, vocab: int, d_model: int, *,
     return {"table": _randn(gen, (vocab, d_model), 0.02, dtype)}
 
 
+class _Embed(torch.autograd.Function):
+    """Gather the rows, then cast them: the values of the reference's
+    cast-the-table-then-gather without a pass over the whole table.  The
+    backward is the reference's: the rows' gradients summed into a zero
+    table in the compute dtype, token by token in order (so repeated tokens
+    round at every add under bfloat16, as XLA's scatter-add does), then
+    cast to the table's dtype."""
+
+    @staticmethod
+    def forward(ctx, table, tokens, dtype):
+        ctx.save_for_backward(tokens)
+        ctx.table_meta = (table.shape, table.dtype)
+        return table[tokens].to(dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (tokens,) = ctx.saved_tensors
+        shape, dtype = ctx.table_meta
+        acc = torch.zeros(shape, dtype=grad.dtype, device=grad.device)
+        acc.index_put_((tokens.reshape(-1).long(),), grad.reshape(-1, shape[-1]),
+                       accumulate=True)
+        return acc.to(dtype), None, None
+
+
 def embed(tokens: torch.Tensor, p: dict, dtype=torch.bfloat16) -> torch.Tensor:
-    # the reference casts the whole table, then gathers: the same values
-    return p["table"][tokens].to(dtype)
+    return _Embed.apply(p["table"], tokens, dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
-"""Model facade: init / cache / decode for the dense family (counterpart of
-``repro.models.model``).
+"""Model facade: init / train forward / cache / decode for the dense family
+(counterpart of ``repro.models.model``).
 
 ``build_model(cfg)`` returns a :class:`Model`.  The port runs the dense
-decoder (qwen2.5-3b and its smoke cut); the other families raise
+decoder (qwen2.5-3b, qwen1.5-4b, minicpm-2b with its μP scaling,
+deepseek-67b, and their smoke cuts); the other families raise
 ``NotImplementedError`` until they are ported (``ROADMAP.md``).
 
 Entry points run on the card unless the caller names another device
@@ -13,7 +14,11 @@ in ``cfg.dtype`` (qwen2.5-3b: bfloat16 over float32 parameters); decode
 takes ``token`` (B,) int and a cache of stacked per-layer ``k``/``v`` of
 shape ``(n_layers, B, S_max, KH, hd)`` and returns ``(logits, cache)``.
 The port's ``decode_step`` writes the cache in place and returns the same
-dict (the reference returns an updated copy).
+dict (the reference returns an updated copy).  Training takes
+``{"tokens": (B, S) int, "labels": (B, S) int}``: ``loss`` returns
+``(loss, {"ce", "aux", "loss"})`` and is differentiable in the parameters;
+:meth:`Model.value_and_grad` is the reference's
+``jax.value_and_grad(model.loss, has_aux=True)``.
 
 :func:`load_params` carries the reference's parameters across: a pytree of
 numpy arrays (``jax.tree.map(np.asarray, params)``) becomes the port's
@@ -29,16 +34,33 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
+from ..core import api
 from ..core import pipeline as pl
 from . import attention as attn
 from . import transformer as tfm
-from .layers import embed, init_embedding, init_linear, init_rms_norm, linear, rms_norm
+from .layers import (
+    META,
+    embed,
+    init_embedding,
+    init_linear,
+    init_rms_norm,
+    linear,
+    rms_norm,
+)
 
 _PORTED = ("dense",)
 
 
 def _torch_dtype(name: str) -> torch.dtype:
     return getattr(torch, str(name))
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean over tokens of float32 ``logsumexp`` minus the label's logit."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
+    return (logz - ll).mean()
 
 
 def _require_ported(cfg: ModelConfig) -> None:
@@ -73,7 +95,20 @@ class Model:
         params["layers"] = tfm.init_dense_layers(generator, cfg.n_layers, cfg, dt)
         return params if generator.device == device else load_params(params, device)
 
+    def param_shapes(self) -> dict:
+        """The parameters' tree on the ``meta`` device: shapes and dtypes,
+        no memory (the reference's ``jax.eval_shape(model.init, key)``)."""
+        return self.init(META, "meta")
+
     # ---------------- embedding / head ----------------
+
+    def _embed_in(self, params, batch) -> torch.Tensor:
+        cfg = self.cfg
+        if "embeds" in batch:
+            x = batch["embeds"].to(_torch_dtype(cfg.dtype))
+        else:
+            x = embed(batch["tokens"], params["embed"], _torch_dtype(cfg.dtype))
+        return x * cfg.scale_emb if cfg.scale_emb != 1.0 else x
 
     def _head(self, params, h: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -82,6 +117,46 @@ class Model:
         if cfg.tie_embeddings:
             return h @ params["embed"]["table"].to(h.dtype).T
         return linear(h, params["head"])
+
+    # ---------------- backbone ----------------
+
+    def _backbone(self, params, x: torch.Tensor, batch) -> tuple[torch.Tensor, torch.Tensor]:
+        """Returns (hidden, aux_loss); the dense family has no auxiliary loss."""
+        cfg = self.cfg
+        _require_ported(cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        mrope_pos = batch.get("positions_3d") if cfg.mrope else None
+        x = tfm.scan_stack(
+            x, params["layers"],
+            lambda h, lp: tfm.dense_block(h, lp, cfg, mrope_positions=mrope_pos), cfg.remat)
+        return x, aux
+
+    # ---------------- train ----------------
+
+    def loss(self, params, batch) -> tuple[torch.Tensor, dict]:
+        """``(loss, {"ce", "aux", "loss"})``: the float32 mean cross-entropy
+        of the next tokens (plus the auxiliary loss, 0 for dense)."""
+        cfg = self.cfg
+        _require_ported(cfg)
+        x = self._embed_in(params, batch)
+        h, aux = self._backbone(params, x, batch)
+        h = rms_norm(h, params["ln_f"]["scale"], cfg.norm_eps)
+        logits = self._head(params, h)
+        ce = cross_entropy(logits, batch["labels"])
+        total = ce + aux
+        return total, {"ce": ce, "aux": aux, "loss": total}
+
+    def value_and_grad(self, params, batch) -> tuple[tuple[torch.Tensor, dict], dict]:
+        """``((loss, metrics), grads)``, ``grads`` a tree like ``params`` (the
+        reference's ``jax.value_and_grad(model.loss, has_aux=True)``).  The
+        caller's tensors are left as they are: the loss is taken over
+        aliases of them that require grad."""
+        live = {k: t.detach().requires_grad_(True) for k, t in api.flatten_with_keys(params)}
+        with torch.enable_grad():
+            loss, metrics = self.loss(api.unflatten_like(params, live.__getitem__), batch)
+            grads = dict(zip(live, torch.autograd.grad(loss, list(live.values()))))
+        return ((loss.detach(), {k: v.detach() for k, v in metrics.items()}),
+                api.unflatten_like(params, grads.__getitem__))
 
     # ---------------- serving: cache init / decode ----------------
 
@@ -104,9 +179,7 @@ class Model:
         the cache written in place at position ``cache_len``."""
         cfg = self.cfg
         _require_ported(cfg)
-        x = embed(token[:, None], params["embed"], _torch_dtype(cfg.dtype))
-        if cfg.scale_emb != 1.0:
-            x = x * cfg.scale_emb
+        x = self._embed_in(params, {"tokens": token[:, None]})
         x, cache = tfm.scan_stack_decode(
             x, params["layers"], cache,
             lambda h, lp, lc: tfm.dense_block_decode(h, lp, cfg, lc, cache_len))

@@ -1,9 +1,13 @@
 """Decoder-only transformer assembly (counterpart of
-``repro.models.transformer``, the dense family's decode path).
+``repro.models.transformer``, the dense family: the training forward and
+the decode path).
 
-dense — [GQA attn + SwiGLU] × L (qwen*).  Per-layer parameters are stacked
-along a leading layer axis, as the reference's ``vmap``-ed init stacks them;
-the reference scans over that axis, the port loops over it.
+dense — [GQA attn + SwiGLU] × L (qwen*, minicpm, deepseek-67b).  Per-layer
+parameters are stacked along a leading layer axis, as the reference's
+``vmap``-ed init stacks them; the reference scans over that axis, the port
+loops over it.  The reference's ``_constrain`` (a sharding hint pinning
+the residual stream to the data-parallel axes) has no meaning on one card
+and is left out.
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ import math
 from typing import Callable
 
 import torch
+import torch.utils.checkpoint
 
 from ..configs.base import ModelConfig
 from . import attention as attn
@@ -40,6 +45,16 @@ def init_dense_layers(gen: torch.Generator, n: int, cfg: ModelConfig,
     }
 
 
+def dense_block(x, p, cfg: ModelConfig, mrope_positions=None):
+    s = _res_scale(cfg)
+    h = rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
+    a = attn.gqa_attention(h, p["attn"], cfg, mrope_positions=mrope_positions)
+    x = x + s * a
+    h = rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
+    x = x + s * swiglu(h, p["mlp"])
+    return x
+
+
 def dense_block_decode(x, p, cfg: ModelConfig, cache, cache_len):
     s = _res_scale(cfg)
     h = rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
@@ -55,6 +70,31 @@ def _layer(tree, i: int):
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _unstack(tree) -> list:
+    """The per-layer trees of a stacked tree, each leaf unbound along the
+    layer axis once: the backward stacks the layers' gradients in one pass
+    (indexing layer by layer would add a full-size zero tensor for every
+    layer)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+def scan_stack(x, stacked, block_fn: Callable, remat: bool):
+    """``block_fn`` over the stacked layers in order.  ``remat`` recomputes
+    each block's activations in the backward
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``); the
+    values are the same either way."""
+    for layer in _unstack(stacked):
+        if remat and torch.is_grad_enabled():
+            x = torch.utils.checkpoint.checkpoint(block_fn, x, layer, use_reentrant=False)
+        else:
+            x = block_fn(x, layer)
+    return x
 
 
 def scan_stack_decode(x, stacked_params, stacked_cache, block_fn: Callable):

@@ -51,6 +51,18 @@ def install_preemption_handler(save_fn: Callable[[], None]) -> None:
     signal.signal(signal.SIGTERM, handler)
 
 
+def all_finite(grads: Any) -> torch.Tensor:
+    """0-d bool on the gradients' device: every gradient finite."""
+    from ..core import api
+
+    leaves = [g for _k, g in api.flatten_with_keys(grads)]
+    device = leaves[0].device if leaves else torch.device("cpu")
+    finite = torch.ones((), dtype=torch.bool, device=device)
+    for g in leaves:
+        finite &= torch.isfinite(g.to(torch.float32)).all()
+    return finite
+
+
 def skip_nonfinite_update(new_params: Any, old_params: Any, grads: Any):
     """Keep ``old_params`` when any gradient is non-finite (SDC containment).
 
@@ -60,11 +72,7 @@ def skip_nonfinite_update(new_params: Any, old_params: Any, grads: Any):
     """
     from ..core import api
 
-    leaves = [g for _k, g in api.flatten_with_keys(grads)]
-    device = leaves[0].device if leaves else torch.device("cpu")
-    finite = torch.ones((), dtype=torch.bool, device=device)
-    for g in leaves:
-        finite &= torch.isfinite(g.to(torch.float32)).all()
+    finite = all_finite(grads)
     old = dict(api.flatten_with_keys(old_params))
     new = dict(api.flatten_with_keys(new_params))
     picked = api.unflatten_like(

@@ -148,6 +148,35 @@ def test_checkpoints_cross_restore(tmp_path, engine, pinned_plans, policy):
             np.testing.assert_array_equal(a, x, err_msg=key)
 
 
+def test_lossless_leaf_past_one_huffman_stream_goes_in_chunks(tmp_path, engine, monkeypatch):
+    """A lossless leaf larger than ``LOSSLESS_CHUNK_BYTES`` (128 MiB in use,
+    a size whose Huffman codes fill at most half of the format's 2^31 - 1
+    bits; 16 KiB here) goes through the stream in fixed chunks of that many
+    bytes, each its own ``huffman-bytes`` container; both packages restore
+    it bit for bit."""
+    from repro_torch.checkpoint import manager
+    from repro_torch.core import api
+
+    monkeypatch.setattr(manager, "LOSSLESS_CHUNK_BYTES", 16 << 10)
+    tree = _tree()
+    pm = CheckpointManager(tmp_path / "port", CheckpointPolicy(exact=True),
+                           engine=engine).save(3, tree)
+    for key in ("w", "v"):  # 120 KiB and 64 KiB
+        assert pm["leaves"][key]["stream"] and "tuned" not in pm["leaves"][key], key
+    assert "stream" not in pm["leaves"]["layers::0::bias"] and "stream" not in pm["leaves"]["step"]
+    with AggregatedReader(tmp_path / "port" / "step_00000003" / "leaves.hpdr") as r:
+        chunks = api.CompressorStream.from_bytes(r.read(pm["leaves"]["w"]["segment"])).chunks
+    assert len(chunks) == 8 and all(c.method == "huffman-bytes" for c in chunks)
+    assert all(int(np.prod(c.meta["shape"])) * 4 <= 2 * (16 << 10) for c in chunks)
+    ours, _ = CheckpointManager(tmp_path / "port", engine=engine).restore(3)
+    theirs, _ = JManager(tmp_path / "port").restore(3)
+    src = {"w": tree["w"], "v": tree["v"], "step": tree["step"],
+           "layers::0::bias": tree["layers"][0]["bias"]}
+    for key, x in src.items():
+        np.testing.assert_array_equal(_np(ours[key]), x, err_msg=key)
+        np.testing.assert_array_equal(np.asarray(theirs[key]), x, err_msg=key)
+
+
 def test_progressive_max_error_reads_the_same_prefix(tmp_path, engine):
     """``restore(max_error=<tier-2 bound>)`` of a 3-tier leaf reads the first
     two components, in either package, of either package's checkpoint."""

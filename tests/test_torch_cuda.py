@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card
+(and the training side's steps against the CPU and against themselves).
 
 Kernels: ``zfp_block`` (encode, decode), ``histogram``, ``huffman_encode``
 (``encode_lookup``), ``huffman_decode`` (``decode_chunks``), ``quantize_map``
@@ -884,3 +885,108 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+@pytest.mark.gpu
+def test_cuda_train_step_matches_cpu(cuda_device):
+    """One train step of qwen2.5-3b's smoke cut in float32 on the card
+    against the CPU on the same weights and batch: the loss within 1e-5 of
+    its value, every gradient leaf within 1e-4 of its largest magnitude
+    (cuBLAS sums in another order; no TF32; the key bias, whose exact
+    gradient is 0, against the query bias's), and after two steps every
+    parameter within 1e-6 but where Adam's normalised step takes the other
+    sign on rounding noise (the key bias; at most 0.1% of another leaf):
+    there within twice the learning rates' sum."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, schedule
+
+    model = build_model(get_config("qwen2.5-3b").smoke())
+    params = model.init(torch.Generator().manual_seed(53), "cpu")
+    on_card = _to(params, cuda_device)
+    rng = np.random.default_rng(54)
+    window = torch.from_numpy(rng.integers(0, model.cfg.vocab, (4, 33)).astype(np.int32))
+    batch = {"tokens": window[:, :-1], "labels": window[:, 1:]}
+    (loss, _), grads = model.value_and_grad(params, batch)
+    (closs, _), cgrads = model.value_and_grad(on_card, _to(batch, cuda_device))
+    assert abs(float(closs) - float(loss)) <= 1e-5 * abs(float(loss))
+    flat, cflat = dict(api.flatten_with_keys(grads)), dict(api.flatten_with_keys(cgrads))
+    for k, g in flat.items():
+        scale = flat[k.replace("wk/b", "wq/b")] if k.endswith("attn/wk/b") else g
+        assert (cflat[k].cpu() - g).abs().max() <= 1e-4 * scale.abs().max(), k
+    states = [adamw.init_state(p, adamw.AdamWConfig()) for p in (params, on_card)]
+    step = make_train_step(model, adamw.AdamWConfig(), schedule.cosine, 3e-4, 10)
+    for p, st, b in ((params, states[0], batch), (on_card, states[1], _to(batch, cuda_device))):
+        step(p, st, b)
+        step(p, st, b)
+    lr_sum = sum(float(schedule.cosine(i, peak_lr=3e-4, warmup=1, total=10)) for i in range(2))
+    flat, cflat = dict(api.flatten_with_keys(params)), dict(api.flatten_with_keys(on_card))
+    for k, v in flat.items():
+        diff = (cflat[k].cpu() - v).abs()
+        assert diff.max() <= 2 * lr_sum, k
+        if not k.endswith("attn/wk/b"):  # its exact gradient is 0: Adam steps on noise
+            assert (diff > 1e-6).float().mean() <= 1e-3, k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
+def test_cuda_adamw_in_place_matches_functional(cuda_device, moment_dtype):
+    """The in-place AdamW on the card against the functional form on the
+    card, three steps with the clip active and a NaN gradient at the
+    second: bit for bit (the same elementwise ops in the same order)."""
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import fault
+
+    rng = np.random.default_rng(55)
+
+    def tree(scale):
+        return {"a": {"w": torch.from_numpy((rng.normal(size=(300, 70)) * scale).astype(
+                    np.float32)).to(cuda_device)},
+                "b": torch.from_numpy((rng.normal(size=(1001,)) * scale).astype(
+                    np.float32)).to(cuda_device)}
+
+    cfg = adamw.AdamWConfig(moment_dtype=moment_dtype)
+    fp = tree(1.0)
+    ip = {"a": {"w": fp["a"]["w"].clone()}, "b": fp["b"].clone()}
+    fs, is_ = adamw.init_state(fp, cfg), adamw.init_state(ip, cfg)
+    for step in range(3):
+        g = tree(3.0)
+        if step == 1:
+            g["b"][17] = float("nan")
+        lr = torch.tensor(1e-2 * (step + 1), device=cuda_device)
+        new, fs, _ = adamw.apply_updates(fp, g, fs, lr, cfg)
+        fp, finite = fault.skip_nonfinite_update(new, fp, g)
+        out = adamw.apply_updates_(ip, {"a": {"w": g["a"]["w"].clone()}, "b": g["b"].clone()},
+                                   is_, lr, cfg)
+        assert bool(out["finite"]) == bool(finite) == (step != 1)
+        for a, b in ((fp["a"]["w"], ip["a"]["w"]), (fp["b"], ip["b"]),
+                     (fs["m"]["b"], is_["m"]["b"]), (fs["v"]["a"]["w"], is_["v"]["a"]["w"])):
+            words = torch.int32 if a.dtype == torch.float32 else torch.int16
+            assert a.dtype == b.dtype and torch.equal(a.view(words), b.view(words))
+    assert int(is_["step"]) == int(fs["step"]) == 3
+
+
+@pytest.mark.gpu
+def test_cuda_exact_checkpoint_resume_is_bit_for_bit(cuda_device, tmp_path, monkeypatch):
+    """``train_loop`` on the card (smoke cut) under deterministic algorithms:
+    a run restarted from its exact step-3 checkpoint gives the
+    uninterrupted run's losses and final state bit for bit."""
+    from repro_torch.launch.train import train_loop
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        kw = dict(steps=6, batch=4, seq=32, log_every=100, device=cuda_device)
+        a = train_loop("qwen2.5-3b", **kw)
+        with pytest.raises(RuntimeError, match="injected failure at step 4"):
+            train_loop("qwen2.5-3b", ckpt_dir=str(tmp_path / "ck"), ckpt_every=3,
+                       sync_ckpt=True, inject_failure_at=4, **kw)
+        c = train_loop("qwen2.5-3b", ckpt_dir=str(tmp_path / "ck"), ckpt_every=3, **kw)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert c["steps_run"] == 3 and c["losses"] == a["losses"][3:]
+    fa, fc = dict(api.flatten_with_keys(a["state"])), dict(api.flatten_with_keys(c["state"]))
+    for k, x in fa.items():
+        assert fc[k].is_cuda and fc[k].dtype == x.dtype and torch.equal(fc[k], x), k

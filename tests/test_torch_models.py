@@ -144,8 +144,8 @@ def test_unported_families_raise():
 
 
 def test_port_imports_no_jax_or_reference_in_a_subprocess():
-    """Importing every module of the port (serving and models included)
-    loads no ``jax`` and nothing of ``repro``."""
+    """Importing every module of the port (serving, models and the training
+    side included) loads no ``jax`` and nothing of ``repro``."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import repro_torch\n"
@@ -155,6 +155,8 @@ def test_port_imports_no_jax_or_reference_in_a_subprocess():
         "assert not bad, bad\n"
         "assert 'repro_torch.serving.server' in sys.modules\n"
         "assert 'repro_torch.models.model' in sys.modules\n"
+        "assert 'repro_torch.launch.train' in sys.modules\n"
+        "assert 'repro_torch.optim.adamw' in sys.modules\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                           timeout=120, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
