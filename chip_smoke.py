@@ -167,7 +167,31 @@ any fails:
      state saved with the default zfp policy and restored, every launch
      of the ZFP and entropy kernels inside both calls held to its plain
      version on the same inputs, each leaf == the one-shot or streamed
-     decode of its containers;
+     decode of its containers.  The ssm family (the previous phase's
+     model and state freed first) — ``train_loop("mamba2-370m",
+     smoke=False, steps=6, batch=8, seq=1024)`` at full width and depth
+     (48 layers, 368M float32 parameters from the seed, bfloat16 compute,
+     8 SSD chunks a sequence, no kernel launched), a depth-2 full-width
+     step on the card against the CPU (two chunks; float32 and bfloat16 at
+     the training phase's tolerances) and a bit-exact resume at depth 4
+     (runs A, A, B, C as above; the entropy kernels held to plain inside
+     each save and restore on the embedding's first 128 MiB chunk); then
+     mamba2-370m served at full width and depth by ``ServingEngine`` (8
+     requests of 32 + 16 tokens on 4 slots), the same requests on a
+     depth-2 cut in float32 on the card and on the CPU (the same tokens),
+     three decode steps against the CPU (float32 within 1e-4, bfloat16
+     within 2^-5 of 1 + max |logit|), 200 decode steps over a prompt
+     against the forward's last-position logits at full depth in float32
+     (within 1e-3 of 1 + max |logit|), and the served cache (state and
+     conv) parked in a ``KVPageStore`` at zfp rate 12, fetched and
+     restored resident and after a spill (the same container bytes,
+     within 0.05 of each leaf's largest |value|), every ZFP launch held to
+     its plain version.  The vlm family — qwen2-vl-72b at full width cut
+     to 2 of its 80 layers (4.25B float32 parameters): ``value_and_grad``
+     on an ``embeds`` batch (8, 128, 8192) whose M-RoPE positions mix text
+     tokens and an 8 x 8 image grid (loss and every gradient finite; the
+     positions move the loss), the smoke cut's step on the card against
+     the CPU in float32, and ``ServingEngine`` decode on tokens;
   4. the container bytes round trip on the card (one ZFP, one Huffman, one
      MGARD and one progressive container, and the pytree's containers):
      ``to_bytes`` -> ``from_bytes`` -> decode, bit-identical;
@@ -212,15 +236,17 @@ any fails:
 The last two lines are one JSON object per kernel (``{"kernels": [...]}``;
 the Huffman kernels' times are those of the ``huffman-bytes`` leaf; a
 kernel's launches are summed over every counted main-path call (the ZFP,
-Huffman, MGARD, progressive, pytree, stream, checkpoint, serving and
-training paths; a line before gives the last six paths' calls' own), its
-error the largest of them) and
+Huffman, MGARD, progressive, pytree, stream, checkpoint, serving,
+training, mamba2 training, mamba2 serving and qwen2-vl paths; a line
+before gives the last nine paths' calls' own), its error the largest of
+them) and
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -301,6 +327,18 @@ TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 1, 64
 # (loss, each gradient leaf) within these shares of the CPU's value / largest |gradient|
 TRAIN_CHECK_TOL = {"float32": (1e-5, 1e-3), "bfloat16": (1e-2, 5e-2)}
 RESUME_EVERY, RESUME_FAIL_AT = 3, 4  # checkpoint at step 3, failure injected at step 4
+SSM_ARCH = "mamba2-370m"            # arXiv:2405.21060 at full width and depth (48 layers)
+SSM_BATCH, SSM_SEQ = 8, 1024        # 8 SSD chunks of 128: the inter-chunk recurrence runs
+SSM_CHECK_BATCH, SSM_CHECK_SEQ = 2, 256   # the card vs CPU step: two chunks
+SSM_RESUME_LAYERS = 4               # the depth cut of the resume (the embedding streams in chunks)
+SSM_IDENTITY_PROMPT = 200           # decode vs forward over two chunks, the second padded
+SSM_IDENTITY_TOL = 1e-3             # float32: of 1 + max |logit| over 48 layers
+SSM_PARK_RATE = 12                  # the store's default zfp rate
+VLM_ARCH = "qwen2-vl-72b"           # hf:Qwen/Qwen2-VL-72B at full width
+VLM_LAYERS = 2                      # of 80: 4.25B float32 parameters, 17.0 GB
+VLM_BATCH, VLM_SEQ = 8, 128
+VLM_IMAGE_AT, VLM_GRID = 16, (8, 8)  # 64 image patches at t = 16 inside the 128 positions
+VLM_SERVE_REQUESTS, VLM_SERVE_PROMPT, VLM_SERVE_NEW, VLM_SERVE_MAX_LEN = 4, 8, 8, 64
 LOSSY_KERNELS = ("zfp_block.compress_blocks", "zfp_block.decompress_blocks", "histogram.histogram",
                  "huffman_encode.encode_lookup", "huffman_decode.decode_chunks")
 MGARD_KERNELS = {  # name: (TPU kernel it replaces, CUDA source)
@@ -2184,6 +2222,20 @@ def phase_pytree(device, api) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def reset_peak(what: str) -> int:
+    """Collect garbage (an earlier phase's tensors held in reference cycles
+    go now, not inside the next measurement), reset the card's peak
+    memory counter and log what is still allocated; returns that."""
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    log(f"{what}: {held} bytes allocated on the card before it")
+    return held
+
+
 def counted(what: str, fn, want):
     """``fn()`` with every counter zeroed just before and read just after;
     the launches must be ``want`` (or ``want(result)``)."""
@@ -2792,12 +2844,13 @@ def _layer_of(tree, i):
     return tree[i]
 
 
-def zfp_buckets(api, tree) -> int:
-    """The ZFP buckets of ``tree`` under the default policy, one kernel
-    launch each: its ZFP leaves' distinct post-policy specs."""
+def zfp_buckets(api, tree, select=None) -> int:
+    """The ZFP buckets of ``tree`` under ``select`` (default: the default
+    policy), one kernel launch each: its ZFP leaves' distinct post-policy
+    specs."""
     specs = set()
     for key, x in api.flatten_with_keys(tree):
-        choice = api.default_select(key, x)
+        choice = (select or api.default_select)(key, x)
         if choice is not None:
             xp, method, params = api.leaf_policy(x, *choice)
             specs.add(api.make_spec(xp, method, **params))
@@ -2851,6 +2904,37 @@ def check_kv_restored(name: str, restored: dict, cache: dict) -> float:
                              f"{KV_ERR_TOL}")
         worst = max(worst, err)
     return worst
+
+
+def check_decode_vs_cpu(what: str, cut, params: dict, cpu_params: dict, toks, device,
+                        steps: int = 3) -> dict:
+    """``steps`` decode steps of the model ``cut`` on the card against the
+    CPU path on the same weights and tokens, in each dtype of
+    SERVE_CHECK_TOL: the last logits within its share of 1 + max |logit|.
+    Returns dtype -> (max |difference|, bound)."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.models import build_model
+
+    diffs = {}
+    for dtype, tol in SERVE_CHECK_TOL.items():
+        m = build_model(replace(cut, dtype=dtype))
+        outs = []
+        for p, dev in ((params, device), (cpu_params, torch.device("cpu"))):
+            cache = m.init_cache(toks.shape[0], 64, torch.float32, dev)
+            for step in range(steps):
+                logits, cache = m.decode_step(p, toks.to(dev), cache, step)
+            outs.append(logits.float().cpu())
+        ref = outs[1]
+        diff = float((outs[0] - ref).abs().max())
+        bound = tol * (1.0 + float(ref.abs().max()))
+        if not diff <= bound:
+            raise PhaseError(f"{what} ({cut.name}, {dtype}, depth {cut.n_layers}): card vs CPU "
+                             f"max |logit difference| {diff:.4e} > {bound:.4e}")
+        diffs[dtype] = (diff, bound)
+    return diffs
 
 
 def phase_serving(device, api, prog: dict, st: dict, card: str) -> dict:
@@ -2939,22 +3023,8 @@ def phase_serving(device, api, prog: dict, st: dict, card: str) -> dict:
            "layers": _layer_of(params["layers"], slice(0, SERVE_CHECK_LAYERS))}
     cpu_cut = load_params(cut, torch.device("cpu"))
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, SERVE_BATCH).astype(np.int32))
-    diffs = {}
-    for dtype, tol in SERVE_CHECK_TOL.items():
-        m = build_model(replace(cfg, n_layers=SERVE_CHECK_LAYERS, dtype=dtype))
-        outs = []
-        for p, dev in ((cut, device), (cpu_cut, torch.device("cpu"))):
-            cache = m.init_cache(SERVE_BATCH, 64, torch.float32, dev)
-            for step in range(3):
-                logits, cache = m.decode_step(p, toks.to(dev), cache, step)
-            outs.append(logits.float().cpu())
-        ref = outs[1]
-        diff = float((outs[0] - ref).abs().max())
-        bound = tol * (1.0 + float(ref.abs().max()))
-        if not diff <= bound:
-            raise PhaseError(f"decode_step ({dtype}, depth {SERVE_CHECK_LAYERS}): card vs CPU "
-                             f"max |logit difference| {diff:.4e} > {bound:.4e}")
-        diffs[dtype] = (diff, bound)
+    diffs = check_decode_vs_cpu("decode_step", replace(cfg, n_layers=SERVE_CHECK_LAYERS), cut,
+                                cpu_cut, toks, device)
     del cpu_cut
     log(f"phase 3 ok: decode_step, depth-{SERVE_CHECK_LAYERS} cut of the served weights, 3 "
         "steps, card vs CPU: " + ", ".join(
@@ -3662,6 +3732,122 @@ def check_grads_close(what: str, card: dict, cpu: dict, tol: float) -> float:
     return worst
 
 
+def check_step_vs_cpu(what: str, cut, params: dict, cpu_params: dict, batches: dict,
+                      device) -> dict:
+    """``value_and_grad`` of the model ``cut`` on the card against the CPU,
+    on the same weights and batch, in each dtype of TRAIN_CHECK_TOL: the
+    loss within its share of the CPU's, each gradient leaf within its share
+    of the CPU's largest |gradient| in that leaf.  Returns dtype -> (CPU
+    loss, loss difference share, worst gradient share, CPU seconds)."""
+    from dataclasses import replace
+
+    from repro_torch.core import api
+    from repro_torch.models import build_model
+
+    cpu = next(iter(api.flatten_with_keys(cpu_params)))[1].device
+    diffs = {}
+    for dtype, (ltol, gtol) in TRAIN_CHECK_TOL.items():
+        m = build_model(replace(cut, dtype=dtype))
+        (l_card, _), g_card = m.value_and_grad(params, batches[device])
+        t0 = time.perf_counter()
+        (l_cpu, _), g_cpu = m.value_and_grad(cpu_params, batches[cpu])
+        cpu_s = time.perf_counter() - t0
+        ldiff = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
+        if not ldiff <= ltol:
+            raise PhaseError(f"{what} ({dtype}, depth {cut.n_layers}): card loss "
+                             f"{float(l_card)} vs CPU {float(l_cpu)}: {ldiff:.4e} > {ltol}")
+        worst = check_grads_close(f"{what} ({dtype})", dict(api.flatten_with_keys(g_card, "::")),
+                                  dict(api.flatten_with_keys(g_cpu, "::")), gtol)
+        diffs[dtype] = (float(l_cpu), ldiff, worst, cpu_s)
+        del g_card, g_cpu
+    return diffs
+
+
+def step_diffs_text(diffs: dict) -> str:
+    return ", ".join(
+        f"{k} loss {v[0]:.6f} within {v[1]:.4e} (<= {TRAIN_CHECK_TOL[k][0]}), gradients within "
+        f"{v[2]:.4e} of each leaf's largest |gradient| (<= {TRAIN_CHECK_TOL[k][1]}; CPU step "
+        f"{v[3]:.1f} s)" for k, v in diffs.items())
+
+
+def check_resume(T, arch: str, cut, calls: dict, errs: dict, timings: list, device,
+                 probe: str, ckpt_dir: Path, label: str, **loop_kw) -> tuple:
+    """A resume of ``train_loop(arch)`` at the config ``cut`` (``train.get_config``
+    patched, the reference example's way to resize a run) under
+    ``torch.use_deterministic_algorithms``: runs A and A again, B (an exact
+    checkpoint at step RESUME_EVERY, ``sync_ckpt``, a failure injected at
+    RESUME_FAIL_AT) and C restarting on B's directory (``save_async`` of the
+    last step and ``wait()``); C's losses and final state must be A's bit for
+    bit (or, were an op nondeterministic, within the spread of the two A
+    runs).  Every save and restore counted exactly, the entropy kernels held
+    to their plain versions inside each on ``probe``'s keys
+    (:func:`counted_checkpoints`).  Returns ``(C's result, C's flat state, a
+    summary for the log)``."""
+    import warnings
+
+    import torch
+
+    from repro_torch.checkpoint import manager as ckpt_manager
+    from repro_torch.core import api
+
+    original_config = T.get_config
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    T.get_config = lambda name: cut
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    kw = dict(steps=TRAIN_STEPS, smoke=False, log_every=TRAIN_STEPS, **loop_kw)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            runs = []
+            for i in range(2):
+                run, calls[f"train_loop {label}{i + 1} (depth {cut.n_layers}, no checkpoint)"] = \
+                    counted(f"train_loop {label}{i + 1}", lambda: T.train_loop(arch, **kw), {})
+                runs.append(run)
+            with counted_checkpoints(calls, errs, timings, device, probe):
+                try:
+                    T.train_loop(arch, ckpt_dir=str(ckpt_dir), ckpt_every=RESUME_EVERY,
+                                 sync_ckpt=True, inject_failure_at=RESUME_FAIL_AT, **kw)
+                except RuntimeError as e:
+                    if str(e) != f"injected failure at step {RESUME_FAIL_AT}":
+                        raise
+                else:
+                    raise PhaseError(f"train_loop {arch} B: the injected failure was not raised")
+                c = T.train_loop(arch, ckpt_dir=str(ckpt_dir), ckpt_every=RESUME_EVERY, **kw)
+        nondet = sorted({str(w.message)[:200] for w in caught
+                         if "deterministic" in str(w.message)})
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+        T.get_config = original_config
+    a1, a2 = runs
+    fa1, fa2 = (dict(api.flatten_with_keys(r["state"], "::")) for r in runs)
+    fc = dict(api.flatten_with_keys(c["state"], "::"))
+    spread = max(float((fa1[k].double() - fa2[k].double()).abs().max()) for k in fa1)
+    same_a = a1["losses"] == a2["losses"] and spread == 0.0
+    if c["steps_run"] != TRAIN_STEPS - RESUME_EVERY or not all(c["finite"]):
+        raise PhaseError(f"train_loop {arch} C: ran {c['steps_run']} steps, finite {c['finite']}")
+    if not nondet and same_a:
+        bad = [k for k in fa1 if not same_bits(fa1[k], fc[k])]
+        if c["losses"] != a1["losses"][RESUME_EVERY:] or bad:
+            raise PhaseError(f"resume {arch}: C's losses {c['losses']} vs A's "
+                             f"{a1['losses'][RESUME_EVERY:]}, leaves differing {bad[:5]}")
+        verdict = "bit for bit"
+    else:  # an op without a deterministic implementation: hold C within A's spread
+        cspread = max(float((fa1[k].double() - fc[k].double()).abs().max()) for k in fa1)
+        if not cspread <= spread:
+            raise PhaseError(f"resume {arch}: C differs from A by {cspread:.4e}, beyond the "
+                             f"spread of two A runs {spread:.4e} (ops: {nondet})")
+        verdict = f"within the spread of two A runs ({spread:.4e}; ops {nondet})"
+    summary = (
+        f"{arch} under torch.use_deterministic_algorithms: A1 == A2 ({same_a}); B saved step "
+        f"{RESUME_EVERY} (exact, sync) and raised the injected failure at step {RESUME_FAIL_AT}; "
+        f"C restored step {RESUME_EVERY}, ran steps {RESUME_EVERY}-{TRAIN_STEPS - 1} (losses "
+        f"{[round(x, 4) for x in c['losses']]}) and saved step {TRAIN_STEPS} with save_async + "
+        f"wait(); C's losses and final parameters, moments and step == A's {verdict}; every save "
+        f"and restore's launches exact, the entropy kernels == plain inside each on the "
+        f"{ckpt_manager.LOSSLESS_CHUNK_BYTES} byte keys of {probe}'s first chunk")
+    return c, fc, summary
+
+
 def phase_training(device, api, card: str) -> dict:
     """Phase 3 and 5, training: ``train_loop`` of qwen2.5-3b at full width and
     depth (36 layers, 3.09B float32 parameters from the seed, bfloat16
@@ -3678,7 +3864,6 @@ def phase_training(device, api, card: str) -> dict:
     restored, every kernel launch inside both calls held to its plain
     version, each leaf held to the one-shot or streamed decode."""
     import tempfile
-    import warnings
     from dataclasses import replace
 
     import numpy as np
@@ -3686,7 +3871,6 @@ def phase_training(device, api, card: str) -> dict:
 
     from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.checkpoint import CheckpointManager, CheckpointPolicy
-    from repro_torch.checkpoint import manager as ckpt_manager
     from repro_torch.data import DataConfig, SyntheticLMStream
     from repro_torch.launch import train as T
     from repro_torch.models import build_model, load_params
@@ -3706,8 +3890,7 @@ def phase_training(device, api, card: str) -> dict:
     model = build_model(cfg)
     n_params = sum(x.numel() for _k, x in api.flatten_with_keys(model.param_shapes()))
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak(f"train_loop {TRAIN_ARCH}")
     t0 = time.perf_counter()
     out, calls["train_loop (full, 6 steps)"] = counted(
         "train_loop (full, 6 steps)", lambda: T.train_loop(
@@ -3759,28 +3942,13 @@ def phase_training(device, api, card: str) -> dict:
         0, cfg.vocab, (TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ + 1)).astype(np.int32))
     batches = {dev: {"tokens": window[:, :-1].to(dev), "labels": window[:, 1:].to(dev)}
                for dev in (device, cpu)}
-    diffs = {}
-    for dtype, (ltol, gtol) in TRAIN_CHECK_TOL.items():
-        m = build_model(replace(cut, dtype=dtype))
-        (l_card, _), g_card = m.value_and_grad(params, batches[device])
-        t0 = time.perf_counter()
-        (l_cpu, _), g_cpu = m.value_and_grad(cpu_params, batches[cpu])
-        cpu_s = time.perf_counter() - t0
-        ldiff = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
-        if not ldiff <= ltol:
-            raise PhaseError(f"train step ({dtype}, depth {TRAIN_CUT_LAYERS}): card loss "
-                             f"{float(l_card)} vs CPU {float(l_cpu)}: {ldiff:.4e} > {ltol}")
-        worst = check_grads_close(f"train step ({dtype})", dict(api.flatten_with_keys(g_card, "::")),
-                                  dict(api.flatten_with_keys(g_cpu, "::")), gtol)
-        diffs[dtype] = (float(l_cpu), ldiff, worst, cpu_s)
-        del g_card, g_cpu
+    diffs = check_step_vs_cpu(f"train step {TRAIN_ARCH}", cut, params, cpu_params, batches,
+                              device)
     del params, cpu_params
     torch.cuda.empty_cache()
     log(f"phase 3 ok: a train step (loss and every gradient), depth-{TRAIN_CUT_LAYERS} cut at full "
-        f"width, batch {TRAIN_CHECK_BATCH} x {TRAIN_CHECK_SEQ}, card vs CPU (no TF32): " + ", ".join(
-            f"{k} loss {v[0]:.6f} within {v[1]:.4e} (<= {TRAIN_CHECK_TOL[k][0]}), gradients within "
-            f"{v[2]:.4e} of each leaf's largest |gradient| (<= {TRAIN_CHECK_TOL[k][1]}; CPU step "
-            f"{v[3]:.1f} s)" for k, v in diffs.items()))
+        f"width, batch {TRAIN_CHECK_BATCH} x {TRAIN_CHECK_SEQ}, card vs CPU (no TF32): "
+        + step_diffs_text(diffs))
     lap("card vs CPU step")
 
     # -- resume at depth 2, bit for bit, from exact checkpoints ------------
@@ -3788,65 +3956,9 @@ def phase_training(device, api, card: str) -> dict:
     root = Path(tmp.name)
     timings: list = []
     probe = "params::embed::table"  # streamed in 128 MiB chunks: 2^27 byte keys each
-    original_config = T.get_config
-    deterministic = torch.are_deterministic_algorithms_enabled()
-    T.get_config = lambda name: cut  # the reference example's way to resize a run
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            runs = []
-            for i in range(2):
-                run, calls[f"train_loop A{i + 1} (depth 2, no checkpoint)"] = counted(
-                    f"train_loop A{i + 1}", lambda: T.train_loop(
-                        TRAIN_ARCH, steps=TRAIN_STEPS, smoke=False, log_every=TRAIN_STEPS), {})
-                runs.append(run)
-            with counted_checkpoints(calls, errs, timings, device, probe):
-                try:
-                    T.train_loop(TRAIN_ARCH, steps=TRAIN_STEPS, smoke=False, log_every=TRAIN_STEPS,
-                                 ckpt_dir=str(root / "ck"), ckpt_every=RESUME_EVERY,
-                                 sync_ckpt=True, inject_failure_at=RESUME_FAIL_AT)
-                except RuntimeError as e:
-                    if str(e) != f"injected failure at step {RESUME_FAIL_AT}":
-                        raise
-                else:
-                    raise PhaseError("train_loop B: the injected failure was not raised")
-                c = T.train_loop(TRAIN_ARCH, steps=TRAIN_STEPS, smoke=False,
-                                 log_every=TRAIN_STEPS, ckpt_dir=str(root / "ck"),
-                                 ckpt_every=RESUME_EVERY)
-        nondet = sorted({str(w.message)[:200] for w in caught
-                         if "deterministic" in str(w.message)})
-    finally:
-        torch.use_deterministic_algorithms(deterministic)
-        T.get_config = original_config
-    a1, a2 = runs
-    fa1, fa2 = (dict(api.flatten_with_keys(r["state"], "::")) for r in runs)
-    fc = dict(api.flatten_with_keys(c["state"], "::"))
-    spread = max(float((fa1[k].double() - fa2[k].double()).abs().max()) for k in fa1)
-    same_a = a1["losses"] == a2["losses"] and spread == 0.0
-    if c["steps_run"] != TRAIN_STEPS - RESUME_EVERY or not all(c["finite"]):
-        raise PhaseError(f"train_loop C: ran {c['steps_run']} steps, finite {c['finite']}")
-    if not nondet and same_a:
-        bad = [k for k in fa1 if not same_bits(fa1[k], fc[k])]
-        if c["losses"] != a1["losses"][RESUME_EVERY:] or bad:
-            raise PhaseError(f"resume: C's losses {c['losses']} vs A's "
-                             f"{a1['losses'][RESUME_EVERY:]}, leaves differing {bad[:5]}")
-        verdict = "bit for bit"
-    else:  # an op without a deterministic implementation: hold C within A's spread
-        cspread = max(float((fa1[k].double() - fc[k].double()).abs().max()) for k in fa1)
-        if not cspread <= spread:
-            raise PhaseError(f"resume: C differs from A by {cspread:.4e}, beyond the spread of "
-                             f"two A runs {spread:.4e} (ops: {nondet})")
-        verdict = f"within the spread of two A runs ({spread:.4e}; ops {nondet})"
-    log(f"phase 3 ok: resume at depth {TRAIN_CUT_LAYERS}, full width, under "
-        f"torch.use_deterministic_algorithms: A1 == A2 ({same_a}); B saved step {RESUME_EVERY} "
-        f"(exact, sync) and raised the injected failure at step {RESUME_FAIL_AT}; C restored step "
-        f"{RESUME_EVERY}, ran steps {RESUME_EVERY}-{TRAIN_STEPS - 1} (losses "
-        f"{[round(x, 4) for x in c['losses']]}) and saved step {TRAIN_STEPS} with save_async + "
-        f"wait(); C's losses and final parameters, moments and step == A's {verdict}; every save "
-        f"and restore's launches exact, the entropy kernels == plain inside each on the "
-        f"{ckpt_manager.LOSSLESS_CHUNK_BYTES} byte keys of {probe}'s first chunk")
-    del runs, a1, a2, fa1, fa2
+    c, fc, summary = check_resume(T, TRAIN_ARCH, cut, calls, errs, timings, device, probe,
+                                  root / "ck", "A")
+    log(f"phase 3 ok: resume at depth {TRAIN_CUT_LAYERS}, full width, " + summary)
     torch.cuda.empty_cache()
     lap("resume")
 
@@ -3891,6 +4003,394 @@ def phase_training(device, api, card: str) -> dict:
     torch.cuda.empty_cache()
     lap("lossy checkpoint")
     return {"calls": calls, "errs": errs}
+
+
+def vlm_positions(b: int, s: int, image_at: int = VLM_IMAGE_AT,
+                  grid: tuple = VLM_GRID) -> "np.ndarray":
+    """(b, s, 3) int32 M-RoPE positions: text tokens t = h = w = their
+    index; an image of ``grid`` patches from ``image_at`` on at t =
+    image_at, h and w over the grid (offset by image_at); the text after it
+    resumes past the grid."""
+    import numpy as np
+
+    pos = np.repeat(np.arange(s, dtype=np.int32)[:, None], 3, axis=1)
+    gh, gw = grid
+    n = gh * gw
+    pos[image_at:image_at + n, 0] = image_at
+    pos[image_at:image_at + n, 1] = image_at + np.arange(n) // gw
+    pos[image_at:image_at + n, 2] = image_at + np.arange(n) % gw
+    pos[image_at + n:] = pos[image_at + n:] - n + max(gh, gw)
+    return np.broadcast_to(pos, (b, s, 3)).copy()
+
+
+def phase_ssm_training(device, api, card: str) -> dict:
+    """Phase 3 and 5, the ssm family trained: ``train_loop("mamba2-370m",
+    smoke=False, steps=6, batch=8, seq=1024)`` at full width and depth (48
+    layers, 368M float32 parameters from the seed, bfloat16 compute, float32
+    moments; 8 SSD chunks a sequence), with its step times, tokens/s,
+    model-FLOP share and peak memory, no kernel launched; a depth-2
+    full-width step on the card against the CPU (float32 and bfloat16, two
+    chunks); and a bit-exact resume at depth 4 from exact checkpoints, every
+    save and restore counted exactly with the entropy kernels held to their
+    plain versions inside the call on the embedding's first 128 MiB chunk."""
+    import tempfile
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import train as T
+    from repro_torch.models import build_model, load_params
+    from repro_torch.runtime import roofline
+
+    calls, errs = {}, {}
+    cfg = get_config(SSM_ARCH)
+    model = build_model(cfg)
+    n_params = sum(x.numel() for _k, x in api.flatten_with_keys(model.param_shapes()))
+    reset_peak(f"train_loop {SSM_ARCH}")
+    t0 = time.perf_counter()
+    what = f"train_loop {SSM_ARCH} (full, {TRAIN_STEPS} steps)"
+    out, calls[what] = counted(what, lambda: T.train_loop(
+        SSM_ARCH, steps=TRAIN_STEPS, batch=SSM_BATCH, seq=SSM_SEQ, smoke=False, log_every=1), {})
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses, finite = out["losses"], out["finite"]
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses) or not all(finite):
+        raise PhaseError(f"train_loop {SSM_ARCH} (full): losses {losses}, finite {finite}")
+    step_s = statistics.median(out["step_s"][-TRAIN_TIMED:])
+    tokens = SSM_BATCH * SSM_SEQ
+    counts = roofline.count_params(model.param_shapes())
+    flops = roofline.model_flops(cfg, ShapeConfig("train", SSM_SEQ, SSM_BATCH, "train"),
+                                 counts)["model_flops"]
+    log(f"phase 3 ok: train_loop({SSM_ARCH!r}, smoke=False, steps={TRAIN_STEPS}, "
+        f"batch={SSM_BATCH}, seq={SSM_SEQ}): {cfg.n_layers} layers, {n_params} float32 "
+        f"parameters, {cfg.dtype} compute, float32 moments, {SSM_SEQ // cfg.ssm.chunk} SSD chunks "
+        f"a sequence; losses {[round(x, 4) for x in losses]} all finite, every step's update "
+        "applied; no kernel launched")
+    log(f"phase 5 [{card}] training {SSM_ARCH} full width and depth, {tokens} tokens a step: "
+        f"step times {[round(x * 1e3, 2) for x in out['step_s']]} ms (host wall, each ending in "
+        f"the loss's read); median of the last {TRAIN_TIMED} {step_s * 1e3:.4f} ms = "
+        f"{tokens / step_s:.3f} tokens/s; model FLOPs (6·N·D, N = {counts['other']} without the "
+        f"embedding; no attention) {flops:.6e} a step = {flops / step_s / 1e12:.4f} TFLOP/s, "
+        f"{flops / step_s / roofline.PEAK_FLOPS:.4f} of {roofline.PEAK_FLOPS / 1e12:.0f} TFLOP/s; "
+        f"peak torch.cuda.max_memory_allocated {peak} bytes; the run {wall_s:.2f} s with init")
+    del out
+    torch.cuda.empty_cache()
+
+    # -- a depth-2 full-width step on the card against the CPU (two chunks) --
+    cut = replace(cfg, n_layers=TRAIN_CUT_LAYERS)
+    params = build_model(cut).init(torch.Generator(device=device).manual_seed(SEED + 80), device)
+    cpu = torch.device("cpu")
+    cpu_params = load_params(params, cpu)
+    window = torch.from_numpy(np.random.default_rng(SEED + 81).integers(
+        0, cfg.vocab, (SSM_CHECK_BATCH, SSM_CHECK_SEQ + 1)).astype(np.int32))
+    batches = {dev: {"tokens": window[:, :-1].to(dev), "labels": window[:, 1:].to(dev)}
+               for dev in (device, cpu)}
+    diffs = check_step_vs_cpu(f"train step {SSM_ARCH}", cut, params, cpu_params, batches, device)
+    del params, cpu_params
+    torch.cuda.empty_cache()
+    log(f"phase 3 ok: a {SSM_ARCH} train step (loss and every gradient), depth-{TRAIN_CUT_LAYERS} "
+        f"cut at full width, batch {SSM_CHECK_BATCH} x {SSM_CHECK_SEQ} ({SSM_CHECK_SEQ // cfg.ssm.chunk}"
+        f" chunks), card vs CPU (no TF32): " + step_diffs_text(diffs))
+
+    # -- resume at depth 4, bit for bit, from exact checkpoints --------------
+    tmp = tempfile.TemporaryDirectory(prefix="hpdr-ssm-train-")
+    timings: list = []
+    c, _fc, summary = check_resume(
+        T, SSM_ARCH, replace(cfg, n_layers=SSM_RESUME_LAYERS), calls, errs, timings, device,
+        "params::embed::table", Path(tmp.name) / "ck", "M", batch=SSM_BATCH, seq=SSM_SEQ)
+    log(f"phase 3 ok: resume at depth {SSM_RESUME_LAYERS}, full width, batch {SSM_BATCH} x "
+        f"{SSM_SEQ}, " + summary)
+    log(f"phase 5 [{card}] exact checkpoints of the depth-{SSM_RESUME_LAYERS} {SSM_ARCH} training "
+        "state (host wall, synchronised, one run each; the entropy probes after each call not "
+        "included): " + ", ".join(
+            f"{name} {s:.3f} s ({raw} bytes -> {comp}, {raw / s / 1e9:.3f} GB/s of the state)"
+            for name, s, raw, comp in timings))
+    del c
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    return {"calls": calls, "errs": errs}
+
+
+def phase_ssm_serving(device, api, card: str) -> dict:
+    """Phase 3 and 5, the ssm family served: mamba2-370m at full width and
+    depth through ``ServingEngine`` (4 slots, float32 cache, bfloat16
+    compute): 8 requests of 32 prompt and 16 new tokens (two waves: the
+    refill path; prefill steps advance every slot's state, as in the
+    reference); the same requests on a depth-2 cut in float32 on the card
+    and on the CPU path (the same tokens) and three decode steps against
+    the CPU (float32 and bfloat16); decode against the forward at full
+    depth in float32 (the last position's logits of a 200-token prompt,
+    two SSD chunks); the served cache (state and conv) parked in a
+    ``KVPageStore``, fetched and restored once resident and once spilled,
+    every ZFP launch held to its plain version, the restored state within
+    the rate-12 bound; and the decode step, tokens/s and park / fetch /
+    restore times."""
+    import tempfile
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, load_params
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.serving import KVPageStore, Request, ServingEngine
+    from repro_torch.serving import engine as serving_engine
+
+    calls, errs = {}, {}
+    cfg = get_config(SSM_ARCH)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(SEED + 82), device)
+    rng = np.random.default_rng(SEED + 83)
+    prompts = [rng.integers(0, cfg.vocab, SERVE_PROMPT).astype(np.int32)
+               for _ in range(SERVE_REQUESTS)]
+
+    def serve(m, p, what):
+        # the state is O(1): max_len bounds only the slots' lengths, which
+        # the engine does not reset at a refill (as the reference)
+        eng_s = ServingEngine(m, p, SERVE_BATCH, SERVE_MAX_LEN, torch.float32)
+        reqs = [Request(uid=i, prompt=q, max_new_tokens=SERVE_NEW) for i, q in enumerate(prompts)]
+        stats, calls[what] = counted(what, lambda: eng_s.serve(reqs), {})
+        toks = [r.out_tokens for r in reqs]
+        if not all(r.done and len(r.out_tokens) == SERVE_NEW for r in reqs) or any(
+                not 0 <= t < cfg.vocab for r in toks for t in r):
+            raise PhaseError(f"{what}: tokens {toks}")
+        return eng_s, stats, toks
+
+    engine, stats, tokens = serve(model, params, f"ServingEngine.serve {SSM_ARCH} (full)")
+    step_toks = np.zeros(SERVE_BATCH, np.int32)
+    decode_ms = median_wall_ms(lambda: engine._step(step_toks, int(engine.lens.max())))
+    log(f"phase 3 ok: serve {SSM_ARCH} ({cfg.n_layers} layers, d_model {cfg.d_model}, state "
+        f"{tuple(engine.cache['state'].shape)} float32, conv {tuple(engine.cache['conv'].shape)}): "
+        f"{SERVE_REQUESTS} requests x ({SERVE_PROMPT} prompt + {SERVE_NEW} new tokens) on "
+        f"{SERVE_BATCH} slots, {stats['decode_steps']} decode steps after prefill, "
+        f"{stats['new_tokens']} tokens in the vocabulary (first request {tokens[0]}); no kernel "
+        "launched")
+
+    # the same requests on a depth-2 cut, card and CPU, float32
+    cut = {"embed": params["embed"], "ln_f": params["ln_f"],
+           "layers": _layer_of(params["layers"], slice(0, SERVE_CHECK_LAYERS))}
+    cpu_cut = load_params(cut, torch.device("cpu"))
+    cut_cfg = replace(cfg, n_layers=SERVE_CHECK_LAYERS)
+    m32 = build_model(replace(cut_cfg, dtype="float32"))
+    _, _, on_card = serve(m32, cut, f"ServingEngine.serve {SSM_ARCH} (depth 2, float32)")
+    t0 = time.perf_counter()
+    _, _, on_cpu = serve(m32, cpu_cut, f"ServingEngine.serve {SSM_ARCH} (depth 2, float32, CPU)")
+    cpu_s = time.perf_counter() - t0
+    if on_card != on_cpu:
+        raise PhaseError(f"serve {SSM_ARCH} depth {SERVE_CHECK_LAYERS}: card tokens {on_card} vs "
+                         f"CPU {on_cpu}")
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, SERVE_BATCH).astype(np.int32))
+    diffs = check_decode_vs_cpu("decode_step", cut_cfg, cut, cpu_cut, toks, device)
+    del cpu_cut
+    log(f"phase 3 ok: the same {SERVE_REQUESTS} requests on a depth-{SERVE_CHECK_LAYERS} cut in "
+        f"float32, card and CPU ({cpu_s:.1f} s): the same tokens; 3 decode steps, card vs CPU: "
+        + ", ".join(f"{k} max |logit difference| {d:.4e} <= {b:.4e} ({SERVE_CHECK_TOL[k]} x (1 + "
+                    f"max |logit|))" for k, (d, b) in diffs.items()))
+
+    # decode against the forward, full depth, float32 compute
+    full32 = build_model(replace(cfg, dtype="float32"))
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (SERVE_BATCH, SSM_IDENTITY_PROMPT))
+                              .astype(np.int32)).to(device)
+
+    def decode_over_prompt():
+        cache = full32.init_cache(SERVE_BATCH, SERVE_MAX_LEN, torch.float32, device)
+        for i in range(SSM_IDENTITY_PROMPT):
+            logits, cache = full32.decode_step(params, prompt[:, i], cache, i)
+        return logits
+
+    def forward_last():
+        with torch.no_grad():
+            h, _ = full32._backbone(params, full32._embed_in(params, {"tokens": prompt}), {})
+            h = rms_norm(h, params["ln_f"]["scale"], cfg.norm_eps)
+            return full32._head(params, h[:, -1:])[:, 0]
+
+    by_decode, calls["decode steps over a prompt"] = counted(
+        "decode steps over a prompt", decode_over_prompt, {})
+    by_forward, calls["forward over the prompt"] = counted(
+        "forward over the prompt", forward_last, {})
+    diff = float((by_decode - by_forward).abs().max())
+    bound = SSM_IDENTITY_TOL * (1.0 + float(by_forward.abs().max()))
+    if not diff <= bound:
+        raise PhaseError(f"{SSM_ARCH}: decode over a {SSM_IDENTITY_PROMPT}-token prompt vs the "
+                         f"forward's last logits: max |difference| {diff:.4e} > {bound:.4e}")
+    log(f"phase 3 ok: {SSM_ARCH} at full depth, float32: {SSM_IDENTITY_PROMPT} decode steps over a "
+        f"prompt (batch {SERVE_BATCH}) give the forward's last-position logits ("
+        f"{-(-SSM_IDENTITY_PROMPT // cfg.ssm.chunk)} SSD chunks) within {diff:.4e} <= {bound:.4e} "
+        f"({SSM_IDENTITY_TOL} x (1 + max |logit|))")
+    del by_decode, by_forward
+
+    # -- the served cache parked, fetched and restored, resident and spilled --
+    tmp = tempfile.TemporaryDirectory(prefix="hpdr-ssm-kv-")
+    store = KVPageStore(spill_dir=Path(tmp.name) / "kv", rate=SSM_PARK_RATE)
+    cache = engine.cache
+    nb = zfp_buckets(api, cache, serving_engine._kv_select(SSM_PARK_RATE))
+    zfp = ("zfp_block.compress_blocks", "zfp_block.decompress_blocks")
+    key = store._key("mamba2")
+    times, worst, blobs = {}, 0.0, {}
+
+    def timed(what, fn, want):
+        t0 = time.perf_counter()
+        out, calls[what] = counted(what, fn, want)
+        times[what] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    with held_to_plain(zfp) as held:
+        pstats = timed("KVPageStore.park (served cache)", lambda: store.park("mamba2", cache),
+                       {"zfp_block.compress_blocks": nb})
+        for where in ("resident", "spilled"):
+            if where == "spilled":
+                store.cache.evict(key)
+            flat = timed(f"KVPageStore.fetch ({where})", lambda: store.fetch("mamba2"), {})
+            blobs[where] = {k: c.to_bytes() for k, c in flat.items()}
+            restored = timed(f"KVPageStore.restore ({where})",
+                             lambda: store.restore("mamba2", cache),
+                             {"zfp_block.decompress_blocks": nb})
+            worst = max(worst, check_kv_restored(f"restore ({where})", restored, cache))
+            del restored
+    for k, want in (("zfp_block.compress_blocks", nb), ("zfp_block.decompress_blocks", 2 * nb)):
+        n, e = held[k]
+        if n != want or e:
+            raise PhaseError(f"{SSM_ARCH} KV parking: {k} held to its plain version in {n} calls, "
+                             f"max |kernel - plain| {e}")
+        errs[k] = max(errs.get(k, 0.0), e)
+    st = store.stats()
+    if blobs["resident"] != blobs["spilled"] or st["spills"] < 1 or st["loads"] < 1:
+        raise PhaseError(f"{SSM_ARCH} KV parking: spilled containers differ from the resident "
+                         f"ones, or no spill / load ({st})")
+    raw = sum(x.numel() * x.element_size() for x in cache.values())
+    log(f"phase 3 ok: {SSM_ARCH}'s served cache (state and conv, {raw} bytes) parked at zfp rate "
+        f"{SSM_PARK_RATE} in {nb} bucket launches (ratio {pstats['ratio']:.6f}), fetched and "
+        f"restored resident and after a spill (the same container bytes; {st['spills']} spill, "
+        f"{st['loads']} load): restored within {worst:.3e} of each leaf's largest |value| (<= "
+        f"{KV_ERR_TOL}); every compress_blocks / decompress_blocks launch == its plain version "
+        "(tolerance 0)")
+    log(f"phase 5 [{card}] serving {SSM_ARCH} full width and depth: decode step (batch "
+        f"{SERVE_BATCH}, {cfg.dtype} compute) median of {TIMED_RUNS} {decode_ms:.4f} ms (host wall, "
+        f"synchronised) = {SERVE_BATCH / decode_ms * 1e3:.3f} tokens/s; serve "
+        f"{stats['new_tokens']} new tokens in {stats['wall_s']:.3f} s = "
+        f"{stats['tokens_per_s']:.3f} tokens/s with prefill; " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in times.items())
+        + " (host wall, one run each, the held plain versions included)")
+    store.release("mamba2")
+    tmp.cleanup()
+    del engine, cache, params
+    torch.cuda.empty_cache()
+    return {"calls": calls, "errs": errs}
+
+
+def phase_vlm(device, api, card: str) -> dict:
+    """Phase 3 and 5, the vlm family: qwen2-vl-72b at full width (d_model
+    8192, 64 heads, 8 KV heads, d_ff 29568, vocab 152064, QKV bias) cut to
+    2 of its 80 layers (4.25B float32 parameters from the seed, the untied
+    head included): ``value_and_grad`` on an ``embeds`` batch (8, 128, 8192)
+    whose M-RoPE positions mix text tokens and an 8 x 8 image grid, loss
+    and every gradient finite, no optimizer (its moments would not fit
+    beside the parameters and gradients); the same computation on the smoke
+    cut held to the CPU path; ``ServingEngine`` decode on tokens at depth 2;
+    times and peak memory."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, load_params
+    from repro_torch.serving import Request, ServingEngine
+
+    calls = {}
+    cfg = replace(get_config(VLM_ARCH), n_layers=VLM_LAYERS)
+    model = build_model(cfg)
+    reset_peak(f"{VLM_ARCH} at depth {VLM_LAYERS}")
+    params = model.init(torch.Generator(device=device).manual_seed(SEED + 90), device)
+    n_params = sum(x.numel() for _k, x in api.flatten_with_keys(params))
+    g = torch.Generator(device=device).manual_seed(SEED + 91)
+    batch = {"embeds": torch.randn((VLM_BATCH, VLM_SEQ, cfg.d_model), generator=g, device=device),
+             "positions_3d": torch.from_numpy(vlm_positions(VLM_BATCH, VLM_SEQ)).to(device),
+             "labels": torch.randint(0, cfg.vocab, (VLM_BATCH, VLM_SEQ), generator=g,
+                                     device=device, dtype=torch.int32)}
+    (loss, _), grads = model.value_and_grad(params, batch)   # warm-up
+    del grads
+    t0 = time.perf_counter()
+    ((loss, _), grads), calls["value_and_grad (depth 2)"] = counted(
+        "value_and_grad (depth 2)", lambda: model.value_and_grad(params, batch), {})
+    grad_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    bad = [k for k, x in api.flatten_with_keys(grads) if not bool(torch.isfinite(x).all())]
+    if not math.isfinite(float(loss)) or bad:
+        raise PhaseError(f"{VLM_ARCH} value_and_grad: loss {float(loss)}, non-finite gradients "
+                         f"{bad[:5]}")
+    text = {**batch, "positions_3d": torch.from_numpy(vlm_positions(
+        VLM_BATCH, VLM_SEQ, image_at=VLM_SEQ, grid=(0, 0))).to(device)}
+    with torch.no_grad():
+        as_text = float(model.loss(params, text)[0])
+    if as_text == float(loss):
+        raise PhaseError(f"{VLM_ARCH}: the image grid's positions left the loss unchanged")
+    del grads
+    log(f"phase 3 ok: {VLM_ARCH} at full width (d_model {cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.resolved_head_dim}, {cfg.n_kv_heads} KV heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+        f"QKV bias, M-RoPE sections {cfg.mrope_sections}), {VLM_LAYERS} of 80 layers, {n_params} "
+        f"float32 parameters from the seed: value_and_grad on embeds ({VLM_BATCH}, {VLM_SEQ}, "
+        f"{cfg.d_model}) with an {VLM_GRID[0]} x {VLM_GRID[1]} image grid at t = {VLM_IMAGE_AT} "
+        f"among text positions: loss {float(loss):.6f} (as text positions {as_text:.6f}) and every "
+        "gradient finite; no kernel launched")
+
+    # the same computation on the smoke cut, card against CPU, float32
+    small = get_config(VLM_ARCH).smoke()
+    sp = build_model(small).init(torch.Generator(device=device).manual_seed(SEED + 92), device)
+    cpu = torch.device("cpu")
+    sp_cpu = load_params(sp, cpu)
+    rng = np.random.default_rng(SEED + 93)
+    sb = {"embeds": torch.from_numpy(rng.normal(size=(2, 96, small.d_model)).astype(np.float32)),
+          "positions_3d": torch.from_numpy(vlm_positions(2, 96, 8, (4, 6))),
+          "labels": torch.from_numpy(rng.integers(0, small.vocab, (2, 96)).astype(np.int32))}
+    ltol, gtol = TRAIN_CHECK_TOL["float32"]
+    sm = build_model(small)
+    (l_card, _), g_card = sm.value_and_grad(sp, {k: v.to(device) for k, v in sb.items()})
+    (l_cpu, _), g_cpu = sm.value_and_grad(sp_cpu, sb)
+    ldiff = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
+    if not ldiff <= ltol:
+        raise PhaseError(f"{VLM_ARCH} smoke cut: card loss {float(l_card)} vs CPU "
+                         f"{float(l_cpu)}: {ldiff:.4e} > {ltol}")
+    gflat = dict(api.flatten_with_keys(g_card, "::"))
+    if gflat["embed::table"].any():
+        raise PhaseError(f"{VLM_ARCH} smoke cut: the embedding, unread under embeds, has a "
+                         "non-zero gradient")
+    worst = check_grads_close(f"{VLM_ARCH} smoke cut", gflat,
+                              dict(api.flatten_with_keys(g_cpu, "::")), gtol)
+    log(f"phase 3 ok: {VLM_ARCH}'s smoke cut on embeds (2, 96, {small.d_model}) with a 4 x 6 image "
+        f"grid, card vs CPU in float32: loss within {ldiff:.4e} (<= {ltol}), gradients within "
+        f"{worst:.4e} of each leaf's largest |gradient| (<= {gtol}; the unread embedding's zero)")
+
+    # decode on tokens at depth 2 through ServingEngine
+    prompts = [rng.integers(0, cfg.vocab, VLM_SERVE_PROMPT).astype(np.int32)
+               for _ in range(VLM_SERVE_REQUESTS)]
+    eng_v = ServingEngine(model, params, SERVE_BATCH, VLM_SERVE_MAX_LEN, torch.float32)
+    reqs = [Request(uid=i, prompt=q, max_new_tokens=VLM_SERVE_NEW) for i, q in enumerate(prompts)]
+    stats, calls["ServingEngine.serve (depth 2)"] = counted(
+        "ServingEngine.serve (depth 2)", lambda: eng_v.serve(reqs), {})
+    toks = [r.out_tokens for r in reqs]
+    if not all(r.done and len(t) == VLM_SERVE_NEW for r, t in zip(reqs, toks)) or any(
+            not 0 <= t < cfg.vocab for r in toks for t in r):
+        raise PhaseError(f"{VLM_ARCH} serve: tokens {toks}")
+    step_toks = np.zeros(SERVE_BATCH, np.int32)
+    decode_ms = median_wall_ms(lambda: eng_v._step(step_toks, int(eng_v.lens.max())))
+    peak_all = torch.cuda.max_memory_allocated()
+    log(f"phase 3 ok: {VLM_ARCH} depth {VLM_LAYERS} served on tokens (plain RoPE at cache_len, as "
+        f"the reference): {VLM_SERVE_REQUESTS} requests x ({VLM_SERVE_PROMPT} + {VLM_SERVE_NEW}) "
+        f"on {SERVE_BATCH} slots, tokens in the vocabulary (first request {toks[0]}); no kernel "
+        "launched")
+    log(f"phase 5 [{card}] {VLM_ARCH} full width, depth {VLM_LAYERS}: value_and_grad on "
+        f"{VLM_BATCH * VLM_SEQ} embedded positions {grad_s * 1e3:.3f} ms (host wall, synchronised, "
+        f"after a warm-up); peak torch.cuda.max_memory_allocated {peak} bytes through the "
+        f"gradients, {peak_all} with serving; decode step (batch {SERVE_BATCH}, {cfg.dtype} "
+        f"compute over {cfg.param_dtype} weights) median of {TIMED_RUNS} {decode_ms:.4f} ms (host wall, "
+        f"synchronised); serve {stats['new_tokens']} tokens in {stats['wall_s']:.3f} s")
+    del eng_v, params, batch, sp, sp_cpu
+    torch.cuda.empty_cache()
+    return {"calls": calls, "errs": {}}
 
 
 def main() -> int:
@@ -4002,6 +4502,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = phase_training(device, api, card)
     lap("phase 3 and 5, training")
+    GLOBAL_CMM.clear()  # the lossy checkpoint's plans: mamba2's step peaks at ~74 GB
+    torch.cuda.empty_cache()
+    ssm_train = phase_ssm_training(device, api, card)
+    lap("phase 3 and 5, mamba2 training")
+    ssm_serve = phase_ssm_serving(device, api, card)
+    lap("phase 3 and 5, mamba2 serving")
+    vlm = phase_vlm(device, api, card)
+    lap("phase 3 and 5, qwen2-vl")
     calibrate.set_calibration_dir(None)
     cal_dir.cleanup()
     for k in huff_kernels:  # the entropy tail runs on the Huffman and the MGARD paths
@@ -4011,7 +4519,8 @@ def main() -> int:
     # the progressive, pytree, stream, checkpoint, serving and training paths'
     # launches and checks join every kernel's
     new_paths = {"progressive": prog, "pytree": pyt, "stream": st, "checkpoint": ckpt,
-                 "serving": srv, "training": train}
+                 "serving": srv, "training": train, "mamba2 training": ssm_train,
+                 "mamba2 serving": ssm_serve, "qwen2-vl": vlm}
     for k in kernels + huff_kernels + mgard_kernels:
         for run in new_paths.values():
             k["launches"] += sum(counts[k["name"]] for counts in run["calls"].values())

@@ -1,13 +1,15 @@
 """GQA attention (counterpart of ``repro.models.attention``, the part the
-dense family runs: ``causal_mask``, ``init_gqa``, ``gqa_qkv``, ``_sdpa``,
+dense and vlm families run: ``causal_mask``, ``init_gqa``, ``gqa_qkv``, ``_sdpa``,
 ``gqa_attention`` for the training forward and ``gqa_decode``).
 
 Shapes: hidden (B, S, D); q/k/v (B, S, H, hd); the KV cache of one layer
 ``{"k": (B, S_max, KH, hd), "v": ...}``.  Scores and the softmax run in
 float32, as the reference computes them, with an additive -1e9 mask (no
 ``scaled_dot_product_attention``: its masking and accumulation differ, and
-the reference fuses nothing here).  The local window and M-RoPE positions
-belong to the hybrid and VLM families, which are not ported.
+the reference fuses nothing here).  ``gqa_attention`` takes the VLM
+family's M-RoPE positions ``(B, S, 3)``; decode keeps plain RoPE at
+``cache_len``, as the reference's does.  The local window belongs to the
+hybrid family, which is not ported.
 
 ``gqa_decode`` writes the step's k/v into the cache *in place* (the
 reference returns an updated copy): the decode loop owns the cache and
@@ -25,7 +27,7 @@ import math
 import torch
 
 from ..configs.base import ModelConfig
-from .layers import apply_rope, init_linear, linear
+from .layers import apply_mrope, apply_rope, init_linear, linear
 
 NEG_INF = -1e9
 
@@ -90,17 +92,20 @@ def gqa_attention(
     window: int = 0,
     mrope_positions: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Causal GQA over the whole sequence (the training forward)."""
+    """Causal GQA over the whole sequence (the training forward); with
+    ``cfg.mrope`` and ``mrope_positions`` (B, S, 3), M-RoPE in place of
+    RoPE."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    if cfg.mrope and mrope_positions is not None:
-        raise NotImplementedError("M-RoPE belongs to the VLM family, which is not ported yet "
-                                  "(see ROADMAP.md)")
     q, k, v = gqa_qkv(x, p, cfg)
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.mrope and mrope_positions is not None:
+        q = apply_mrope(q, mrope_positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, mrope_positions, cfg.rope_theta, cfg.mrope_sections)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     mask = (local_causal_mask(s, s, window, device=x.device) if window > 0
             else causal_mask(s, s, device=x.device))
     out = _sdpa(q, k, v, mask, 1.0 / math.sqrt(hd))

@@ -1,5 +1,6 @@
-"""Shared layers: norms, embeddings, MLPs, rotary embeddings
-(counterpart of ``repro.models.layers``, the dense decoder's part).
+"""Shared layers: norms, embeddings, MLPs, rotary embeddings and the
+multimodal rotary embedding (M-RoPE) of the VLM family (counterpart of
+``repro.models.layers``).
 
 Parameters are plain nested dicts of tensors.  The init functions take an
 explicit ``torch.Generator`` (its device is where the weights are made) and
@@ -125,13 +126,35 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** exponents)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: (..., seq, heads, head_dim); positions: (..., seq)."""
-    head_dim = x.shape[-1]
-    inv = rope_freqs(head_dim, theta, x.device)
-    angles = positions[..., None].float() * inv  # (..., seq, hd/2)
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """The rotary rotation of ``x`` (..., seq, heads, head_dim) by float32
+    ``angles`` (..., seq, head_dim/2), computed in float32."""
     cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq)."""
+    inv = rope_freqs(x.shape[-1], theta, x.device)
+    return _rotate(x, positions[..., None].float() * inv)  # angles (..., seq, hd/2)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: tuple[int, ...]) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): x (..., seq, heads, head_dim), positions
+    (..., seq, 3) the (t, h, w) triplets; ``sections`` split head_dim/2's
+    frequencies across t, h and w.  Each frequency takes its section's
+    coordinate (a gather over float32 positions), then the rotation of
+    :func:`apply_rope`: text tokens (t = h = w) get RoPE's values."""
+    head_dim = x.shape[-1]
+    half = head_dim // 2
+    assert sum(sections) == half, (sections, half)
+    inv = rope_freqs(head_dim, theta, x.device)
+    sect_id = torch.repeat_interleave(torch.arange(len(sections), device=x.device),
+                                      torch.tensor(sections, device=x.device))  # (half,)
+    pos = positions.float()
+    pos_per_freq = torch.take_along_dim(pos, sect_id.expand(pos.shape[:-1] + (half,)), dim=-1)
+    return _rotate(x, pos_per_freq * inv)

@@ -1,10 +1,13 @@
-"""Model facade: init / train forward / cache / decode for the dense family
-(counterpart of ``repro.models.model``).
+"""Model facade: init / train forward / cache / decode for the dense, vlm
+and ssm families (counterpart of ``repro.models.model``).
 
 ``build_model(cfg)`` returns a :class:`Model`.  The port runs the dense
 decoder (qwen2.5-3b, qwen1.5-4b, minicpm-2b with its μP scaling,
-deepseek-67b, and their smoke cuts); the other families raise
-``NotImplementedError`` until they are ported (``ROADMAP.md``).
+deepseek-67b), the vlm family (qwen2-vl-72b: dense layers, M-RoPE from
+``batch["positions_3d"]`` over ``batch["embeds"]``, the vision frontend a
+stub as in the reference), the ssm family (mamba2-370m), and their smoke
+cuts; the other families raise ``NotImplementedError`` until they are
+ported (``ROADMAP.md``).
 
 Entry points run on the card unless the caller names another device
 (``device="cpu"``, as the tests do).
@@ -12,12 +15,14 @@ Entry points run on the card unless the caller names another device
 Conventions, as the reference's: parameters in ``cfg.param_dtype``, compute
 in ``cfg.dtype`` (qwen2.5-3b: bfloat16 over float32 parameters); decode
 takes ``token`` (B,) int and a cache of stacked per-layer ``k``/``v`` of
-shape ``(n_layers, B, S_max, KH, hd)`` and returns ``(logits, cache)``.
-The port's ``decode_step`` writes the cache in place and returns the same
-dict (the reference returns an updated copy).  Training takes
-``{"tokens": (B, S) int, "labels": (B, S) int}``: ``loss`` returns
-``(loss, {"ce", "aux", "loss"})`` and is differentiable in the parameters;
-:meth:`Model.value_and_grad` is the reference's
+shape ``(n_layers, B, S_max, KH, hd)`` (ssm: ``state`` (n_layers, B, H, P,
+N) float32 and ``conv`` (n_layers, B, d_conv - 1, conv_dim)) and returns
+``(logits, cache)``.  The port's ``decode_step`` writes the cache in place
+and returns the same dict (the reference returns an updated copy).
+Training takes ``{"tokens": (B, S) int, "labels": (B, S) int}`` (vlm:
+``{"embeds": (B, S, D), "positions_3d": (B, S, 3) int, "labels"}``):
+``loss`` returns ``(loss, {"ce", "aux", "loss"})`` and is differentiable in
+the parameters; :meth:`Model.value_and_grad` is the reference's
 ``jax.value_and_grad(model.loss, has_aux=True)``.
 
 :func:`load_params` carries the reference's parameters across: a pytree of
@@ -37,6 +42,7 @@ from ..configs.base import ModelConfig
 from ..core import api
 from ..core import pipeline as pl
 from . import attention as attn
+from . import ssm as ssm_mod
 from . import transformer as tfm
 from .layers import (
     META,
@@ -48,7 +54,7 @@ from .layers import (
     rms_norm,
 )
 
-_PORTED = ("dense",)
+_PORTED = ("dense", "vlm", "ssm")
 
 
 def _torch_dtype(name: str) -> torch.dtype:
@@ -92,7 +98,8 @@ class Model:
         }
         if not cfg.tie_embeddings:
             params["head"] = init_linear(generator, cfg.d_model, cfg.vocab, False, dtype=dt)
-        params["layers"] = tfm.init_dense_layers(generator, cfg.n_layers, cfg, dt)
+        init_layers = tfm.init_ssm_layers if cfg.family == "ssm" else tfm.init_dense_layers
+        params["layers"] = init_layers(generator, cfg.n_layers, cfg, dt)
         return params if generator.device == device else load_params(params, device)
 
     def param_shapes(self) -> dict:
@@ -121,15 +128,17 @@ class Model:
     # ---------------- backbone ----------------
 
     def _backbone(self, params, x: torch.Tensor, batch) -> tuple[torch.Tensor, torch.Tensor]:
-        """Returns (hidden, aux_loss); the dense family has no auxiliary loss."""
+        """Returns (hidden, aux_loss); the ported families have no auxiliary
+        loss."""
         cfg = self.cfg
         _require_ported(cfg)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        mrope_pos = batch.get("positions_3d") if cfg.mrope else None
-        x = tfm.scan_stack(
-            x, params["layers"],
-            lambda h, lp: tfm.dense_block(h, lp, cfg, mrope_positions=mrope_pos), cfg.remat)
-        return x, aux
+        if cfg.family == "ssm":
+            block = lambda h, lp: tfm.ssm_block(h, lp, cfg)  # noqa: E731
+        else:
+            mrope_pos = batch.get("positions_3d") if cfg.mrope else None
+            block = lambda h, lp: tfm.dense_block(h, lp, cfg, mrope_positions=mrope_pos)  # noqa: E731
+        return tfm.scan_stack(x, params["layers"], block, cfg.remat), aux
 
     # ---------------- train ----------------
 
@@ -148,13 +157,17 @@ class Model:
 
     def value_and_grad(self, params, batch) -> tuple[tuple[torch.Tensor, dict], dict]:
         """``((loss, metrics), grads)``, ``grads`` a tree like ``params`` (the
-        reference's ``jax.value_and_grad(model.loss, has_aux=True)``).  The
-        caller's tensors are left as they are: the loss is taken over
+        reference's ``jax.value_and_grad(model.loss, has_aux=True)``; a leaf
+        the loss does not read gets zeros).  The caller's tensors are left as
+        they are: the loss is taken over
         aliases of them that require grad."""
         live = {k: t.detach().requires_grad_(True) for k, t in api.flatten_with_keys(params)}
         with torch.enable_grad():
             loss, metrics = self.loss(api.unflatten_like(params, live.__getitem__), batch)
-            grads = dict(zip(live, torch.autograd.grad(loss, list(live.values()))))
+            # a leaf the loss does not read (the embedding under ``embeds``)
+            # gets zeros, as the reference's gradient does
+            grads = dict(zip(live, torch.autograd.grad(loss, list(live.values()),
+                                                       allow_unused=True, materialize_grads=True)))
         return ((loss.detach(), {k: v.detach() for k, v in metrics.items()}),
                 api.unflatten_like(params, grads.__getitem__))
 
@@ -164,11 +177,20 @@ class Model:
                    device=None) -> dict:
         """Zeroed KV cache ``{"k", "v"}``, each ``(n_layers, B, S_max, KH, hd)``
         on ``device`` (default: the card): the reference's layout, which
-        parked containers record."""
+        parked containers record.  ssm: ``{"state": (n_layers, B, H, P, N)
+        float32, "conv": (n_layers, B, d_conv - 1, conv_dim) dtype}``, O(1)
+        in ``max_len``."""
         cfg = self.cfg
         _require_ported(cfg)
-        attn.check_cache_layout(cfg)
+        if cfg.family != "ssm":
+            attn.check_cache_layout(cfg)
         device = _device(device)
+        if cfg.family == "ssm":
+            d_inner, h, p_, g, n = ssm_mod._dims(cfg)
+            conv_shape = (cfg.n_layers, batch_size, cfg.ssm.d_conv - 1, d_inner + 2 * g * n)
+            return {"state": torch.zeros((cfg.n_layers, batch_size, h, p_, n),
+                                         dtype=torch.float32, device=device),
+                    "conv": torch.zeros(conv_shape, dtype=dtype, device=device)}
         shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -180,9 +202,11 @@ class Model:
         cfg = self.cfg
         _require_ported(cfg)
         x = self._embed_in(params, {"tokens": token[:, None]})
-        x, cache = tfm.scan_stack_decode(
-            x, params["layers"], cache,
-            lambda h, lp, lc: tfm.dense_block_decode(h, lp, cfg, lc, cache_len))
+        if cfg.family == "ssm":
+            block = lambda h, lp, lc: tfm.ssm_block_decode(h, lp, cfg, lc)  # noqa: E731
+        else:  # vlm decodes on tokens with plain RoPE at cache_len, as the reference
+            block = lambda h, lp, lc: tfm.dense_block_decode(h, lp, cfg, lc, cache_len)  # noqa: E731
+        x, cache = tfm.scan_stack_decode(x, params["layers"], cache, block)
         h = rms_norm(x, params["ln_f"]["scale"], cfg.norm_eps)
         logits = self._head(params, h)[:, 0]
         return logits, cache

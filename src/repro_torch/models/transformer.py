@@ -1,11 +1,14 @@
 """Decoder-only transformer assembly (counterpart of
-``repro.models.transformer``, the dense family: the training forward and
-the decode path).
+``repro.models.transformer``: the dense, vlm and ssm families' training
+forward and decode path).
 
-dense — [GQA attn + SwiGLU] × L (qwen*, minicpm, deepseek-67b).  Per-layer
-parameters are stacked along a leading layer axis, as the reference's
-``vmap``-ed init stacks them; the reference scans over that axis, the port
-loops over it.  The reference's ``_constrain`` (a sharding hint pinning
+dense — [GQA attn + SwiGLU] × L (qwen*, minicpm, deepseek-67b, qwen2-vl: the
+        vlm family is the dense block with M-RoPE positions)
+ssm   — [Mamba-2 mixer] × L (mamba2-370m)
+
+Per-layer parameters are stacked along a leading layer axis, as the
+reference's ``vmap``-ed init stacks them; the reference scans over that
+axis, the port loops over it.  The reference's ``_constrain`` (a sharding hint pinning
 the residual stream to the data-parallel axes) has no meaning on one card
 and is left out.
 """
@@ -20,6 +23,7 @@ import torch.utils.checkpoint
 
 from ..configs.base import ModelConfig
 from . import attention as attn
+from . import ssm as ssm_mod
 from .layers import init_rms_norm, init_swiglu, rms_norm, swiglu
 
 
@@ -65,6 +69,27 @@ def dense_block_decode(x, p, cfg: ModelConfig, cache, cache_len):
     return x, cache
 
 
+def init_ssm_layers(gen: torch.Generator, n: int, cfg: ModelConfig,
+                    dtype=torch.float32) -> dict:
+    """``n`` Mamba-2 layers' parameters, stacked along a leading axis."""
+    lead = (n,)
+    return {
+        "ln": init_rms_norm(gen, cfg.d_model, lead=lead, dtype=dtype),
+        "mixer": ssm_mod.init_mamba2(gen, cfg, lead=lead, dtype=dtype),
+    }
+
+
+def ssm_block(x, p, cfg: ModelConfig):
+    h = rms_norm(x, p["ln"]["scale"], cfg.norm_eps)
+    return x + ssm_mod.mamba2_forward(h, p["mixer"], cfg)
+
+
+def ssm_block_decode(x, p, cfg: ModelConfig, cache):
+    h = rms_norm(x, p["ln"]["scale"], cfg.norm_eps)
+    y, cache = ssm_mod.mamba2_decode(h, p["mixer"], cfg, cache)
+    return x + y, cache
+
+
 def _layer(tree, i: int):
     """Layer ``i`` of a stacked tree (views, so cache writes land in place)."""
     if isinstance(tree, dict):
@@ -97,10 +122,15 @@ def scan_stack(x, stacked, block_fn: Callable, remat: bool):
     return x
 
 
+def _first_leaf(tree) -> torch.Tensor:
+    return _first_leaf(next(iter(tree.values()))) if isinstance(tree, dict) else tree
+
+
 def scan_stack_decode(x, stacked_params, stacked_cache, block_fn: Callable):
     """Loop the stacked layers, threading the hidden state; each layer's
-    cache is a view of the stacked cache, written in place."""
-    n = stacked_cache["k"].shape[0]
+    cache is a view of the stacked cache, written in place.  The depth is
+    the stacked parameters' (a cache's leaves differ by family)."""
+    n = _first_leaf(stacked_params).shape[0]
     for i in range(n):
         x, _ = block_fn(x, _layer(stacked_params, i), _layer(stacked_cache, i))
     return x, stacked_cache

@@ -5,18 +5,24 @@ int32}``, the moments in ``moment_dtype`` (``"bfloat16"`` halves the
 optimizer's memory).  The arithmetic is the reference's, in float32 and in
 its order: the global-norm clip ``scale``, ``bc1``/``bc2`` from ``b **
 step`` in float32, then per leaf ``g·scale``, ``m``, ``v``, ``m̂/(√v̂ + eps)
-+ wd·p`` and ``p − lr·delta``.
++ wd·p`` and ``p − lr·delta``.  XLA flushes subnormal inputs and results to
+zero (DAZ / FTZ); the port does so explicitly wherever a product or sum
+can land below 2^-126: the norm's squares, ``b1·m``, ``(1 − b1)·g``,
+``b2·v``, ``(1 − b2)·g²`` and m's sum.  (``g·scale`` and ``g²`` need no
+flush of their own: each is multiplied by a factor below one and flushed
+after, which gives the reference's zero of the same sign; nor does v's
+sum, of two terms that are each +0 or at least 2^-126.)
 
 Two forms:
 
 * :func:`apply_updates` returns new trees, as the reference does (it keeps
   the parity tests simple);
 * :func:`apply_updates_` updates the parameters, the moments and the step
-  in place, one leaf at a time, with at most three temporaries the size of
-  one leaf.  The reference's new trees cost nothing extra because XLA
-  donates the old buffers; eagerly, a second set of parameters and moments
-  beside the first (37 GB at qwen2.5-3b) would not fit on the card beside
-  the gradients.  It also takes the reference's non-finite guard
+  in place, one leaf at a time, with one temporary the size of a leaf
+  (three with bfloat16 moments).  The reference's new trees cost nothing
+  extra because XLA donates the old buffers; eagerly, a second set of
+  parameters and moments beside the first (37 GB at qwen2.5-3b) would not
+  fit on the card beside the gradients.  It also takes the reference's non-finite guard
   (``fault.skip_nonfinite_update``) into the update: ``finite`` comes from
   the gradients before anything changes, the moments and the step advance
   always (NaN moments included, as in the reference), and the parameters
@@ -35,6 +41,24 @@ from ..core import api
 from ..runtime.fault import all_finite
 
 _F32 = torch.float32
+# the largest subnormal float32: ``hardshrink`` at it keeps exactly the
+# normal values (and inf, NaN) and writes +0 for the rest
+_SUBNORMAL_MAX = 2.0 ** -126 - 2.0 ** -149
+
+
+def _ftz_(x: torch.Tensor, scratch: torch.Tensor | None = None) -> torch.Tensor:
+    """XLA's flush of float32 ``x``, in place: subnormals become zero of
+    their sign, everything else stays.  ``scratch`` (``x``'s shape and
+    dtype) holds the unsigned flush."""
+    y = torch.ops.aten.hardshrink.out(x, _SUBNORMAL_MAX,
+                                      out=torch.empty_like(x) if scratch is None else scratch)
+    return torch.copysign(y, x, out=x)
+
+
+def _ftz_nonneg_(x: torch.Tensor) -> torch.Tensor:
+    """:func:`_ftz_` for values that are ``>= +0`` or NaN (``v``, squares),
+    whose zeros are +0 in the reference too: one pass."""
+    return torch.ops.aten.hardshrink.out(x, _SUBNORMAL_MAX, out=x)
 
 
 @dataclass(frozen=True)
@@ -72,7 +96,7 @@ def init_state(params, cfg: AdamWConfig) -> dict:
 def _global_norm(tree) -> torch.Tensor:
     total = 0
     for x in _leaves(tree):
-        total = total + torch.sum(torch.square(x.to(_F32)))
+        total = total + torch.sum(_ftz_nonneg_(torch.square(x.to(_F32))))
     return torch.sqrt(torch.as_tensor(total, dtype=_F32))
 
 
@@ -98,8 +122,8 @@ def apply_updates(params, grads, state, lr, cfg: AdamWConfig) -> tuple[Any, dict
 
     def upd(p, g, m, v):
         g = g.to(_F32) * scale
-        m_new = b1 * m.to(_F32) + (1 - b1) * g
-        v_new = b2 * v.to(_F32) + (1 - b2) * torch.square(g)
+        m_new = _ftz_(_ftz_(b1 * m.to(_F32)) + _ftz_((1 - b1) * g))
+        v_new = _ftz_nonneg_(b2 * v.to(_F32)) + _ftz_nonneg_((1 - b2) * torch.square(g))
         mhat = m_new / bc1
         vhat = v_new / bc2
         delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p.to(_F32)
@@ -131,21 +155,22 @@ def apply_updates_(params, grads, state, lr, cfg: AdamWConfig) -> dict:
         if g.dtype != _F32:
             g = g.to(_F32)
         g.mul_(scale)
-        # m = b1·m + (1 − b1)·g and v = b2·v + (1 − b2)·g², each product
-        # rounded on its own (the reference's order; no fused multiply-add)
-        t = torch.mul(g, 1 - b1)
-        m32 = m.mul_(b1) if m.dtype == _F32 else m.to(_F32).mul_(b1)
-        m32.add_(t)
-        torch.square(g, out=t)
-        t.mul_(1 - b2)
+        # each product rounded and flushed on its own, then the sum flushed
+        # (the reference's order; no fused multiply-add); v first, so that
+        # g can then hold (1 − b1)·g and, later, m̂
+        t = torch.square(g)
+        _ftz_nonneg_(t.mul_(1 - b2))
         v32 = v.mul_(b2) if v.dtype == _F32 else v.to(_F32).mul_(b2)
-        v32.add_(t)
+        _ftz_nonneg_(v32).add_(t)
+        _ftz_(g.mul_(1 - b1), t)
+        m32 = m.mul_(b1) if m.dtype == _F32 else m.to(_F32).mul_(b1)
+        _ftz_(_ftz_(m32, t).add_(g), t)
         if m32 is not m:
             m.copy_(m32)
         if v32 is not v:
             v.copy_(v32)
         # delta = m̂ / (√v̂ + eps) + wd·p, then p − lr·delta where finite
-        mhat = torch.div(m32, bc1, out=m32) if m32 is not m else torch.div(m32, bc1)
+        mhat = torch.div(m32, bc1, out=g if m32 is m else m32)
         vhat = torch.div(v32, bc2, out=t)
         vhat.sqrt_().add_(cfg.eps)
         mhat.div_(vhat)

@@ -13,7 +13,11 @@ crosses the group:
 and error feedback (the residual replayed into the next step) keeps SGD
 unbiased in the limit.  The mantissas and scales are the reference's bit
 for bit: ``round`` half to even, the scale ``where(absmax > 0, absmax /
-qmax, 1.0)``.
+qmax, 1.0)``, and XLA's flush of subnormal inputs and results done
+explicitly (a block whose largest magnitude is below 2^-126 gets scale 1.0
+and zero mantissas; one whose scale underflows gets scale 0.0, ±127 where
+it holds a value and 0 where ``0 / 0`` is NaN).  Dequantized values go to
+their dtype as XLA converts them (``float32_to``).
 
 :func:`pod_compressed_mean` runs over a ``torch.distributed`` process
 group (the reference's ``shard_map`` over the "pod" axis); on one card the
@@ -29,6 +33,8 @@ import torch
 import torch.distributed as dist
 
 from ..core.context import GLOBAL_CMM, ReductionContext, context_key
+from ..core.stages.library import float32_to
+from ..core.zfp import flush_subnormal
 
 BLOCK = 256
 
@@ -44,26 +50,27 @@ def _pad_to_block(x: torch.Tensor) -> tuple[torch.Tensor, int]:
 def quantize_blocks(g: torch.Tensor, bits: int = 8) -> tuple[torch.Tensor, torch.Tensor]:
     """g → (int8 mantissas ``(nb, 256)``, float32 per-block scales ``(nb,)``)."""
     flat, _ = _pad_to_block(g)
-    blocks = flat.reshape(-1, BLOCK).to(torch.float32)
+    blocks = flush_subnormal(flat.reshape(-1, BLOCK).to(torch.float32))
     absmax = blocks.abs().amax(dim=1, keepdim=True)
     qmax = float(2 ** (bits - 1) - 1)
-    scale = torch.where(absmax > 0, absmax / qmax, torch.ones_like(absmax))
-    q = torch.clip(torch.round(blocks / scale), -qmax, qmax).to(torch.int8)
-    return q, scale[:, 0]
+    scale = flush_subnormal(torch.where(absmax > 0, absmax / qmax, torch.ones_like(absmax)))
+    q = torch.clip(torch.round(blocks / scale), -qmax, qmax).nan_to_num_(0.0)
+    return q.to(torch.int8), scale[:, 0]
 
 
 def dequantize_blocks(q: torch.Tensor, scale: torch.Tensor, shape: tuple[int, ...],
                       dtype=torch.float32) -> torch.Tensor:
-    vals = q.to(torch.float32) * scale[:, None]
+    vals = flush_subnormal(q.to(torch.float32) * scale[:, None])
     n = math.prod(shape)
-    return vals.reshape(-1)[:n].reshape(shape).to(dtype)
+    return float32_to(vals.reshape(-1)[:n].reshape(shape), dtype)
 
 
 def _ef_core(grad: torch.Tensor, residual: torch.Tensor, bits: int):
-    corrected = grad.to(torch.float32) + residual
+    corrected = flush_subnormal(flush_subnormal(grad.to(torch.float32))
+                                + flush_subnormal(residual))
     q, s = quantize_blocks(corrected, bits)
     approx = dequantize_blocks(q, s, tuple(grad.shape))
-    return (q, s), corrected - approx
+    return (q, s), flush_subnormal(corrected - approx)
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -105,10 +112,11 @@ def pod_compressed_mean(grad: torch.Tensor, group=None, bits: int = 8) -> torch.
     s_all = torch.empty((world * s.shape[0],), dtype=s.dtype, device=s.device)
     dist.all_gather_into_tensor(q_all, q, group=group)
     dist.all_gather_into_tensor(s_all, s, group=group)
-    vals = q_all.reshape(world, -1, BLOCK).to(torch.float32) * s_all.reshape(world, -1)[..., None]
-    mean_blocks = vals.mean(dim=0)
+    vals = flush_subnormal(
+        q_all.reshape(world, -1, BLOCK).to(torch.float32) * s_all.reshape(world, -1)[..., None])
+    mean_blocks = flush_subnormal(vals.mean(dim=0))
     n = math.prod(grad.shape)
-    return mean_blocks.reshape(-1)[:n].reshape(grad.shape).to(grad.dtype)
+    return float32_to(mean_blocks.reshape(-1)[:n].reshape(grad.shape), grad.dtype)
 
 
 def tree_pod_compressed_mean(grads, group=None, bits: int = 8):

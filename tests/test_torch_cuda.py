@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card
-(and the training side's steps against the CPU and against themselves).
+(and the training side's steps, the ssm and vlm families' steps and decode
+among them, against the CPU and against themselves).
 
 Kernels: ``zfp_block`` (encode, decode), ``histogram``, ``huffman_encode``
 (``encode_lookup``), ``huffman_decode`` (``decode_chunks``), ``quantize_map``
@@ -990,3 +991,52 @@ def test_cuda_exact_checkpoint_resume_is_bit_for_bit(cuda_device, tmp_path, monk
     fa, fc = dict(api.flatten_with_keys(a["state"])), dict(api.flatten_with_keys(c["state"]))
     for k, x in fa.items():
         assert fc[k].is_cuda and fc[k].dtype == x.dtype and torch.equal(fc[k], x), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-370m", "qwen2-vl-72b"])
+def test_cuda_ssm_and_vlm_step_and_decode_match_cpu(cuda_device, arch):
+    """The ssm and vlm families' smoke cuts in float32 on the card against
+    the CPU on the same weights: the loss within 1e-5 of its value, every
+    gradient leaf within 1e-4 of its largest magnitude (the key bias, whose
+    exact gradient is 0, against the query bias's), and four decode steps'
+    logits and cache within 1e-4 (cuBLAS sums in another order; no TF32).
+    The vlm batch is ``embeds`` with M-RoPE positions that mix text tokens
+    and an image grid."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    model = build_model(get_config(arch).smoke())
+    cfg = model.cfg
+    params = model.init(torch.Generator().manual_seed(56), "cpu")
+    on_card = _to(params, cuda_device)
+    rng = np.random.default_rng(57)
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40)).astype(np.int32))
+    if cfg.family == "vlm":
+        pos = np.repeat(np.arange(40, dtype=np.int32)[:, None], 3, axis=1)
+        pos[8:20, 0] = 8
+        pos[8:20, 1] = 8 + np.arange(12) // 4
+        pos[8:20, 2] = 8 + np.arange(12) % 4
+        batch = {"embeds": torch.from_numpy(rng.normal(size=(2, 40, cfg.d_model)).astype(
+                     np.float32)),
+                 "positions_3d": torch.from_numpy(np.broadcast_to(pos, (2, 40, 3)).copy()),
+                 "labels": labels}
+    else:
+        batch = {"tokens": torch.roll(labels, 1, 1), "labels": labels}
+    (loss, _), grads = model.value_and_grad(params, batch)
+    (closs, _), cgrads = model.value_and_grad(on_card, _to(batch, cuda_device))
+    assert abs(float(closs) - float(loss)) <= 1e-5 * abs(float(loss))
+    flat, cflat = dict(api.flatten_with_keys(grads)), dict(api.flatten_with_keys(cgrads))
+    for k, g in flat.items():
+        scale = flat[k.replace("wk/b", "wq/b")] if k.endswith("attn/wk/b") else g
+        assert (cflat[k].cpu() - g).abs().max() <= 1e-4 * scale.abs().max(), k
+    tok = torch.tensor([1, 17, 255], dtype=torch.int32)
+    out = {}
+    for name, dev, p in (("cpu", torch.device("cpu"), params), ("card", cuda_device, on_card)):
+        cache = model.init_cache(3, 16, torch.float32, device=dev)
+        for step in range(4):
+            logits, cache = model.decode_step(p, tok.to(dev), cache, step)
+        out[name] = (logits.cpu(), {k: v.cpu() for k, v in cache.items()})
+    assert (out["card"][0] - out["cpu"][0]).abs().max() <= 1e-4
+    for k, v in out["cpu"][1].items():
+        assert (out["card"][1][k] - v).abs().max() <= 1e-4 * max(1.0, float(v.abs().max())), k

@@ -42,6 +42,7 @@ from repro.optim import schedule as jschedule
 from repro.runtime import fault as jfault
 from repro.runtime import roofline as jroofline
 from repro_torch.configs import SHAPES, get_config
+from repro_torch.core import api
 from repro_torch.core.context import GLOBAL_CMM
 from repro_torch.models import build_model
 from repro_torch.optim import adamw, grad_compress as gc, schedule
@@ -170,6 +171,43 @@ def test_adamw_matches_reference_functional_and_in_place(moment_dtype, nan_at):
         assert torch.isnan(ip["attn"]["w"]).all()
 
 
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("magnitude", [1e-18, 1e-20, 1e-22])
+def test_adamw_at_tiny_gradients_flushes_as_the_reference(moment_dtype, magnitude):
+    """Three steps at |g| ~ ``magnitude``: XLA flushes the subnormal squares
+    (the norm is 0.0 from 1e-20 down) and the subnormal products of the
+    moments.  Parameters, ``m`` and ``v`` equal the reference's bit for bit
+    in both forms; ``grad_norm`` is within the 2 ulps of the test above and
+    0.0 where the reference's is."""
+    rng = np.random.default_rng(7)
+    p0 = _tree(rng)
+    jcfg = jadamw.AdamWConfig(moment_dtype=moment_dtype)
+    cfg = adamw.AdamWConfig(moment_dtype=moment_dtype)
+    jp = jax.tree.map(jnp.asarray, p0)
+    jstate = jadamw.init_state(jp, jcfg)
+    fp, ip = _torch(p0), _torch(p0)
+    fstate, istate = adamw.init_state(fp, cfg), adamw.init_state(ip, cfg)
+    for step in range(3):
+        g = _tree(rng, magnitude)
+        lr = np.float32(1e-3)
+        jp, jstate, jm = jadamw.apply_updates(jp, jax.tree.map(jnp.asarray, g), jstate,
+                                              jnp.float32(lr), jcfg)
+        fp, fstate, fm = adamw.apply_updates(fp, _torch(g), fstate, torch.tensor(lr), cfg)
+        im = adamw.apply_updates_(ip, _torch(g), istate, torch.tensor(lr), cfg)
+        jnorm = float(jm["grad_norm"])
+        for norm in (float(fm["grad_norm"]), float(im["grad_norm"])):
+            assert _ulps(jnorm, norm) <= 2 and (norm == 0.0) == (jnorm == 0.0), (jnorm, norm)
+        if magnitude <= 1e-20:
+            assert jnorm == 0.0
+        for ref, fun, inp in ((jp, fp, ip), (jstate["m"], fstate["m"], istate["m"]),
+                              (jstate["v"], fstate["v"], istate["v"])):
+            for a, b, c in zip(jax.tree.leaves(ref), jax.tree.leaves(fun), jax.tree.leaves(inp)):
+                want = torch.from_numpy(np.asarray(a).view(
+                    np.int16 if a.dtype == jnp.bfloat16 else np.int32).copy())
+                assert torch.equal(b.view(want.dtype), want), (step, b, a)
+                assert _same_bits(b, c)
+
+
 def test_adamw_in_place_keeps_old_parameters_on_a_nan_gradient():
     rng = np.random.default_rng(1)
     params = _torch(_tree(rng))
@@ -189,13 +227,27 @@ def test_adamw_in_place_keeps_old_parameters_on_a_nan_gradient():
 # ---------------------------------------------------------------------------
 
 
+def _tiny_blocks(g: np.ndarray, rng) -> np.ndarray:
+    """Blocks 1-3 of ``g`` (where it has them) rescaled so that their
+    largest magnitude is subnormal (1e-39), a tiny normal whose scale
+    underflows (2e-37) and a tiny normal whose scale does not (1e-33):
+    XLA flushes subnormal inputs and results."""
+    for i, top in zip(range(1, 4), (1e-39, 2e-37, 1e-33)):
+        blk = g[i * 256:(i + 1) * 256]
+        if blk.size:
+            blk[:] = (rng.normal(size=blk.size) * top / 3).astype(np.float32)
+            blk[::5] = 0.0
+    return g
+
+
 @pytest.mark.parametrize("n", [1, 255, 257, 5000])
-@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("bits", [8, 4, 2])
 def test_quantize_blocks_bit_identical(n, bits):
     rng = np.random.default_rng(n + bits)
     g = rng.normal(size=n).astype(np.float32)
     g[::7] = 0.0
     g[1:2] = 0.5 * (g[1:2] != 0) + 0.5  # a tie of the rounding in some block
+    g = _tiny_blocks(g, rng)
     jq, js = jgc.quantize_blocks(jnp.asarray(g), bits=bits)
     q, s = gc.quantize_blocks(torch.from_numpy(g), bits=bits)
     assert q.dtype == torch.int8 and s.dtype == torch.float32
@@ -208,6 +260,24 @@ def test_quantize_blocks_bit_identical(n, bits):
                                   np.asarray(jgc.compress_decompress(jnp.asarray(g), bits)))
 
 
+@pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float32])
+def test_dequantize_blocks_of_an_inf_block_bit_identical(dtype):
+    """A block holding inf has scale inf: ``0 · inf`` is NaN, which the
+    reference's bfloat16 cast writes as 0xFFC0 (and ``1 / inf · inf`` too)."""
+    g = np.random.default_rng(5).normal(size=700).astype(np.float32)
+    g[3] = np.inf
+    g[600] = -np.inf
+    jout = np.asarray(jgc.compress_decompress(jnp.asarray(g).astype(dtype), 8))
+    tdt = torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32
+    out = gc.compress_decompress(torch.from_numpy(g).to(tdt), 8)
+    assert out.dtype == tdt
+    words = np.int16 if dtype == jnp.bfloat16 else np.int32
+    np.testing.assert_array_equal(out.view({np.int16: torch.int16,
+                                            np.int32: torch.int32}[words]).numpy(),
+                                  jout.view(words))
+    assert np.isnan(jout[:256].astype(np.float32)).all()
+
+
 def test_quantize_blocks_zero_block_and_shape():
     g = torch.zeros((3, 100))
     q, s = gc.quantize_blocks(g)
@@ -218,8 +288,9 @@ def test_quantize_blocks_zero_block_and_shape():
 def test_ef_step_matches_reference_and_hits_the_cmm():
     rng = np.random.default_rng(3)
     shape = (37, 29)
-    g = rng.normal(size=shape).astype(np.float32)
+    g = _tiny_blocks(rng.normal(size=shape).astype(np.float32).reshape(-1), rng).reshape(shape)
     res = (rng.normal(size=shape) * 0.01).astype(np.float32)
+    res.reshape(-1)[256:768] = g.reshape(-1)[256:768] * np.float32(0.5)
     (jq, js), jres = jgc.ef_step(jnp.asarray(g), jnp.asarray(res), bits=8)
     before = GLOBAL_CMM.stats()
     (q, s), new_res = gc.ef_step(torch.from_numpy(g), torch.from_numpy(res), bits=8)
@@ -234,6 +305,14 @@ def test_ef_step_matches_reference_and_hits_the_cmm():
     approx = gc.dequantize_blocks(q, s, shape).numpy()
     ulp = np.spacing(np.maximum(np.abs(corrected), np.abs(approx)))
     assert (np.abs(new_res.numpy() - np.asarray(jres)) <= ulp).all()
+    # the residual is flushed as the reference's: no subnormal survives, and
+    # blocks 1 and 2 (elements 256-767: a subnormal block and one whose
+    # scale underflows, where no multiply-add rounds) are the reference's
+    # bit for bit
+    tiny = np.finfo(np.float32).tiny
+    assert not ((np.abs(new_res.numpy()) < tiny) & (new_res.numpy() != 0)).any()
+    np.testing.assert_array_equal(_bits(new_res.numpy().reshape(-1)[256:768]),
+                                  _bits(np.asarray(jres).reshape(-1)[256:768]))
     assert torch.equal(q2, q) and torch.equal(res2, new_res)
     assert after["hits"] == mid["hits"] + 1 and after["misses"] == mid["misses"]
     assert mid["hits"] + mid["misses"] == before["hits"] + before["misses"] + 1
@@ -290,13 +369,17 @@ def test_pod_compressed_mean_over_two_gloo_ranks(tmp_path):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "minicpm-2b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "minicpm-2b", "mamba2-370m", "qwen2-vl-72b"])
 def test_roofline_counts_flops_and_bytes_match_reference(arch):
     jcfg, cfg = jget_config(arch), get_config(arch)
-    jcounts = jroofline.count_params(
-        jax.eval_shape(jbuild(jcfg).init, jax.random.PRNGKey(0)))
+    jshapes = jax.eval_shape(jbuild(jcfg).init, jax.random.PRNGKey(0))
+    jcounts = jroofline.count_params(jshapes)
     shapes = build_model(cfg).param_shapes()
     assert shapes["embed"]["table"].device.type == "meta"
+    # the parameters' tree: every leaf's path, shape and dtype the reference's
+    jflat = {k: (tuple(a.shape), str(a.dtype)) for k, a in api.flatten_with_keys(jshapes)}
+    flat = {k: (tuple(t.shape), api.dtype_name(t)) for k, t in api.flatten_with_keys(shapes)}
+    assert flat == jflat
     counts = roofline.count_params(shapes)
     assert counts == jcounts
     assert roofline.active_params(cfg, counts) == jroofline.active_params(jcfg, jcounts)

@@ -92,12 +92,15 @@ def _mixed_cache(seed):
     return ours, ref
 
 
-def test_kv_containers_and_spill_bytes_match_reference(eng):
-    ours, ref = _mixed_cache(0)
+def _check_kv_bytes(eng, ours: dict, ref: dict, compressed: set) -> dict:
+    """``compress_kv_cache`` of ``ours`` against the reference's of ``ref``:
+    the same containers and stats, the same ``HPKV`` bytes, cross-loaded
+    both ways, and the restored leaves identical.  Returns the restored
+    tree (the bfloat16 leaf left out: it cannot be restored, see below)."""
     tflat, tstats = compress_kv_cache(ours, rate=12, engine=eng)
     jflat, jstats = jengine.compress_kv_cache(ref, rate=12)
     assert list(tflat) == list(jflat)
-    assert {k for k, v in tflat.items() if isinstance(v, Compressed)} == {"k", "v", "half"}
+    assert {k for k, v in tflat.items() if isinstance(v, Compressed)} == compressed
     for k in tflat:
         assert _blob(tflat[k]) == _blob(jflat[k]), k
     for key in ("raw", "compressed", "leaves", "compressed_leaves", "ratio"):
@@ -118,7 +121,44 @@ def test_kv_containers_and_spill_bytes_match_reference(eng):
         assert _np(restored[k]).tobytes() == np.asarray(jrestored[k]).tobytes(), k
         # int64 comes back as int32 in both (the reference's jnp.asarray)
         assert str(restored[k].dtype).split(".")[1] == str(jrestored[k].dtype), k
+    return restored
+
+
+def test_kv_containers_and_spill_bytes_match_reference(eng):
+    ours, ref = _mixed_cache(0)
+    restored = _check_kv_bytes(eng, ours, ref, {"k", "v", "half"})
     assert np.abs(_np(restored["k"]) - ref["k"]).max() < 0.05 * np.abs(ref["k"]).max()
+
+
+def test_mamba2_kv_containers_and_spill_bytes_match_reference(eng, tmp_path):
+    """A served mamba2-370m cache (the smoke cut after 6 decode steps of
+    the reference on its own weights: ``state`` (4, 3, 8, 16, 16) float32
+    and ``conv`` (4, 3, 3, 160)) parks into the reference's containers and
+    ``HPKV`` spill bytes, and restores within the rate-12 bound."""
+    import jax
+
+    from repro.configs import get_config as jget_config
+    from repro.models import build_model as jbuild
+
+    jmodel = jbuild(jget_config("mamba2-370m").smoke())
+    jparams = jmodel.init(jax.random.PRNGKey(3))
+    cache = jmodel.init_cache(3, 16, jnp.float32)
+    for i, tok in enumerate(np.random.default_rng(3).integers(0, 256, (6, 3))):
+        _, cache = jmodel.decode_step(jparams, jnp.asarray(tok, jnp.int32), cache, jnp.int32(i))
+    ref = {k: np.asarray(v) for k, v in cache.items()}
+    ours = {k: torch.from_numpy(v.copy()) for k, v in ref.items()}
+    restored = _check_kv_bytes(eng, ours, ref, {"state", "conv"})
+    for k in ref:
+        assert np.abs(_np(restored[k]) - ref[k]).max() <= 0.05 * np.abs(ref[k]).max(), k
+    store = KVPageStore(capacity_bytes=64 << 20, spill_dir=tmp_path / "t", engine=eng)
+    jstore = jengine.KVPageStore(capacity_bytes=64 << 20, spill_dir=tmp_path / "j")
+    store.park("m", ours)
+    jstore.park("m", ref)
+    store.cache.evict(("kv_page", "default", "m"))
+    jstore.cache.evict(("kv_page", "default", "m"))
+    assert store._path("m").read_bytes() == jstore._path("m").read_bytes()
+    back = store.restore("m", ours)
+    assert all(_np(back[k]).tobytes() == _np(restored[k]).tobytes() for k in ref)
 
 
 def test_bf16_leaf_after_a_spill_fails_alike(eng, tmp_path):
