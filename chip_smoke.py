@@ -191,7 +191,25 @@ any fails:
      on an ``embeds`` batch (8, 128, 8192) whose M-RoPE positions mix text
      tokens and an 8 x 8 image grid (loss and every gradient finite; the
      positions move the loss), the smoke cut's step on the card against
-     the CPU in float32, and ``ServingEngine`` decode on tokens;
+     the CPU in float32, and ``ServingEngine`` decode on tokens.  The moe
+     family — deepseek-v3-671b at full width (d_model 7168, 128 MLA heads,
+     256 routed experts top-8 + 1 shared, dense FFN 18432, vocab 129280,
+     MTP) cut to 4 of its 61 layers (its 3 dense layers and 1 MoE layer,
+     15.8B float32 parameters from the seed): ``loss`` under ``no_grad`` on
+     tokens (4, 128) (``ce``, ``aux`` and ``mtp_ce`` finite, ``aux`` > 0),
+     served by ``ServingEngine`` (4 slots x 1024 positions, the float32 MLA
+     cache; 8 requests of 32 + 16 tokens); llama4-scout-17b-a16e at full
+     width (d_model 5120, 40 heads, 8 KV heads, 16 routed experts top-1 +
+     1 shared, vocab 202048) cut to 2 of its 48 layers (6.47B parameters):
+     ``value_and_grad`` on tokens (8, 128) (loss and every gradient finite,
+     the router's non-zero), served at 4 x 8192 positions; each served
+     cache parked in a ``KVPageStore`` at zfp rate 12, fetched and restored
+     resident and after a spill, every ZFP launch held to its plain
+     version; both smoke cuts card against CPU in float32 (a train step at
+     the training phase's float32 tolerances, the same served tokens, every
+     routing decision equal call for call); and a bit-exact resume of
+     ``train_loop("deepseek-v3-671b")`` at the smoke cut (runs A, A, B, C
+     as above);
   4. the container bytes round trip on the card (one ZFP, one Huffman, one
      MGARD and one progressive container, and the pytree's containers):
      ``to_bytes`` -> ``from_bytes`` -> decode, bit-identical;
@@ -230,16 +248,18 @@ any fails:
      training: the full run's step times, tokens/s, model-FLOP share and
      peak memory, the traced step's busy share, launches and top device
      operations, and each checkpoint save and restore of the depth-2
-     state (host wall, one run each); each printed with the card's name
-     and power limit.
+     state (host wall, one run each); the ssm, vlm and moe phases' step,
+     forward, ``value_and_grad`` and decode times, peak memory and park /
+     fetch / restore times; each printed with the card's name and power
+     limit.
 
 The last two lines are one JSON object per kernel (``{"kernels": [...]}``;
 the Huffman kernels' times are those of the ``huffman-bytes`` leaf; a
 kernel's launches are summed over every counted main-path call (the ZFP,
 Huffman, MGARD, progressive, pytree, stream, checkpoint, serving,
-training, mamba2 training, mamba2 serving and qwen2-vl paths; a line
-before gives the last nine paths' calls' own), its error the largest of
-them) and
+training, mamba2 training, mamba2 serving, qwen2-vl, deepseek-v3,
+llama4-scout, moe card vs CPU and moe resume paths; a line before gives
+the last thirteen paths' calls' own), its error the largest of them) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -339,6 +359,13 @@ VLM_LAYERS = 2                      # of 80: 4.25B float32 parameters, 17.0 GB
 VLM_BATCH, VLM_SEQ = 8, 128
 VLM_IMAGE_AT, VLM_GRID = 16, (8, 8)  # 64 image patches at t = 16 inside the 128 positions
 VLM_SERVE_REQUESTS, VLM_SERVE_PROMPT, VLM_SERVE_NEW, VLM_SERVE_MAX_LEN = 4, 8, 8, 64
+DS_ARCH = "deepseek-v3-671b"       # arXiv:2412.19437, hf:deepseek-ai/DeepSeek-V3 at full width
+DS_LAYERS = 4                       # of 61: its 3 dense layers and 1 MoE layer, 15.8B parameters
+DS_BATCH, DS_SEQ = 4, 128           # the forward under no_grad (its gradients would not fit)
+DS_SERVE_MAX_LEN = 1024             # cache positions a slot (the MLA cache: 576 floats a token)
+L4_ARCH = "llama4-scout-17b-a16e"   # hf:meta-llama/Llama-4-Scout-17B-16E at full width
+L4_LAYERS = 2                       # of 48: 6.47B float32 parameters, 25.9 GB
+L4_BATCH, L4_SEQ = 8, 128
 LOSSY_KERNELS = ("zfp_block.compress_blocks", "zfp_block.decompress_blocks", "histogram.histogram",
                  "huffman_encode.encode_lookup", "huffman_decode.decode_chunks")
 MGARD_KERNELS = {  # name: (TPU kernel it replaces, CUDA source)
@@ -477,6 +504,15 @@ def median_wall_ms(fn, runs: int = TIMED_RUNS, warmup: int = 2) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def decode_step_ms(eng) -> float:
+    """One decode step of a served engine, median of TIMED_RUNS (host wall,
+    synchronised), at the engine's shared cache_len."""
+    import numpy as np
+
+    step_toks = np.zeros(SERVE_BATCH, np.int32)
+    return median_wall_ms(lambda: eng._step(step_toks, int(eng.lens.max())))
 
 
 # ---------------------------------------------------------------------------
@@ -2886,13 +2922,17 @@ def check_zfp_rate(name: str, c, x, out, tables: dict, rate: int) -> dict:
 
 
 def check_kv_restored(name: str, restored: dict, cache: dict) -> float:
-    """Restored KV pages on the card, in shape and dtype, within ZFP's error
-    at the parking rate (KV_ERR_TOL of the page's largest magnitude)."""
+    """Restored KV pages on the card (every leaf of the tree ``cache``), in
+    shape and dtype, within ZFP's error at the parking rate (KV_ERR_TOL of
+    the page's largest magnitude)."""
     import torch
 
+    from repro_torch.core import api
+
     worst = 0.0
-    for k, x in cache.items():
-        got = restored[k]
+    flat = dict(api.flatten_with_keys(restored))
+    for k, x in api.flatten_with_keys(cache):
+        got = flat[k]
         if got.device != x.device or got.dtype != x.dtype or got.shape != x.shape:
             raise PhaseError(f"{name} {k}: restored {got.device} {got.dtype} {tuple(got.shape)}")
         if not bool(torch.isfinite(got).all()):
@@ -3733,9 +3773,10 @@ def check_grads_close(what: str, card: dict, cpu: dict, tol: float) -> float:
 
 
 def check_step_vs_cpu(what: str, cut, params: dict, cpu_params: dict, batches: dict,
-                      device) -> dict:
+                      device, dtypes: tuple = tuple(TRAIN_CHECK_TOL)) -> dict:
     """``value_and_grad`` of the model ``cut`` on the card against the CPU,
-    on the same weights and batch, in each dtype of TRAIN_CHECK_TOL: the
+    on the same weights and batch, in each of ``dtypes`` (TRAIN_CHECK_TOL's
+    by default): the
     loss within its share of the CPU's, each gradient leaf within its share
     of the CPU's largest |gradient| in that leaf.  Returns dtype -> (CPU
     loss, loss difference share, worst gradient share, CPU seconds)."""
@@ -3746,7 +3787,8 @@ def check_step_vs_cpu(what: str, cut, params: dict, cpu_params: dict, batches: d
 
     cpu = next(iter(api.flatten_with_keys(cpu_params)))[1].device
     diffs = {}
-    for dtype, (ltol, gtol) in TRAIN_CHECK_TOL.items():
+    for dtype in dtypes:
+        ltol, gtol = TRAIN_CHECK_TOL[dtype]
         m = build_model(replace(cut, dtype=dtype))
         (l_card, _), g_card = m.value_and_grad(params, batches[device])
         t0 = time.perf_counter()
@@ -3844,7 +3886,8 @@ def check_resume(T, arch: str, cut, calls: dict, errs: dict, timings: list, devi
         f"{[round(x, 4) for x in c['losses']]}) and saved step {TRAIN_STEPS} with save_async + "
         f"wait(); C's losses and final parameters, moments and step == A's {verdict}; every save "
         f"and restore's launches exact, the entropy kernels == plain inside each on the "
-        f"{ckpt_manager.LOSSLESS_CHUNK_BYTES} byte keys of {probe}'s first chunk")
+        f"{min(fa1[probe].numel() * fa1[probe].element_size(), ckpt_manager.LOSSLESS_CHUNK_BYTES)} "
+        f"byte keys of {probe} (its first chunk where it streams)")
     return c, fc, summary
 
 
@@ -4113,6 +4156,71 @@ def phase_ssm_training(device, api, card: str) -> dict:
     return {"calls": calls, "errs": errs}
 
 
+def park_served_cache(arch: str, cache, calls: dict, errs: dict, times: dict) -> str:
+    """A served cache (any tree of the family's leaves; ``None`` stacks
+    skipped) parked in a ``KVPageStore`` at zfp rate SSM_PARK_RATE, fetched
+    and restored once resident and once after a spill: the same container
+    bytes both ways, every restored leaf within the rate's bound, every
+    ZFP launch counted exactly and held to its plain version (tolerance 0).
+    Each call's host wall ms goes into ``times``; returns the log line's
+    tail."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import api
+    from repro_torch.serving import KVPageStore
+    from repro_torch.serving import engine as serving_engine
+
+    tmp = tempfile.TemporaryDirectory(prefix="hpdr-kv-")
+    store = KVPageStore(spill_dir=Path(tmp.name) / "kv", rate=SSM_PARK_RATE)
+    nb = zfp_buckets(api, cache, serving_engine._kv_select(SSM_PARK_RATE))
+    zfp = ("zfp_block.compress_blocks", "zfp_block.decompress_blocks")
+    key = store._key(arch)
+    worst, blobs = 0.0, {}
+
+    def timed(what, fn, want):
+        t0 = time.perf_counter()
+        out, calls[f"{what} ({arch})"] = counted(f"{what} ({arch})", fn, want)
+        times[what] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    with held_to_plain(zfp) as held:
+        pstats = timed("KVPageStore.park (served cache)", lambda: store.park(arch, cache),
+                       {"zfp_block.compress_blocks": nb})
+        for where in ("resident", "spilled"):
+            if where == "spilled":
+                store.cache.evict(key)
+            flat = timed(f"KVPageStore.fetch ({where})", lambda: store.fetch(arch), {})
+            blobs[where] = {k: c.to_bytes() if hasattr(c, "to_bytes") else c.cpu().numpy().tobytes()
+                            for k, c in flat.items()}
+            restored = timed(f"KVPageStore.restore ({where})", lambda: store.restore(arch, cache),
+                             {"zfp_block.decompress_blocks": nb})
+            worst = max(worst, check_kv_restored(f"{arch} restore ({where})", restored, cache))
+            del restored
+    for k, want in (("zfp_block.compress_blocks", nb), ("zfp_block.decompress_blocks", 2 * nb)):
+        n, e = held[k]
+        if n != want or e:
+            raise PhaseError(f"{arch} KV parking: {k} held to its plain version in {n} calls, "
+                             f"max |kernel - plain| {e}")
+        errs[k] = max(errs.get(k, 0.0), e)
+    st = store.stats()
+    if blobs["resident"] != blobs["spilled"] or st["spills"] < 1 or st["loads"] < 1:
+        raise PhaseError(f"{arch} KV parking: spilled containers differ from the resident "
+                         f"ones, or no spill / load ({st})")
+    store.release(arch)
+    tmp.cleanup()
+    leaves = dict(api.flatten_with_keys(cache))
+    raw = sum(x.numel() * x.element_size() for x in leaves.values())
+    torch.cuda.empty_cache()
+    return (f"{', '.join(f'{k} {tuple(x.shape)}' for k, x in leaves.items())}; {raw} bytes) "
+            f"parked at zfp rate {SSM_PARK_RATE} in {nb} bucket launches (ratio "
+            f"{pstats['ratio']:.6f}), fetched and restored resident and after a spill (the same "
+            f"container bytes; {st['spills']} spill, {st['loads']} load): restored within "
+            f"{worst:.3e} of each leaf's largest |value| (<= {KV_ERR_TOL}); every "
+            "compress_blocks / decompress_blocks launch == its plain version (tolerance 0)")
+
+
 def phase_ssm_serving(device, api, card: str) -> dict:
     """Phase 3 and 5, the ssm family served: mamba2-370m at full width and
     depth through ``ServingEngine`` (4 slots, float32 cache, bfloat16
@@ -4127,7 +4235,6 @@ def phase_ssm_serving(device, api, card: str) -> dict:
     every ZFP launch held to its plain version, the restored state within
     the rate-12 bound; and the decode step, tokens/s and park / fetch /
     restore times."""
-    import tempfile
     from dataclasses import replace
 
     import numpy as np
@@ -4136,8 +4243,7 @@ def phase_ssm_serving(device, api, card: str) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.models import build_model, load_params
     from repro_torch.models.layers import rms_norm
-    from repro_torch.serving import KVPageStore, Request, ServingEngine
-    from repro_torch.serving import engine as serving_engine
+    from repro_torch.serving import Request, ServingEngine
 
     calls, errs = {}, {}
     cfg = get_config(SSM_ARCH)
@@ -4160,8 +4266,7 @@ def phase_ssm_serving(device, api, card: str) -> dict:
         return eng_s, stats, toks
 
     engine, stats, tokens = serve(model, params, f"ServingEngine.serve {SSM_ARCH} (full)")
-    step_toks = np.zeros(SERVE_BATCH, np.int32)
-    decode_ms = median_wall_ms(lambda: engine._step(step_toks, int(engine.lens.max())))
+    decode_ms = decode_step_ms(engine)
     log(f"phase 3 ok: serve {SSM_ARCH} ({cfg.n_layers} layers, d_model {cfg.d_model}, state "
         f"{tuple(engine.cache['state'].shape)} float32, conv {tuple(engine.cache['conv'].shape)}): "
         f"{SERVE_REQUESTS} requests x ({SERVE_PROMPT} prompt + {SERVE_NEW} new tokens) on "
@@ -4223,50 +4328,9 @@ def phase_ssm_serving(device, api, card: str) -> dict:
     del by_decode, by_forward
 
     # -- the served cache parked, fetched and restored, resident and spilled --
-    tmp = tempfile.TemporaryDirectory(prefix="hpdr-ssm-kv-")
-    store = KVPageStore(spill_dir=Path(tmp.name) / "kv", rate=SSM_PARK_RATE)
-    cache = engine.cache
-    nb = zfp_buckets(api, cache, serving_engine._kv_select(SSM_PARK_RATE))
-    zfp = ("zfp_block.compress_blocks", "zfp_block.decompress_blocks")
-    key = store._key("mamba2")
-    times, worst, blobs = {}, 0.0, {}
-
-    def timed(what, fn, want):
-        t0 = time.perf_counter()
-        out, calls[what] = counted(what, fn, want)
-        times[what] = (time.perf_counter() - t0) * 1e3
-        return out
-
-    with held_to_plain(zfp) as held:
-        pstats = timed("KVPageStore.park (served cache)", lambda: store.park("mamba2", cache),
-                       {"zfp_block.compress_blocks": nb})
-        for where in ("resident", "spilled"):
-            if where == "spilled":
-                store.cache.evict(key)
-            flat = timed(f"KVPageStore.fetch ({where})", lambda: store.fetch("mamba2"), {})
-            blobs[where] = {k: c.to_bytes() for k, c in flat.items()}
-            restored = timed(f"KVPageStore.restore ({where})",
-                             lambda: store.restore("mamba2", cache),
-                             {"zfp_block.decompress_blocks": nb})
-            worst = max(worst, check_kv_restored(f"restore ({where})", restored, cache))
-            del restored
-    for k, want in (("zfp_block.compress_blocks", nb), ("zfp_block.decompress_blocks", 2 * nb)):
-        n, e = held[k]
-        if n != want or e:
-            raise PhaseError(f"{SSM_ARCH} KV parking: {k} held to its plain version in {n} calls, "
-                             f"max |kernel - plain| {e}")
-        errs[k] = max(errs.get(k, 0.0), e)
-    st = store.stats()
-    if blobs["resident"] != blobs["spilled"] or st["spills"] < 1 or st["loads"] < 1:
-        raise PhaseError(f"{SSM_ARCH} KV parking: spilled containers differ from the resident "
-                         f"ones, or no spill / load ({st})")
-    raw = sum(x.numel() * x.element_size() for x in cache.values())
-    log(f"phase 3 ok: {SSM_ARCH}'s served cache (state and conv, {raw} bytes) parked at zfp rate "
-        f"{SSM_PARK_RATE} in {nb} bucket launches (ratio {pstats['ratio']:.6f}), fetched and "
-        f"restored resident and after a spill (the same container bytes; {st['spills']} spill, "
-        f"{st['loads']} load): restored within {worst:.3e} of each leaf's largest |value| (<= "
-        f"{KV_ERR_TOL}); every compress_blocks / decompress_blocks launch == its plain version "
-        "(tolerance 0)")
+    times: dict = {}
+    park = park_served_cache(SSM_ARCH, engine.cache, calls, errs, times)
+    log(f"phase 3 ok: {SSM_ARCH}'s served cache (state and conv, " + park)
     log(f"phase 5 [{card}] serving {SSM_ARCH} full width and depth: decode step (batch "
         f"{SERVE_BATCH}, {cfg.dtype} compute) median of {TIMED_RUNS} {decode_ms:.4f} ms (host wall, "
         f"synchronised) = {SERVE_BATCH / decode_ms * 1e3:.3f} tokens/s; serve "
@@ -4274,9 +4338,7 @@ def phase_ssm_serving(device, api, card: str) -> dict:
         f"{stats['tokens_per_s']:.3f} tokens/s with prefill; " + ", ".join(
             f"{k} {v:.3f} ms" for k, v in times.items())
         + " (host wall, one run each, the held plain versions included)")
-    store.release("mamba2")
-    tmp.cleanup()
-    del engine, cache, params
+    del engine, params
     torch.cuda.empty_cache()
     return {"calls": calls, "errs": errs}
 
@@ -4375,8 +4437,7 @@ def phase_vlm(device, api, card: str) -> dict:
     if not all(r.done and len(t) == VLM_SERVE_NEW for r, t in zip(reqs, toks)) or any(
             not 0 <= t < cfg.vocab for r in toks for t in r):
         raise PhaseError(f"{VLM_ARCH} serve: tokens {toks}")
-    step_toks = np.zeros(SERVE_BATCH, np.int32)
-    decode_ms = median_wall_ms(lambda: eng_v._step(step_toks, int(eng_v.lens.max())))
+    decode_ms = decode_step_ms(eng_v)
     peak_all = torch.cuda.max_memory_allocated()
     log(f"phase 3 ok: {VLM_ARCH} depth {VLM_LAYERS} served on tokens (plain RoPE at cache_len, as "
         f"the reference): {VLM_SERVE_REQUESTS} requests x ({VLM_SERVE_PROMPT} + {VLM_SERVE_NEW}) "
@@ -4391,6 +4452,297 @@ def phase_vlm(device, api, card: str) -> dict:
     del eng_v, params, batch, sp, sp_cpu
     torch.cuda.empty_cache()
     return {"calls": calls, "errs": {}}
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """While the block runs, every ``moe.route`` call's routing (top-k
+    indices, capacity positions, keep mask) is recorded on the host, by
+    device type: yields ``{"cuda": [...], "cpu": [...]}``."""
+    from repro_torch.models import moe as moe_mod
+
+    route = moe_mod.route
+    seen: dict = {"cuda": [], "cpu": []}
+
+    def spy(x, *args, **kwargs):
+        out = route(x, *args, **kwargs)
+        seen[x.device.type].append(tuple(t.cpu() for t in out[2:5]))
+        return out
+
+    moe_mod.route = spy
+    try:
+        yield seen
+    finally:
+        moe_mod.route = route
+
+
+def check_routes(what: str, seen: dict) -> int:
+    """The card's routing decisions equal the CPU's, call for call (a
+    flipped expert or capacity slot fails); returns the calls compared."""
+    import torch
+
+    card, cpu = seen["cuda"], seen["cpu"]
+    if not card or len(card) != len(cpu):
+        raise PhaseError(f"{what}: {len(card)} routing calls on the card, {len(cpu)} on the CPU")
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise PhaseError(f"{what}: routing call {i} differs between the card and the CPU "
+                             "(top-k index, capacity position or keep mask)")
+    return len(card)
+
+
+def serve_requests(what: str, model, params, max_len: int, calls: dict, rng, vocab: int):
+    """SERVE_REQUESTS requests of SERVE_PROMPT + SERVE_NEW tokens on
+    SERVE_BATCH slots (two waves: the refill path), float32 cache, counted
+    (no kernel launches); returns the engine, its stats and the tokens."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving import Request, ServingEngine
+
+    prompts = [rng.integers(0, vocab, SERVE_PROMPT).astype(np.int32)
+               for _ in range(SERVE_REQUESTS)]
+    eng = ServingEngine(model, params, SERVE_BATCH, max_len, torch.float32)
+    reqs = [Request(uid=i, prompt=q, max_new_tokens=SERVE_NEW) for i, q in enumerate(prompts)]
+    stats, calls[what] = counted(what, lambda: eng.serve(reqs), {})
+    toks = [r.out_tokens for r in reqs]
+    if not all(r.done and len(t) == SERVE_NEW for r, t in zip(reqs, toks)) or any(
+            not 0 <= t < vocab for r in toks for t in r):
+        raise PhaseError(f"{what}: tokens {toks}")
+    return eng, stats, toks
+
+
+def phase_moe_deepseek(device, api, card: str) -> dict:
+    """Phase 3 and 5, the moe family at deepseek-v3-671b's full width
+    (d_model 7168, 128 MLA heads: q_lora 1536, kv_lora 512, rope 64; 256
+    routed experts top-8 of width 2048 plus 1 shared; dense FFN 18432;
+    vocab 129280; the MTP head) cut to 4 of its 61 layers (its 3 dense
+    layers and 1 MoE layer, 15.8B float32 parameters from the seed):
+    ``loss`` under ``no_grad`` on tokens (4, 128), ``ce``, ``aux`` and
+    ``mtp_ce`` finite, ``aux`` > 0; ``ServingEngine`` with 4 slots x 1024
+    positions and the float32 MLA cache (8 requests of 32 + 16 tokens);
+    the served cache parked through ZFP, resident and spilled, every launch
+    held to plain; times and peak memory."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    calls, errs, times = {}, {}, {}
+    cfg = replace(get_config(DS_ARCH), n_layers=DS_LAYERS)
+    model = build_model(cfg)
+    reset_peak(f"{DS_ARCH} at depth {DS_LAYERS}")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=device).manual_seed(SEED + 100), device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for _k, x in api.flatten_with_keys(params))
+    toks = torch.randint(0, cfg.vocab, (DS_BATCH, DS_SEQ + 1), device=device, dtype=torch.int32,
+                         generator=torch.Generator(device=device).manual_seed(SEED + 101))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    with torch.no_grad():
+        (_loss, met), calls["loss (depth 4)"] = counted(
+            "loss (depth 4)", lambda: model.loss(params, batch), {})
+        loss_ms = median_wall_ms(lambda: model.loss(params, batch), runs=3, warmup=0)
+    peak_loss = torch.cuda.max_memory_allocated()
+    vals = {k: float(v) for k, v in met.items()}
+    if set(vals) != {"ce", "aux", "mtp_ce", "loss"} or not all(
+            math.isfinite(v) for v in vals.values()) or not vals["aux"] > 0:
+        raise PhaseError(f"{DS_ARCH} loss: {vals}")
+    m, e = cfg.mla, cfg.moe
+    log(f"phase 3 ok: {DS_ARCH} at full width (d_model {cfg.d_model}, {cfg.n_heads} MLA heads: "
+        f"q_lora {m.q_lora_rank}, kv_lora {m.kv_lora_rank}, rope {m.qk_rope_head_dim}; "
+        f"{e.n_experts} routed experts top-{e.top_k} of width {e.d_ff_expert} + {e.n_shared} "
+        f"shared; dense FFN {e.d_ff_dense}; vocab {cfg.vocab}; MTP), {DS_LAYERS} of 61 layers "
+        f"({e.first_dense_layers} dense, {DS_LAYERS - e.first_dense_layers} MoE), {n_params} "
+        f"float32 parameters from the seed: loss under no_grad on tokens ({DS_BATCH}, {DS_SEQ}): "
+        + ", ".join(f"{k} {v:.6f}" for k, v in vals.items()) + " (all finite, aux > 0); no "
+        "kernel launched")
+
+    rng = np.random.default_rng(SEED + 102)
+    eng, stats, tokens = serve_requests(f"ServingEngine.serve {DS_ARCH}", model, params,
+                                        DS_SERVE_MAX_LEN, calls, rng, cfg.vocab)
+    decode_ms = decode_step_ms(eng)
+    peak_serve = torch.cuda.max_memory_allocated()
+    log(f"phase 3 ok: serve {DS_ARCH} depth {DS_LAYERS} (the float32 MLA cache, c_kv and k_rope "
+        f"of the dense stack {tuple(eng.cache['dense']['c_kv'].shape)}, "
+        f"{tuple(eng.cache['dense']['k_rope'].shape)} and of the MoE stack): {SERVE_REQUESTS} "
+        f"requests x ({SERVE_PROMPT} + {SERVE_NEW}) on "
+        f"{SERVE_BATCH} slots, {stats['decode_steps']} decode steps after prefill, tokens in the "
+        f"vocabulary (first request {tokens[0]}); no kernel launched")
+    park = park_served_cache(DS_ARCH, eng.cache, calls, errs, times)
+    log(f"phase 3 ok: {DS_ARCH}'s served MLA cache (" + park)
+    log(f"phase 5 [{card}] {DS_ARCH} full width, depth {DS_LAYERS}: init {init_s:.3f} s; loss "
+        f"(no_grad, {DS_BATCH * DS_SEQ} tokens, {cfg.dtype} compute) median of 3 {loss_ms:.3f} ms "
+        f"(host wall, synchronised, after one run); peak torch.cuda.max_memory_allocated "
+        f"{peak_loss} bytes through the loss, {peak_serve} with serving; decode step (batch "
+        f"{SERVE_BATCH}, {DS_SERVE_MAX_LEN} positions) median of {TIMED_RUNS} {decode_ms:.4f} ms "
+        f"(host wall, synchronised) = {SERVE_BATCH / decode_ms * 1e3:.3f} tokens/s; serve "
+        f"{stats['new_tokens']} new tokens in {stats['wall_s']:.3f} s with prefill; " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in times.items())
+        + " (host wall, one run each, the held plain versions included)")
+    del eng, params, batch, toks
+    torch.cuda.empty_cache()
+    return {"calls": calls, "errs": errs}
+
+
+def phase_moe_llama4(device, api, card: str) -> dict:
+    """Phase 3 and 5, the moe family at llama4-scout-17b-a16e's full width
+    (d_model 5120, 40 heads, 8 KV heads of 128, 16 routed experts top-1 of
+    width 8192 plus 1 shared, vocab 202048) cut to 2 of its 48 layers
+    (6.47B float32 parameters from the seed): ``value_and_grad`` on tokens
+    (8, 128) with no optimizer (AdamW's moments do not fit at full width),
+    loss and every gradient finite, the router's gradient non-zero; served
+    (4 slots x 8192 positions, float32 GQA cache, the ``None`` dense
+    stack) and the cache parked through ZFP as deepseek-v3's; times and
+    peak memory."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    calls, errs, times = {}, {}, {}
+    cfg = replace(get_config(L4_ARCH), n_layers=L4_LAYERS)
+    model = build_model(cfg)
+    reset_peak(f"{L4_ARCH} at depth {L4_LAYERS}")
+    params = model.init(torch.Generator(device=device).manual_seed(SEED + 110), device)
+    n_params = sum(x.numel() for _k, x in api.flatten_with_keys(params))
+    toks = torch.randint(0, cfg.vocab, (L4_BATCH, L4_SEQ + 1), device=device, dtype=torch.int32,
+                         generator=torch.Generator(device=device).manual_seed(SEED + 111))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    (_loss, _met), grads = model.value_and_grad(params, batch)   # warm-up
+    del grads
+    t0 = time.perf_counter()
+    ((loss, met), grads), calls["value_and_grad (depth 2)"] = counted(
+        "value_and_grad (depth 2)", lambda: model.value_and_grad(params, batch), {})
+    grad_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    bad = [k for k, x in api.flatten_with_keys(grads) if not bool(torch.isfinite(x).all())]
+    router = float(grads["moe_layers"]["moe"]["router"].abs().max())
+    if not math.isfinite(float(loss)) or bad or not router > 0 or not float(met["aux"]) > 0:
+        raise PhaseError(f"{L4_ARCH} value_and_grad: loss {float(loss)}, aux {float(met['aux'])}, "
+                         f"non-finite gradients {bad[:5]}, router max |gradient| {router}")
+    del grads
+    e = cfg.moe
+    log(f"phase 3 ok: {L4_ARCH} at full width (d_model {cfg.d_model}, {cfg.n_heads} heads, "
+        f"{cfg.n_kv_heads} KV heads of {cfg.resolved_head_dim}, {e.n_experts} routed experts "
+        f"top-{e.top_k} of width {e.d_ff_expert} + {e.n_shared} shared, every layer MoE, vocab "
+        f"{cfg.vocab}, RoPE theta {cfg.rope_theta}), {L4_LAYERS} of 48 layers, {n_params} float32 "
+        f"parameters from the seed: value_and_grad on tokens ({L4_BATCH}, {L4_SEQ}): loss "
+        f"{float(loss):.6f} (ce {float(met['ce']):.6f} + aux {float(met['aux']):.6e}) and every "
+        f"gradient finite, the router's max |gradient| {router:.4e} > 0; no kernel launched")
+
+    rng = np.random.default_rng(SEED + 112)
+    eng, stats, tokens = serve_requests(f"ServingEngine.serve {L4_ARCH}", model, params,
+                                        SERVE_MAX_LEN, calls, rng, cfg.vocab)
+    if eng.cache["dense"] is not None:
+        raise PhaseError(f"{L4_ARCH}: a dense cache stack {eng.cache['dense']}")
+    decode_ms = decode_step_ms(eng)
+    peak_serve = torch.cuda.max_memory_allocated()
+    log(f"phase 3 ok: serve {L4_ARCH} depth {L4_LAYERS} (GQA cache k, v "
+        f"{tuple(eng.cache['moe']['k'].shape)} float32, no dense stack): {SERVE_REQUESTS} requests "
+        f"x ({SERVE_PROMPT} + {SERVE_NEW}) on {SERVE_BATCH} slots, {stats['decode_steps']} decode "
+        f"steps after prefill, tokens in the vocabulary (first request {tokens[0]}); no kernel "
+        "launched")
+    park = park_served_cache(L4_ARCH, eng.cache, calls, errs, times)
+    log(f"phase 3 ok: {L4_ARCH}'s served cache (" + park)
+    log(f"phase 5 [{card}] {L4_ARCH} full width, depth {L4_LAYERS}: value_and_grad on "
+        f"{L4_BATCH * L4_SEQ} tokens {grad_s * 1e3:.3f} ms (host wall, synchronised, after a "
+        f"warm-up; remat {cfg.remat}); peak torch.cuda.max_memory_allocated {peak} bytes through "
+        f"the gradients, {peak_serve} with serving; decode step (batch {SERVE_BATCH}, "
+        f"{SERVE_MAX_LEN} positions) median of {TIMED_RUNS} {decode_ms:.4f} ms (host wall, "
+        f"synchronised) = {SERVE_BATCH / decode_ms * 1e3:.3f} tokens/s; serve "
+        f"{stats['new_tokens']} new tokens in {stats['wall_s']:.3f} s with prefill; " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in times.items())
+        + " (host wall, one run each, the held plain versions included)")
+    del eng, params, batch, toks
+    torch.cuda.empty_cache()
+    return {"calls": calls, "errs": errs}
+
+
+def phase_moe_vs_cpu(device, api) -> dict:
+    """Phase 3, the moe family's smoke cuts (deepseek-v3: MLA, a dense layer,
+    3 MoE layers, MTP; llama4-scout: 4 GQA MoE layers), float32, no TF32,
+    card against CPU on the same weights: one train step (loss and every
+    gradient within the training phase's float32 tolerances) and the same
+    8 requests served (the same tokens); every routing decision of both
+    (top-k indices, capacity positions, keep masks) equal call for call: a
+    flip fails, whatever the tolerance would let through."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, load_params
+
+    calls = {}
+    cpu = torch.device("cpu")
+    for i, arch in enumerate((DS_ARCH, L4_ARCH)):
+        cut = get_config(arch).smoke()
+        model = build_model(cut)
+        params = model.init(torch.Generator(device=device).manual_seed(SEED + 120 + i), device)
+        cpu_params = load_params(params, cpu)
+        window = torch.from_numpy(np.random.default_rng(SEED + 125 + i).integers(
+            0, cut.vocab, (4, 65)).astype(np.int32))
+        batches = {dev: {"tokens": window[:, :-1].to(dev), "labels": window[:, 1:].to(dev)}
+                   for dev in (device, cpu)}
+        with recorded_routes() as seen:
+            diffs = check_step_vs_cpu(f"train step {arch} (smoke)", cut, params, cpu_params,
+                                      batches, device, dtypes=("float32",))
+        n_step = check_routes(f"train step {arch} (smoke)", seen)
+        with recorded_routes() as seen:
+            # 128 positions: the slots' lengths reach 96 over the two waves
+            _e, _s, on_card = serve_requests(f"ServingEngine.serve {arch} (smoke)", model, params,
+                                             128, calls, np.random.default_rng(SEED + 127),
+                                             cut.vocab)
+            _e, _s, on_cpu = serve_requests(f"ServingEngine.serve {arch} (smoke, CPU)", model,
+                                            cpu_params, 128, calls,
+                                            np.random.default_rng(SEED + 127), cut.vocab)
+        if on_card != on_cpu:
+            raise PhaseError(f"serve {arch} (smoke): card tokens {on_card} vs CPU {on_cpu}")
+        n_serve = check_routes(f"serve {arch} (smoke)", seen)
+        log(f"phase 3 ok: {arch}'s smoke cut ({cut.n_layers} layers, d_model {cut.d_model}, "
+            f"{cut.moe.n_experts} experts top-{cut.moe.top_k}, attention {cut.attn_type}), card vs "
+            f"CPU (no TF32): a train step on tokens (4, 64), " + step_diffs_text(diffs)
+            + f"; {SERVE_REQUESTS} requests served to the same tokens; routing equal in all "
+            f"{n_step} + {n_serve} MoE calls (top-k indices, capacity positions, keep masks)")
+        del params, cpu_params
+    torch.cuda.empty_cache()
+    return {"calls": calls, "errs": {}}
+
+
+def phase_moe_resume(device, api, card: str) -> dict:
+    """Phase 3 and 5, a bit-exact resume of ``train_loop("deepseek-v3-671b")``
+    at the reference's smoke cut (MLA, MTP, the aux loss, the dense layer
+    before the MoE stack), as the training phase's: runs A, A, B failing
+    at step 4 after the step-3 exact save, C restarting; every save and
+    restore counted exactly with the entropy kernels held to plain on the
+    embedding's keys."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as T
+
+    calls, errs, timings = {}, {}, []
+    tmp = tempfile.TemporaryDirectory(prefix="hpdr-moe-train-")
+    c, _fc, summary = check_resume(T, DS_ARCH, get_config(DS_ARCH).smoke(), calls, errs, timings,
+                                   device, "params::embed::table", Path(tmp.name) / "ck", "D")
+    log(f"phase 3 ok: resume at the smoke cut, " + summary)
+    log(f"phase 5 [{card}] exact checkpoints of {DS_ARCH}'s smoke-cut training state (host wall, "
+        "synchronised, one run each; the entropy probes after each call not included): "
+        + ", ".join(f"{name} {s:.3f} s ({raw} bytes -> {comp})"
+                    for name, s, raw, comp in timings))
+    del c
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    return {"calls": calls, "errs": errs}
 
 
 def main() -> int:
@@ -4510,6 +4862,16 @@ def main() -> int:
     lap("phase 3 and 5, mamba2 serving")
     vlm = phase_vlm(device, api, card)
     lap("phase 3 and 5, qwen2-vl")
+    GLOBAL_CMM.clear()  # the parked caches' plans: deepseek-v3's forward peaks at ~71 GB
+    torch.cuda.empty_cache()
+    ds = phase_moe_deepseek(device, api, card)
+    lap("phase 3 and 5, deepseek-v3")
+    l4 = phase_moe_llama4(device, api, card)
+    lap("phase 3 and 5, llama4-scout")
+    moe_cpu = phase_moe_vs_cpu(device, api)
+    lap("phase 3, moe card vs CPU")
+    moe_resume = phase_moe_resume(device, api, card)
+    lap("phase 3 and 5, moe resume")
     calibrate.set_calibration_dir(None)
     cal_dir.cleanup()
     for k in huff_kernels:  # the entropy tail runs on the Huffman and the MGARD paths
@@ -4520,7 +4882,8 @@ def main() -> int:
     # launches and checks join every kernel's
     new_paths = {"progressive": prog, "pytree": pyt, "stream": st, "checkpoint": ckpt,
                  "serving": srv, "training": train, "mamba2 training": ssm_train,
-                 "mamba2 serving": ssm_serve, "qwen2-vl": vlm}
+                 "mamba2 serving": ssm_serve, "qwen2-vl": vlm, "deepseek-v3": ds,
+                 "llama4-scout": l4, "moe card vs CPU": moe_cpu, "moe resume": moe_resume}
     for k in kernels + huff_kernels + mgard_kernels:
         for run in new_paths.values():
             k["launches"] += sum(counts[k["name"]] for counts in run["calls"].values())

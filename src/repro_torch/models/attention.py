@@ -1,9 +1,13 @@
-"""GQA attention (counterpart of ``repro.models.attention``, the part the
-dense and vlm families run: ``causal_mask``, ``init_gqa``, ``gqa_qkv``, ``_sdpa``,
-``gqa_attention`` for the training forward and ``gqa_decode``).
+"""GQA and MLA attention (counterpart of ``repro.models.attention``, the
+part the dense, vlm and moe families run: ``causal_mask``, ``init_gqa``,
+``gqa_qkv``, ``_sdpa``, ``gqa_attention`` for the training forward and
+``gqa_decode``; DeepSeek-V3's Multi-head Latent Attention ``init_mla``,
+``_mla_qkv``, ``mla_attention`` and ``mla_decode``).
 
 Shapes: hidden (B, S, D); q/k/v (B, S, H, hd); the KV cache of one layer
-``{"k": (B, S_max, KH, hd), "v": ...}``.  Scores and the softmax run in
+``{"k": (B, S_max, KH, hd), "v": ...}``; MLA's compressed cache of one
+layer ``{"c_kv": (B, S_max, kv_lora_rank), "k_rope": (B, S_max, 1,
+qk_rope_head_dim)}``.  Scores and the softmax run in
 float32, as the reference computes them, with an additive -1e9 mask (no
 ``scaled_dot_product_attention``: its masking and accumulation differ, and
 the reference fuses nothing here).  ``gqa_attention`` takes the VLM
@@ -18,6 +22,14 @@ every step would otherwise copy all of it.  The reference's
 meshes; the masked update computes the same values as the slice write, and
 a replicated cache is refused (it changes the cache's layout, which parked
 containers record).
+
+MLA keeps the reference's expanded form: every decode step expands the
+cached latents of all ``S_max`` slots through ``wkv_b`` to per-head k and v
+(the weight-absorbed form is a performance change the reference leaves as
+an option).  ``mla_decode`` writes the step's latents into the cache in
+place at ``cache_len``, as ``gqa_decode`` does; past the end the write
+lands on the last slot, where the reference's ``dynamic_update_slice``
+clamps it.
 """
 
 from __future__ import annotations
@@ -26,8 +38,8 @@ import math
 
 import torch
 
-from ..configs.base import ModelConfig
-from .layers import apply_mrope, apply_rope, init_linear, linear
+from ..configs.base import MLAConfig, ModelConfig
+from .layers import apply_mrope, apply_rope, init_linear, init_rms_norm, linear, rms_norm
 
 NEG_INF = -1e9
 
@@ -144,5 +156,110 @@ def gqa_decode(
     valid = slot <= int(cache_len)  # ring-full => every slot holds a live token
     mask = torch.where(valid, 0.0, NEG_INF).float()[None, :]  # (1, S)
     out = _sdpa(q, cache["k"], cache["v"], mask, 1.0 / math.sqrt(hd))
+    y = linear(out.reshape(b, 1, -1), p["wo"])
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA: Multi-head Latent Attention (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig, *, lead: tuple = (),
+             dtype=torch.float32) -> dict:
+    m: MLAConfig = cfg.mla
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": init_linear(gen, cfg.d_model, m.q_lora_rank, False, lead=lead, dtype=dtype),
+        "q_norm": init_rms_norm(gen, m.q_lora_rank, lead=lead, dtype=dtype),
+        "wq_b": init_linear(gen, m.q_lora_rank, cfg.n_heads * qk_dim, False, lead=lead,
+                            dtype=dtype),
+        "wkv_a": init_linear(gen, cfg.d_model, m.kv_lora_rank + m.qk_rope_head_dim, False,
+                             lead=lead, dtype=dtype),
+        "kv_norm": init_rms_norm(gen, m.kv_lora_rank, lead=lead, dtype=dtype),
+        "wkv_b": init_linear(gen, m.kv_lora_rank, cfg.n_heads * (m.qk_nope_head_dim + m.v_head_dim),
+                             False, lead=lead, dtype=dtype),
+        "wo": init_linear(gen, cfg.n_heads * m.v_head_dim, cfg.d_model, False, lead=lead,
+                          dtype=dtype),
+    }
+
+
+def _mla_q(x, p, cfg: ModelConfig, positions):
+    """Per-head queries (B, S, H, nope + rope), RoPE on the rope part."""
+    m: MLAConfig = cfg.mla
+    b, s, _ = x.shape
+    q = linear(rms_norm(linear(x, p["wq_a"]), p["q_norm"]["scale"], cfg.norm_eps), p["wq_b"])
+    q = q.reshape(b, s, cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+    return torch.cat([q_nope, apply_rope(q_rope, positions, cfg.rope_theta)], dim=-1)
+
+
+def _mla_latents(x, p, cfg: ModelConfig, positions):
+    """What the cache holds: the normed latents ``c_kv`` (B, S, kv_rank) and
+    the shared rotary key ``k_rope`` (B, S, 1, rope_dim)."""
+    m: MLAConfig = cfg.mla
+    kv_a = linear(x, p["wkv_a"])  # (B, S, kv_rank + rope_dim)
+    c_kv, k_rope = kv_a.split([m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    c_kv = rms_norm(c_kv, p["kv_norm"]["scale"], cfg.norm_eps)
+    return c_kv, apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
+
+
+def _mla_expand(c_kv, k_rope, p, cfg: ModelConfig):
+    """Latents to per-head k (B, S, H, nope + rope) and v (B, S, H, v_dim),
+    in the latents' dtype."""
+    m: MLAConfig = cfg.mla
+    b, s, _ = c_kv.shape
+    h = cfg.n_heads
+    kv = linear(c_kv, p["wkv_b"]).reshape(b, s, h, m.qk_nope_head_dim + m.v_head_dim)
+    k_nope, v = kv.split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+    k_rope_b = k_rope.expand(b, s, h, m.qk_rope_head_dim)
+    return torch.cat([k_nope, k_rope_b], dim=-1), v
+
+
+def _mla_qkv(x, p, cfg: ModelConfig, positions):
+    """Expand MLA latents to per-head q, k, v (the paper's shapes); also
+    returns the latents ``(c_kv, k_rope)``."""
+    c_kv, k_rope = _mla_latents(x, p, cfg, positions)
+    k, v = _mla_expand(c_kv, k_rope, p, cfg)
+    return _mla_q(x, p, cfg, positions), k, v, (c_kv, k_rope)
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    return 1.0 / math.sqrt(cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim)
+
+
+def mla_attention(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                  positions: torch.Tensor | None = None) -> torch.Tensor:
+    """Causal MLA over the whole sequence (the training forward)."""
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
+    q, k, v, _ = _mla_qkv(x, p, cfg, positions)
+    out = _sdpa(q, k, v, causal_mask(s, s, device=x.device), _mla_scale(cfg))
+    return linear(out.reshape(b, s, -1), p["wo"])
+
+
+def mla_decode(
+    x: torch.Tensor,            # (B, 1, D)
+    p: dict,
+    cfg: ModelConfig,
+    cache: dict,                # {"c_kv": (B, S_max, kv_rank), "k_rope": (B, S_max, 1, rope_dim)}
+    cache_len: int,
+) -> tuple[torch.Tensor, dict]:
+    """MLA decode over the *compressed* latent cache (kv_rank + rope_dim
+    floats a token, 576 at DeepSeek-V3, against 2·H·hd = 32768 expanded),
+    written in place at ``cache_len``."""
+    b = x.shape[0]
+    pos = torch.full((b, 1), int(cache_len), dtype=torch.int32, device=x.device)
+    q = _mla_q(x, p, cfg, pos)
+    c_kv_new, k_rope_new = _mla_latents(x, p, cfg, pos)
+    s_max = cache["c_kv"].shape[1]
+    write_pos = min(int(cache_len), s_max - 1)  # dynamic_update_slice clamps its start
+    cache["c_kv"][:, write_pos] = c_kv_new[:, 0].to(cache["c_kv"].dtype)
+    cache["k_rope"][:, write_pos] = k_rope_new[:, 0].to(cache["k_rope"].dtype)
+    k, v = _mla_expand(cache["c_kv"], cache["k_rope"], p, cfg)
+    k_pos = torch.arange(s_max, dtype=torch.int32, device=x.device)[None, :]
+    mask = torch.where(k_pos <= int(cache_len), 0.0, NEG_INF).float()
+    out = _sdpa(q, k, v, mask, _mla_scale(cfg))
     y = linear(out.reshape(b, 1, -1), p["wo"])
     return y, cache

@@ -32,7 +32,9 @@ META = _MetaGenerator()
 def _randn(gen: torch.Generator, shape: tuple, std: float, dtype: torch.dtype) -> torch.Tensor:
     if gen is META:
         return torch.empty(shape, dtype=dtype, device=gen.device)
-    return torch.randn(shape, generator=gen, device=gen.device, dtype=dtype) * std
+    # scaled in place: no second tensor of the draw's size (15 GB for one of
+    # deepseek-v3's float32 expert stacks); the values are the same
+    return torch.randn(shape, generator=gen, device=gen.device, dtype=dtype).mul_(std)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -1,13 +1,15 @@
-"""Model facade: init / train forward / cache / decode for the dense, vlm
-and ssm families (counterpart of ``repro.models.model``).
+"""Model facade: init / train forward / cache / decode for the dense, vlm,
+ssm and moe families (counterpart of ``repro.models.model``).
 
 ``build_model(cfg)`` returns a :class:`Model`.  The port runs the dense
 decoder (qwen2.5-3b, qwen1.5-4b, minicpm-2b with its μP scaling,
 deepseek-67b), the vlm family (qwen2-vl-72b: dense layers, M-RoPE from
 ``batch["positions_3d"]`` over ``batch["embeds"]``, the vision frontend a
-stub as in the reference), the ssm family (mamba2-370m), and their smoke
-cuts; the other families raise ``NotImplementedError`` until they are
-ported (``ROADMAP.md``).
+stub as in the reference), the ssm family (mamba2-370m), the moe family
+(deepseek-v3-671b: MLA, leading dense layers, 256 routed experts and the
+multi-token-prediction head; llama4-scout-17b-a16e: GQA, 16 routed
+experts), and their smoke cuts; the other families raise
+``NotImplementedError`` until they are ported (``ROADMAP.md``).
 
 Entry points run on the card unless the caller names another device
 (``device="cpu"``, as the tests do).
@@ -16,13 +18,17 @@ Conventions, as the reference's: parameters in ``cfg.param_dtype``, compute
 in ``cfg.dtype`` (qwen2.5-3b: bfloat16 over float32 parameters); decode
 takes ``token`` (B,) int and a cache of stacked per-layer ``k``/``v`` of
 shape ``(n_layers, B, S_max, KH, hd)`` (ssm: ``state`` (n_layers, B, H, P,
-N) float32 and ``conv`` (n_layers, B, d_conv - 1, conv_dim)) and returns
-``(logits, cache)``.  The port's ``decode_step`` writes the cache in place
-and returns the same dict (the reference returns an updated copy).
+N) float32 and ``conv`` (n_layers, B, d_conv - 1, conv_dim); moe:
+``{"dense": ..., "moe": ...}``, one such tree for each stack, ``None`` for
+no dense layers, MLA's holding ``c_kv`` (n, B, S_max, kv_rank) and
+``k_rope`` (n, B, S_max, 1, rope_dim)) and returns ``(logits, cache)``.
+The port's ``decode_step`` writes the cache in place and returns the same
+dict (the reference returns an updated copy).
 Training takes ``{"tokens": (B, S) int, "labels": (B, S) int}`` (vlm:
 ``{"embeds": (B, S, D), "positions_3d": (B, S, 3) int, "labels"}``):
-``loss`` returns ``(loss, {"ce", "aux", "loss"})`` and is differentiable in
-the parameters; :meth:`Model.value_and_grad` is the reference's
+``loss`` returns ``(loss, {"ce", "aux", "loss"})`` (with MTP also
+``"mtp_ce"``) and is differentiable in the parameters;
+:meth:`Model.value_and_grad` is the reference's
 ``jax.value_and_grad(model.loss, has_aux=True)``.
 
 :func:`load_params` carries the reference's parameters across: a pytree of
@@ -32,7 +38,7 @@ tensors on a given device, so both packages run on the same weights.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any
 
 import numpy as np
@@ -42,6 +48,7 @@ from ..configs.base import ModelConfig
 from ..core import api
 from ..core import pipeline as pl
 from . import attention as attn
+from . import moe as moe_mod
 from . import ssm as ssm_mod
 from . import transformer as tfm
 from .layers import (
@@ -54,7 +61,7 @@ from .layers import (
     rms_norm,
 )
 
-_PORTED = ("dense", "vlm", "ssm")
+_PORTED = ("dense", "vlm", "ssm", "moe")
 
 
 def _torch_dtype(name: str) -> torch.dtype:
@@ -74,6 +81,8 @@ def _require_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"model family {cfg.family!r} ({cfg.name}) is not ported yet; the port runs "
             f"{_PORTED} (see ROADMAP.md)")
+    if cfg.family == "moe":
+        moe_mod.check_dispatch(cfg)
 
 
 @dataclass(frozen=True)
@@ -98,9 +107,29 @@ class Model:
         }
         if not cfg.tie_embeddings:
             params["head"] = init_linear(generator, cfg.d_model, cfg.vocab, False, dtype=dt)
-        init_layers = tfm.init_ssm_layers if cfg.family == "ssm" else tfm.init_dense_layers
-        params["layers"] = init_layers(generator, cfg.n_layers, cfg, dt)
+        if cfg.family == "moe":
+            nd = cfg.moe.first_dense_layers
+            if nd:
+                params["dense_layers"] = tfm.init_dense_layers(generator, nd,
+                                                               self._dense_ffn_cfg(), dt)
+            params["moe_layers"] = tfm.init_moe_layers(generator, cfg.n_layers - nd, cfg, dt)
+            if cfg.mtp:
+                params["mtp"] = {
+                    "proj": init_linear(generator, 2 * cfg.d_model, cfg.d_model, False, dtype=dt),
+                    "ln_h": init_rms_norm(generator, cfg.d_model, dtype=dt),
+                    "ln_e": init_rms_norm(generator, cfg.d_model, dtype=dt),
+                    "block": _unstacked(tfm.init_dense_layers(generator, 1,
+                                                              self._dense_ffn_cfg(), dt)),
+                }
+        else:
+            init_layers = tfm.init_ssm_layers if cfg.family == "ssm" else tfm.init_dense_layers
+            params["layers"] = init_layers(generator, cfg.n_layers, cfg, dt)
         return params if generator.device == device else load_params(params, device)
+
+    def _dense_ffn_cfg(self) -> ModelConfig:
+        """The moe family's dense layers (and MTP block): FFN width
+        ``moe.d_ff_dense`` where given."""
+        return replace(self.cfg, d_ff=self.cfg.moe.d_ff_dense or self.cfg.d_ff)
 
     def param_shapes(self) -> dict:
         """The parameters' tree on the ``meta`` device: shapes and dtypes,
@@ -128,11 +157,18 @@ class Model:
     # ---------------- backbone ----------------
 
     def _backbone(self, params, x: torch.Tensor, batch) -> tuple[torch.Tensor, torch.Tensor]:
-        """Returns (hidden, aux_loss); the ported families have no auxiliary
-        loss."""
+        """Returns (hidden, aux_loss); the aux loss is the moe layers' sum
+        (0 for the other families)."""
         cfg = self.cfg
         _require_ported(cfg)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if cfg.family == "moe":
+            if "dense_layers" in params:
+                dense_cfg = self._dense_ffn_cfg()
+                x = tfm.scan_stack(x, params["dense_layers"],
+                                   lambda h, lp: tfm.dense_block(h, lp, dense_cfg), cfg.remat)
+            return tfm.scan_stack((x, aux), params["moe_layers"],
+                                  lambda c, lp: tfm.moe_block(c, lp, cfg), cfg.remat)
         if cfg.family == "ssm":
             block = lambda h, lp: tfm.ssm_block(h, lp, cfg)  # noqa: E731
         else:
@@ -144,7 +180,10 @@ class Model:
 
     def loss(self, params, batch) -> tuple[torch.Tensor, dict]:
         """``(loss, {"ce", "aux", "loss"})``: the float32 mean cross-entropy
-        of the next tokens (plus the auxiliary loss, 0 for dense)."""
+        of the next tokens plus the auxiliary loss (the moe layers'; 0
+        otherwise); with MTP (deepseek-v3) plus 0.3 times ``"mtp_ce"``, the
+        cross-entropy of the token after the next from the MTP block over
+        the final hidden state and the next token's embedding."""
         cfg = self.cfg
         _require_ported(cfg)
         x = self._embed_in(params, batch)
@@ -153,7 +192,22 @@ class Model:
         logits = self._head(params, h)
         ce = cross_entropy(logits, batch["labels"])
         total = ce + aux
-        return total, {"ce": ce, "aux": aux, "loss": total}
+        metrics = {"ce": ce, "aux": aux}
+        if cfg.mtp and "mtp" in params:
+            mtp = params["mtp"]
+            labels = batch["labels"]
+            emb_next = embed(labels, params["embed"], h.dtype)
+            merged = torch.cat([rms_norm(h, mtp["ln_h"]["scale"], cfg.norm_eps),
+                                rms_norm(emb_next, mtp["ln_e"]["scale"], cfg.norm_eps)], dim=-1)
+            h2 = tfm.dense_block(linear(merged, mtp["proj"]), mtp["block"], self._dense_ffn_cfg())
+            logits2 = self._head(params, h2)
+            # MTP predicts token t+2: labels shifted left by one
+            mtp_labels = torch.cat([labels[:, 1:], labels[:, -1:]], dim=1)
+            mtp_ce = cross_entropy(logits2[:, :-1], mtp_labels[:, :-1])
+            total = total + 0.3 * mtp_ce
+            metrics["mtp_ce"] = mtp_ce
+        metrics["loss"] = total
+        return total, metrics
 
     def value_and_grad(self, params, batch) -> tuple[tuple[torch.Tensor, dict], dict]:
         """``((loss, metrics), grads)``, ``grads`` a tree like ``params`` (the
@@ -179,19 +233,36 @@ class Model:
         on ``device`` (default: the card): the reference's layout, which
         parked containers record.  ssm: ``{"state": (n_layers, B, H, P, N)
         float32, "conv": (n_layers, B, d_conv - 1, conv_dim) dtype}``, O(1)
-        in ``max_len``."""
+        in ``max_len``.  moe: ``{"dense": stack or None, "moe": stack}``,
+        each stack GQA's ``{"k", "v"}`` or MLA's compressed ``{"c_kv":
+        (n, B, S_max, kv_rank), "k_rope": (n, B, S_max, 1, rope_dim)}``."""
         cfg = self.cfg
         _require_ported(cfg)
-        if cfg.family != "ssm":
+        if cfg.family != "ssm" and cfg.attn_type == "gqa":
             attn.check_cache_layout(cfg)
         device = _device(device)
+        if cfg.family == "moe":
+            def stack(n: int) -> dict:
+                if cfg.attn_type == "mla":
+                    m = cfg.mla
+                    return {"c_kv": torch.zeros((n, batch_size, max_len, m.kv_lora_rank),
+                                                dtype=dtype, device=device),
+                            "k_rope": torch.zeros((n, batch_size, max_len, 1, m.qk_rope_head_dim),
+                                                  dtype=dtype, device=device)}
+                return self._kv(n, batch_size, max_len, dtype, device)
+
+            nd = cfg.moe.first_dense_layers
+            return {"dense": stack(nd) if nd else None, "moe": stack(cfg.n_layers - nd)}
         if cfg.family == "ssm":
             d_inner, h, p_, g, n = ssm_mod._dims(cfg)
             conv_shape = (cfg.n_layers, batch_size, cfg.ssm.d_conv - 1, d_inner + 2 * g * n)
             return {"state": torch.zeros((cfg.n_layers, batch_size, h, p_, n),
                                          dtype=torch.float32, device=device),
                     "conv": torch.zeros(conv_shape, dtype=dtype, device=device)}
-        shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+        return self._kv(cfg.n_layers, batch_size, max_len, dtype, device)
+
+    def _kv(self, n: int, batch_size: int, max_len: int, dtype, device) -> dict:
+        shape = (n, batch_size, max_len, self.cfg.n_kv_heads, self.cfg.resolved_head_dim)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -202,11 +273,22 @@ class Model:
         cfg = self.cfg
         _require_ported(cfg)
         x = self._embed_in(params, {"tokens": token[:, None]})
-        if cfg.family == "ssm":
-            block = lambda h, lp, lc: tfm.ssm_block_decode(h, lp, cfg, lc)  # noqa: E731
-        else:  # vlm decodes on tokens with plain RoPE at cache_len, as the reference
-            block = lambda h, lp, lc: tfm.dense_block_decode(h, lp, cfg, lc, cache_len)  # noqa: E731
-        x, cache = tfm.scan_stack_decode(x, params["layers"], cache, block)
+        if cfg.family == "moe":
+            if "dense_layers" in params:
+                dense_cfg = self._dense_ffn_cfg()
+                x, _ = tfm.scan_stack_decode(
+                    x, params["dense_layers"], cache["dense"],
+                    lambda h, lp, lc: tfm.dense_block_decode(h, lp, dense_cfg, lc, cache_len))
+            x, _ = tfm.scan_stack_decode(
+                x, params["moe_layers"], cache["moe"],
+                lambda h, lp, lc: tfm.moe_block_decode(h, lp, cfg, lc, cache_len))
+        else:
+            if cfg.family == "ssm":
+                block = lambda h, lp, lc: tfm.ssm_block_decode(h, lp, cfg, lc)  # noqa: E731
+            else:  # vlm decodes on tokens with plain RoPE at cache_len, as the reference
+                block = lambda h, lp, lc: tfm.dense_block_decode(  # noqa: E731
+                    h, lp, cfg, lc, cache_len)
+            x, _ = tfm.scan_stack_decode(x, params["layers"], cache, block)
         h = rms_norm(x, params["ln_f"]["scale"], cfg.norm_eps)
         logits = self._head(params, h)[:, 0]
         return logits, cache
@@ -214,6 +296,12 @@ class Model:
 
 def build_model(cfg: ModelConfig) -> Model:
     return Model(cfg)
+
+
+def _unstacked(tree: dict) -> dict:
+    """The one layer of a stack of one (the MTP block is a single dense
+    layer, with no leading axis, as the reference's)."""
+    return {k: _unstacked(v) if isinstance(v, dict) else v[0] for k, v in tree.items()}
 
 
 def _device(device) -> torch.device:

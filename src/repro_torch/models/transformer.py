@@ -1,9 +1,11 @@
 """Decoder-only transformer assembly (counterpart of
-``repro.models.transformer``: the dense, vlm and ssm families' training
-forward and decode path).
+``repro.models.transformer``: the dense, vlm, moe and ssm families'
+training forward and decode path).
 
 dense — [GQA attn + SwiGLU] × L (qwen*, minicpm, deepseek-67b, qwen2-vl: the
         vlm family is the dense block with M-RoPE positions)
+moe   — [attn + MoE-FFN] × L, optional leading dense layers (deepseek-v3:
+        MLA, 3 dense layers first; llama4-scout: GQA, every layer MoE)
 ssm   — [Mamba-2 mixer] × L (mamba2-370m)
 
 Per-layer parameters are stacked along a leading layer axis, as the
@@ -23,6 +25,7 @@ import torch.utils.checkpoint
 
 from ..configs.base import ModelConfig
 from . import attention as attn
+from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .layers import init_rms_norm, init_swiglu, rms_norm, swiglu
 
@@ -34,16 +37,33 @@ def _res_scale(cfg: ModelConfig) -> float:
     return 1.0
 
 
+def _init_attn(gen: torch.Generator, cfg: ModelConfig, lead: tuple, dtype) -> dict:
+    if cfg.attn_type not in ("gqa", "mla"):
+        raise NotImplementedError(f"attention {cfg.attn_type!r} is not ported yet (see "
+                                  "ROADMAP.md); the port runs GQA and MLA")
+    init = attn.init_mla if cfg.attn_type == "mla" else attn.init_gqa
+    return init(gen, cfg, lead=lead, dtype=dtype)
+
+
+def _attention(h, p, cfg: ModelConfig, mrope_positions=None):
+    if cfg.attn_type == "mla":
+        return attn.mla_attention(h, p, cfg)
+    return attn.gqa_attention(h, p, cfg, mrope_positions=mrope_positions)
+
+
+def _attention_decode(h, p, cfg: ModelConfig, cache, cache_len):
+    if cfg.attn_type == "mla":
+        return attn.mla_decode(h, p, cfg, cache, cache_len)
+    return attn.gqa_decode(h, p, cfg, cache, cache_len)
+
+
 def init_dense_layers(gen: torch.Generator, n: int, cfg: ModelConfig,
                       dtype=torch.float32) -> dict:
     """``n`` dense layers' parameters, stacked along a leading axis."""
-    if cfg.attn_type != "gqa":
-        raise NotImplementedError(f"attention {cfg.attn_type!r} is not ported yet (see "
-                                  "ROADMAP.md); the port runs GQA")
     lead = (n,)
     return {
         "ln1": init_rms_norm(gen, cfg.d_model, lead=lead, dtype=dtype),
-        "attn": attn.init_gqa(gen, cfg, lead=lead, dtype=dtype),
+        "attn": _init_attn(gen, cfg, lead, dtype),
         "ln2": init_rms_norm(gen, cfg.d_model, lead=lead, dtype=dtype),
         "mlp": init_swiglu(gen, cfg.d_model, cfg.d_ff, lead=lead, dtype=dtype),
     }
@@ -52,7 +72,7 @@ def init_dense_layers(gen: torch.Generator, n: int, cfg: ModelConfig,
 def dense_block(x, p, cfg: ModelConfig, mrope_positions=None):
     s = _res_scale(cfg)
     h = rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
-    a = attn.gqa_attention(h, p["attn"], cfg, mrope_positions=mrope_positions)
+    a = _attention(h, p["attn"], cfg, mrope_positions)
     x = x + s * a
     h = rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
     x = x + s * swiglu(h, p["mlp"])
@@ -62,11 +82,46 @@ def dense_block(x, p, cfg: ModelConfig, mrope_positions=None):
 def dense_block_decode(x, p, cfg: ModelConfig, cache, cache_len):
     s = _res_scale(cfg)
     h = rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
-    a, cache = attn.gqa_decode(h, p["attn"], cfg, cache, cache_len)
+    a, cache = _attention_decode(h, p["attn"], cfg, cache, cache_len)
     x = x + s * a
     h = rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
     x = x + s * swiglu(h, p["mlp"])
     return x, cache
+
+
+def init_moe_layers(gen: torch.Generator, n: int, cfg: ModelConfig,
+                    dtype=torch.float32) -> dict:
+    """``n`` MoE layers' parameters (attention + routed experts), stacked
+    along a leading axis."""
+    lead = (n,)
+    return {
+        "ln1": init_rms_norm(gen, cfg.d_model, lead=lead, dtype=dtype),
+        "attn": _init_attn(gen, cfg, lead, dtype),
+        "ln2": init_rms_norm(gen, cfg.d_model, lead=lead, dtype=dtype),
+        "moe": moe_mod.init_moe(gen, cfg, lead=lead, dtype=dtype),
+    }
+
+
+def moe_block(x_aux, p, cfg: ModelConfig):
+    """``(x, aux) -> (x', aux + the layer's aux loss)``; no residual scale,
+    as the reference."""
+    x, aux = x_aux
+    h = rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
+    x = x + _attention(h, p["attn"], cfg)
+    h = rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
+    y, aux_l = moe_mod.moe_layer(h, p["moe"], cfg)
+    return x + y, aux + aux_l
+
+
+def moe_block_decode(x, p, cfg: ModelConfig, cache, cache_len):
+    """One MoE layer's decode step, capacity factor 2.0 over the batch's
+    tokens (the reference's; at batch 4 the capacity is 1 an expert)."""
+    h = rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
+    a, cache = _attention_decode(h, p["attn"], cfg, cache, cache_len)
+    x = x + a
+    h = rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
+    y, _ = moe_mod.moe_layer(h, p["moe"], cfg, capacity_factor=2.0)
+    return x + y, cache
 
 
 def init_ssm_layers(gen: torch.Generator, n: int, cfg: ModelConfig,
@@ -110,7 +165,8 @@ def _unstack(tree) -> list:
 
 
 def scan_stack(x, stacked, block_fn: Callable, remat: bool):
-    """``block_fn`` over the stacked layers in order.  ``remat`` recomputes
+    """``block_fn`` over the stacked layers in order, threading ``x`` (a
+    tensor, or the moe stack's ``(x, aux)``).  ``remat`` recomputes
     each block's activations in the backward
     (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``); the
     values are the same either way."""

@@ -51,7 +51,7 @@ def test_config_is_the_reference_s():
         assert asdict(ours) == asdict(theirs)
         assert ours.resolved_head_dim == theirs.resolved_head_dim
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("deepseek-v3-671b")
+        get_config("recurrentgemma-9b")
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("gpt-17")
 
@@ -136,7 +136,7 @@ def test_greedy_decode_is_deterministic(pair):
 
 
 def test_unported_families_raise():
-    cfg = replace(get_config("qwen2.5-3b").smoke(), family="moe")
+    cfg = replace(get_config("qwen2.5-3b").smoke(), family="hybrid")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(cfg).init(torch.Generator(), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -156,6 +156,7 @@ def test_port_imports_no_jax_or_reference_in_a_subprocess():
         "assert 'repro_torch.serving.server' in sys.modules\n"
         "assert 'repro_torch.models.model' in sys.modules\n"
         "assert 'repro_torch.models.ssm' in sys.modules\n"
+        "assert 'repro_torch.models.moe' in sys.modules\n"
         "assert 'repro_torch.launch.train' in sys.modules\n"
         "assert 'repro_torch.optim.adamw' in sys.modules\n"
     )

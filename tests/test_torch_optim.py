@@ -369,7 +369,8 @@ def test_pod_compressed_mean_over_two_gloo_ranks(tmp_path):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "minicpm-2b", "mamba2-370m", "qwen2-vl-72b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "minicpm-2b", "mamba2-370m", "qwen2-vl-72b",
+                                  "deepseek-v3-671b", "llama4-scout-17b-a16e"])
 def test_roofline_counts_flops_and_bytes_match_reference(arch):
     jcfg, cfg = jget_config(arch), get_config(arch)
     jshapes = jax.eval_shape(jbuild(jcfg).init, jax.random.PRNGKey(0))
