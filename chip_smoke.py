@@ -209,7 +209,32 @@ any fails:
      the training phase's float32 tolerances, the same served tokens, every
      routing decision equal call for call); and a bit-exact resume of
      ``train_loop("deepseek-v3-671b")`` at the smoke cut (runs A, A, B, C
-     as above);
+     as above).  The hybrid family — recurrentgemma-9b at full width and
+     depth (38 layers: 12 (rec, rec, attn) superblocks of RG-LRU and local
+     attention sublayers and a 2-layer tail; 9.40B float32 parameters from
+     the seed, bfloat16 compute) served by ``ServingEngine`` (4 slots x
+     4096 positions, the float32 cache: the RG-LRU ``h`` and conv buffers,
+     the attention cache a 2048-slot ring; 8 requests of 32 + 16 tokens),
+     its cache parked as above; the first superblock at full width in
+     float32, 2100 decode steps over a prompt against the forward's
+     last-position logits under ``local_causal_mask`` (the ring wraps at
+     2048; within 1e-3 of 1 + max |logit|); ``train_loop
+     ("recurrentgemma-9b", smoke=False, steps=6, batch=8, seq=128)`` at full
+     width cut to 8 of 38 layers (2 superblocks and the tail, 2.83B
+     parameters, AdamW), its parameters saved with the config's policy
+     (zfp rate 16, ``huffman-bytes`` below 16384 elements) and restored, every
+     ZFP launch inside both calls held to plain, exact leaves bit for bit,
+     zfp leaves within 1e-2 of their largest |value|; the smoke cut card
+     against CPU (a train step, the same served tokens) and a bit-exact
+     resume of ``train_loop("recurrentgemma-9b")`` there.  The encdec
+     family — seamless-m4t-medium at full width and depth (12 + 12 layers,
+     0.88B parameters, bfloat16 compute): 6 steps of ``value_and_grad`` +
+     ``apply_updates_`` on ``enc_embeds`` (8, 512, 1024) and tokens (8,
+     128), ``encode`` of 4 x 512 frames, ``precompute_cross`` and 64 greedy
+     ``decode_step``s, the self-attention cache parked as above, the
+     training state through the config's zfp policy as recurrentgemma's;
+     its smoke cut card against CPU (the loss and gradients, 8 decode
+     steps' logits);
   4. the container bytes round trip on the card (one ZFP, one Huffman, one
      MGARD and one progressive container, and the pytree's containers):
      ``to_bytes`` -> ``from_bytes`` -> decode, bit-identical;
@@ -250,16 +275,19 @@ any fails:
      operations, and each checkpoint save and restore of the depth-2
      state (host wall, one run each); the ssm, vlm and moe phases' step,
      forward, ``value_and_grad`` and decode times, peak memory and park /
-     fetch / restore times; each printed with the card's name and power
-     limit.
+     fetch / restore times; the hybrid and encdec phases' decode steps,
+     serve, window check, training steps, peaks and checkpoint times; each
+     printed with the card's name and power limit.
 
 The last two lines are one JSON object per kernel (``{"kernels": [...]}``;
 the Huffman kernels' times are those of the ``huffman-bytes`` leaf; a
 kernel's launches are summed over every counted main-path call (the ZFP,
 Huffman, MGARD, progressive, pytree, stream, checkpoint, serving,
 training, mamba2 training, mamba2 serving, qwen2-vl, deepseek-v3,
-llama4-scout, moe card vs CPU and moe resume paths; a line before gives
-the last thirteen paths' calls' own), its error the largest of them) and
+llama4-scout, moe card vs CPU, moe resume, recurrentgemma-9b serving and
+training, hybrid smoke cut, seamless-m4t-medium and encdec card vs CPU
+paths; a line before gives the last eighteen paths' calls' own), its error
+the largest of them) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -324,6 +352,7 @@ RACE_CHUNK = 1 << 20                # 4 planes: 128 chunks, the staging copy's e
 HUFF_STREAM_CHUNK = 4 << 20         # 1024 rows of the 4096x4096 weight leaf: 4 chunks
 MGARD_STREAM_ROWS = 57              # 513 = 9 x 57: nine (57, 513, 513) chunks
 CKPT_ROUTING = (21, 8, 20)          # leaves streamed / one-shot zfp / huffman-bytes
+SERVE_LAYERS = 12                   # of qwen2.5-3b's 36: serve() is host-bound a layer at a time
 SERVE_BATCH = 4                     # ServingEngine slots
 SERVE_MAX_LEN = 8192                # cache positions a slot
 SERVE_REQUESTS = 8                  # two waves of requests: the refill path runs
@@ -366,6 +395,17 @@ DS_SERVE_MAX_LEN = 1024             # cache positions a slot (the MLA cache: 576
 L4_ARCH = "llama4-scout-17b-a16e"   # hf:meta-llama/Llama-4-Scout-17B-16E at full width
 L4_LAYERS = 2                       # of 48: 6.47B float32 parameters, 25.9 GB
 L4_BATCH, L4_SEQ = 8, 128
+HYB_ARCH = "recurrentgemma-9b"      # arXiv:2402.19427, hf:google/recurrentgemma-9b at full width
+HYB_SERVE_MAX_LEN = 4096            # positions a slot; the attention cache is the 2048-slot ring
+HYB_TRAIN_LAYERS = 8                # of 38: 2 superblocks + the 2-layer tail, 2.83B parameters
+HYB_WINDOW_STEPS = 2100             # decode steps of the first superblock, past the 2048 window
+HYB_WINDOW_BATCH = 1
+HYB_WINDOW_TOL = 1e-3               # float32: of 1 + max |logit|
+ED_ARCH = "seamless-m4t-medium"     # arXiv:2308.11596, hf:facebook/seamless-m4t-medium
+ED_BATCH, ED_ENC_SEQ, ED_DEC_SEQ = 8, 512, 128
+ED_SERVE_BATCH, ED_DECODE_STEPS = 4, 64
+ED_CHECK_STEPS = 8                  # the smoke cut's decode steps, card vs CPU
+STATE_ERR_TOL = 1e-2                # a lossy state checkpoint: of a leaf's largest |value|
 LOSSY_KERNELS = ("zfp_block.compress_blocks", "zfp_block.decompress_blocks", "histogram.histogram",
                  "huffman_encode.encode_lookup", "huffman_decode.decode_chunks")
 MGARD_KERNELS = {  # name: (TPU kernel it replaces, CUDA source)
@@ -2570,17 +2610,24 @@ def stream_rows(leaf, tuned: dict, device) -> tuple[int, list[int]]:
     return axis, pipe._row_schedule(leaf, axis)
 
 
+def streamed_parts(api, leaf, tuned: dict, device, rate: int):
+    """``leaf`` cut as the stream cuts it: yields ``(axis, start, rows, the
+    chunk through the one-shot api.compress/decompress)``, the stream's
+    decode a chunk at a time."""
+    axis, rows = stream_rows(leaf, tuned, device)
+    start = 0
+    for r in rows:
+        yield axis, start, r, api.decompress(api.compress(leaf.narrow(axis, start, r), "zfp",
+                                                          rate=rate))
+        start += r
+
+
 def streamed_decode(api, leaf, tuned: dict, device, rate: int):
-    """``leaf`` cut as the stream cuts it, each chunk through the one-shot
-    ``api.compress``/``decompress``, concatenated (the stream's decode)."""
+    """The chunks of :func:`streamed_parts` concatenated (the stream's decode)."""
     import torch
 
-    axis, rows = stream_rows(leaf, tuned, device)
-    parts, start = [], 0
-    for r in rows:
-        parts.append(api.decompress(api.compress(leaf.narrow(axis, start, r), "zfp", rate=rate)))
-        start += r
-    return torch.cat(parts, dim=axis)
+    parts = list(streamed_parts(api, leaf, tuned, device, rate))
+    return torch.cat([p for _a, _s, _r, p in parts], dim=parts[0][0])
 
 
 def phase_checkpoint(device, api, tree, card: str) -> dict:
@@ -2979,10 +3026,11 @@ def check_decode_vs_cpu(what: str, cut, params: dict, cpu_params: dict, toks, de
 
 def phase_serving(device, api, prog: dict, st: dict, card: str) -> dict:
     """Phase 3, serving: qwen2.5-3b (hf:Qwen/Qwen2.5-3B) at full width and
-    depth through ``ServingEngine`` (batch 4, 8192 positions, float32 cache,
-    bfloat16 compute over float32 weights from the seed): 8 requests of 32
-    prompt tokens and 16 new tokens, twice on two engines (same tokens);
-    one decode step on the card against the CPU path on a depth-2 cut.  Then
+    SERVE_LAYERS of its 36 layers through ``ServingEngine`` (batch 4, 8192
+    positions, float32 cache, bfloat16 compute over float32 weights from
+    the seed): 8 requests of 32 prompt tokens and 16 new tokens, twice on
+    two engines (same tokens); one decode step on the card against the CPU
+    path on a depth-2 cut.  Then
     ``ReductionService`` on the card: the served cache and 4 long-context
     sessions of 2 tenants parked (zfp rate 12, the default 256 MiB budget,
     so sessions spill), fetched, restored and released; a park whose cache
@@ -3020,7 +3068,7 @@ def phase_serving(device, api, prog: dict, st: dict, card: str) -> dict:
     )
 
     calls, errs = {}, {}
-    cfg = get_config("qwen2.5-3b")
+    cfg = replace(get_config("qwen2.5-3b"), n_layers=SERVE_LAYERS)
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=device).manual_seed(SEED + 60), device)
@@ -3028,7 +3076,7 @@ def phase_serving(device, api, prog: dict, st: dict, card: str) -> dict:
     init_s = time.perf_counter() - t0
     leaves = dict(api.flatten_with_keys(params))
     n_params = sum(v.numel() for v in leaves.values())
-    log(f"phase 3 serving: qwen2.5-3b ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+    log(f"phase 3 serving: qwen2.5-3b ({cfg.n_layers} of 36 layers, d_model {cfg.d_model}, "
         f"{cfg.n_heads} heads of {cfg.resolved_head_dim}, {cfg.n_kv_heads} KV heads, d_ff "
         f"{cfg.d_ff}, vocab {cfg.vocab}, QKV bias, tied embeddings): {n_params} float32 "
         f"parameters ({n_params * 4} bytes) made on the card in {init_s:.2f} s")
@@ -3496,7 +3544,8 @@ def phase_serving_timings(api, srv: dict, card: str) -> None:
     cache_len = int(engine.lens.max())
     step_ms = median_wall_ms(
         lambda: model.decode_step(params, toks, engine.cache, cache_len), runs=TIMED_RUNS)
-    log(f"phase 5 [{card}] serving qwen2.5-3b, batch {SERVE_BATCH}, cache {SERVE_MAX_LEN} "
+    log(f"phase 5 [{card}] serving qwen2.5-3b ({SERVE_LAYERS} of 36 layers), batch "
+        f"{SERVE_BATCH}, cache {SERVE_MAX_LEN} "
         f"positions float32: serve() {ss['new_tokens']} new tokens in {ss['wall_s']:.4f} s "
         f"({ss['tokens_per_s']:.3f} tokens/s, {ss['decode_steps']} decode steps + "
         f"{SERVE_REQUESTS * SERVE_PROMPT} prefill steps); one decode step (host wall, "
@@ -3812,6 +3861,18 @@ def step_diffs_text(diffs: dict) -> str:
         f"{v[3]:.1f} s)" for k, v in diffs.items())
 
 
+@contextlib.contextmanager
+def resized(T, cut):
+    """``train.get_config`` returns ``cut`` while the block runs (the
+    reference example's way to resize a run)."""
+    original = T.get_config
+    T.get_config = lambda name: cut
+    try:
+        yield
+    finally:
+        T.get_config = original
+
+
 def check_resume(T, arch: str, cut, calls: dict, errs: dict, timings: list, device,
                  probe: str, ckpt_dir: Path, label: str, **loop_kw) -> tuple:
     """A resume of ``train_loop(arch)`` at the config ``cut`` (``train.get_config``
@@ -3823,8 +3884,8 @@ def check_resume(T, arch: str, cut, calls: dict, errs: dict, timings: list, devi
     bit (or, were an op nondeterministic, within the spread of the two A
     runs).  Every save and restore counted exactly, the entropy kernels held
     to their plain versions inside each on ``probe``'s keys
-    (:func:`counted_checkpoints`).  Returns ``(C's result, C's flat state, a
-    summary for the log)``."""
+    (:func:`counted_checkpoints`).  Returns ``(C's result, a summary for the
+    log)``."""
     import warnings
 
     import torch
@@ -3832,13 +3893,11 @@ def check_resume(T, arch: str, cut, calls: dict, errs: dict, timings: list, devi
     from repro_torch.checkpoint import manager as ckpt_manager
     from repro_torch.core import api
 
-    original_config = T.get_config
     deterministic = torch.are_deterministic_algorithms_enabled()
-    T.get_config = lambda name: cut
     torch.use_deterministic_algorithms(True, warn_only=True)
     kw = dict(steps=TRAIN_STEPS, smoke=False, log_every=TRAIN_STEPS, **loop_kw)
     try:
-        with warnings.catch_warnings(record=True) as caught:
+        with resized(T, cut), warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             runs = []
             for i in range(2):
@@ -3859,7 +3918,6 @@ def check_resume(T, arch: str, cut, calls: dict, errs: dict, timings: list, devi
                          if "deterministic" in str(w.message)})
     finally:
         torch.use_deterministic_algorithms(deterministic)
-        T.get_config = original_config
     a1, a2 = runs
     fa1, fa2 = (dict(api.flatten_with_keys(r["state"], "::")) for r in runs)
     fc = dict(api.flatten_with_keys(c["state"], "::"))
@@ -3888,7 +3946,7 @@ def check_resume(T, arch: str, cut, calls: dict, errs: dict, timings: list, devi
         f"and restore's launches exact, the entropy kernels == plain inside each on the "
         f"{min(fa1[probe].numel() * fa1[probe].element_size(), ckpt_manager.LOSSLESS_CHUNK_BYTES)} "
         f"byte keys of {probe} (its first chunk where it streams)")
-    return c, fc, summary
+    return c, summary
 
 
 def phase_training(device, api, card: str) -> dict:
@@ -3913,7 +3971,7 @@ def phase_training(device, api, card: str) -> dict:
     import torch
 
     from repro_torch.configs import ShapeConfig, get_config
-    from repro_torch.checkpoint import CheckpointManager, CheckpointPolicy
+    from repro_torch.checkpoint import CheckpointPolicy
     from repro_torch.data import DataConfig, SyntheticLMStream
     from repro_torch.launch import train as T
     from repro_torch.models import build_model, load_params
@@ -3999,49 +4057,22 @@ def phase_training(device, api, card: str) -> dict:
     root = Path(tmp.name)
     timings: list = []
     probe = "params::embed::table"  # streamed in 128 MiB chunks: 2^27 byte keys each
-    c, fc, summary = check_resume(T, TRAIN_ARCH, cut, calls, errs, timings, device, probe,
-                                  root / "ck", "A")
+    c, summary = check_resume(T, TRAIN_ARCH, cut, calls, errs, timings, device, probe,
+                              root / "ck", "A")
     log(f"phase 3 ok: resume at depth {TRAIN_CUT_LAYERS}, full width, " + summary)
     torch.cuda.empty_cache()
     lap("resume")
 
     # -- C's state through the default (zfp) policy -------------------------
-    lossy = CheckpointManager(root / "lossy", CheckpointPolicy())
-    with counted_checkpoints(calls, errs, timings, device, hold=LOSSY_KERNELS):
-        manifest = lossy.save(TRAIN_STEPS, c["state"])
-        restored, _ = lossy.restore(TRAIN_STEPS)
-    policy = lossy.policy
-    worst, kinds = 0.0, {"streamed": 0, "zfp": 0, "huffman-bytes": 0}
-    for k, x in fc.items():
-        e, got = manifest["leaves"][k], restored[k]
-        if got.device != device or got.dtype != x.dtype or got.shape != x.shape:
-            raise PhaseError(f"lossy checkpoint {k}: restored {got.device} {got.dtype} "
-                             f"{tuple(got.shape)}")
-        if e.get("tuned"):
-            want, kind = streamed_decode(api, x, e["tuned"], device, policy.zfp_rate), "streamed"
-        elif x.dtype.is_floating_point and x.numel() >= policy.lossless_small:
-            want = api.decompress_leaf(api.compress_leaf(x, "zfp", rate=policy.zfp_rate))
-            kind = "zfp"
-        else:
-            want, kind = x, "huffman-bytes"
-        kinds[kind] += 1
-        if not same_bits(got, want):
-            raise PhaseError(f"lossy checkpoint {k} ({kind}): restored values differ from the "
-                             "decode of the same containers")
-        if kind != "huffman-bytes" and x.numel():
-            span = float(x.max() - x.min())
-            worst = max(worst, float((got - x).abs().max()) / span if span else 0.0)
-    log(f"phase 3 ok: C's state saved with the default policy (zfp rate {policy.zfp_rate}) and "
-        f"restored: {kinds} leaves, each == the one-shot or streamed decode of its containers "
-        f"(max |error| {worst:.3e} of a leaf's range), launches exact; inside both calls every "
-        f"launch of {', '.join(LOSSY_KERNELS)} == its plain version on the same inputs "
-        f"(tolerance 0)")
+    summary = check_state_checkpoint(TRAIN_ARCH, CheckpointPolicy(), c["state"], calls, errs,
+                                     timings, device, root / "lossy")
+    log("phase 3 ok: C's state, with the default policy, " + summary)
     log(f"phase 5 [{card}] checkpoints of the depth-{TRAIN_CUT_LAYERS} training state (host wall, "
         "synchronised, one run each; filesystem " + fs_type(root) + "; a held call's seconds "
         "include its plain versions): " + ", ".join(
             f"{name} {s:.3f} s ({raw} bytes -> {comp}, {raw / s / 1e9:.3f} GB/s of the state)"
             for name, s, raw, comp in timings))
-    del c, fc, restored
+    del c
     tmp.cleanup()
     torch.cuda.empty_cache()
     lap("lossy checkpoint")
@@ -4140,7 +4171,7 @@ def phase_ssm_training(device, api, card: str) -> dict:
     # -- resume at depth 4, bit for bit, from exact checkpoints --------------
     tmp = tempfile.TemporaryDirectory(prefix="hpdr-ssm-train-")
     timings: list = []
-    c, _fc, summary = check_resume(
+    c, summary = check_resume(
         T, SSM_ARCH, replace(cfg, n_layers=SSM_RESUME_LAYERS), calls, errs, timings, device,
         "params::embed::table", Path(tmp.name) / "ck", "M", batch=SSM_BATCH, seq=SSM_SEQ)
     log(f"phase 3 ok: resume at depth {SSM_RESUME_LAYERS}, full width, batch {SSM_BATCH} x "
@@ -4192,7 +4223,8 @@ def park_served_cache(arch: str, cache, calls: dict, errs: dict, times: dict) ->
             if where == "spilled":
                 store.cache.evict(key)
             flat = timed(f"KVPageStore.fetch ({where})", lambda: store.fetch(arch), {})
-            blobs[where] = {k: c.to_bytes() if hasattr(c, "to_bytes") else c.cpu().numpy().tobytes()
+            blobs[where] = {k: c.to_bytes() if hasattr(c, "to_bytes") else
+                            (c.cpu().numpy() if isinstance(c, torch.Tensor) else c).tobytes()
                             for k, c in flat.items()}
             restored = timed(f"KVPageStore.restore ({where})", lambda: store.restore(arch, cache),
                              {"zfp_block.decompress_blocks": nb})
@@ -4732,8 +4764,8 @@ def phase_moe_resume(device, api, card: str) -> dict:
 
     calls, errs, timings = {}, {}, []
     tmp = tempfile.TemporaryDirectory(prefix="hpdr-moe-train-")
-    c, _fc, summary = check_resume(T, DS_ARCH, get_config(DS_ARCH).smoke(), calls, errs, timings,
-                                   device, "params::embed::table", Path(tmp.name) / "ck", "D")
+    c, summary = check_resume(T, DS_ARCH, get_config(DS_ARCH).smoke(), calls, errs, timings,
+                              device, "params::embed::table", Path(tmp.name) / "ck", "D")
     log(f"phase 3 ok: resume at the smoke cut, " + summary)
     log(f"phase 5 [{card}] exact checkpoints of {DS_ARCH}'s smoke-cut training state (host wall, "
         "synchronised, one run each; the entropy probes after each call not included): "
@@ -4743,6 +4775,489 @@ def phase_moe_resume(device, api, card: str) -> dict:
     tmp.cleanup()
     torch.cuda.empty_cache()
     return {"calls": calls, "errs": errs}
+
+
+def ckpt_policy(cfg):
+    """The checkpoint policy a model config names: ``ckpt_compress`` at
+    ``ckpt_rate`` (zfp), the rest the defaults."""
+    from repro_torch.checkpoint import CheckpointPolicy
+
+    return CheckpointPolicy(float_method=cfg.ckpt_compress, zfp_rate=cfg.ckpt_rate)
+
+
+def check_state_checkpoint(what: str, policy, state: dict, calls: dict, errs: dict,
+                           timings: list, device, ckpt_dir: Path) -> str:
+    """A training state saved under ``policy`` and restored: every launch of
+    both calls counted exactly and every launch of LOSSY_KERNELS inside them
+    held to its plain version on the same inputs (tolerance 0); each
+    restored leaf on the card in its dtype and shape and bit for bit the
+    one-shot or streamed decode of its containers (an exact leaf: itself),
+    compared a stream chunk at a time, since a state and its restore may
+    fill most of the card; the lossy leaves within STATE_ERR_TOL of the
+    leaf's largest |value|.  Returns the log line's tail."""
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import api
+
+    mgr = CheckpointManager(ckpt_dir, policy)
+    before = len(timings)
+    torch.cuda.reset_peak_memory_stats()
+    with counted_checkpoints(calls, errs, timings, device, hold=LOSSY_KERNELS):
+        manifest = mgr.save(TRAIN_STEPS, state)
+        restored, _ = mgr.restore(TRAIN_STEPS)
+    worst, kinds = 0.0, {"streamed": 0, "zfp": 0, "huffman-bytes": 0}
+    for k, x in api.flatten_with_keys(state, "::"):
+        e, got = manifest["leaves"][k], restored.pop(k)
+        if got.device != device or got.dtype != x.dtype or got.shape != x.shape:
+            raise PhaseError(f"{what} checkpoint {k}: restored {got.device} {got.dtype} "
+                             f"{tuple(got.shape)}")
+        if e.get("tuned"):
+            kind = "streamed"
+            parts = ((got.narrow(a, s, r), x.narrow(a, s, r), want)
+                     for a, s, r, want in streamed_parts(api, x, e["tuned"], device,
+                                                         policy.zfp_rate))
+        elif x.dtype.is_floating_point and x.numel() >= policy.lossless_small:
+            kind = "zfp"
+            parts = [(got, x, api.decompress_leaf(api.compress_leaf(x, "zfp",
+                                                                    rate=policy.zfp_rate)))]
+        else:
+            kind, parts = "huffman-bytes", [(got, x, x)]
+        kinds[kind] += 1
+        scale = max(float(x.abs().max()), 1e-30) if kind != "huffman-bytes" else 0.0
+        for g, xs, want in parts:
+            if not same_bits(g, want):
+                raise PhaseError(f"{what} checkpoint {k} ({kind}): restored values differ from "
+                                 "the decode of the same containers")
+            if scale:
+                worst = max(worst, float((g - xs).abs().max()) / scale)
+    if not worst <= STATE_ERR_TOL:
+        raise PhaseError(f"{what} checkpoint: max |error| {worst:.3e} of a leaf's largest "
+                         f"|value| > {STATE_ERR_TOL}")
+    raw, comp = manifest["raw_bytes"], manifest["compressed_bytes"]
+    peak = torch.cuda.max_memory_allocated()
+    del restored
+    torch.cuda.empty_cache()
+    held = ", ".join(f"{name} {s:.3f} s" for name, s, _r, _c in timings[before:])
+    return (f"saved ({policy.float_method} rate {policy.zfp_rate}: {raw} bytes -> {comp}) and "
+            f"restored: {kinds} leaves, each == the one-shot or streamed decode of its "
+            f"containers (max |error| {worst:.3e} of a leaf's largest |value|, <= "
+            f"{STATE_ERR_TOL}), "
+            f"launches exact; inside both calls every launch of {', '.join(LOSSY_KERNELS)} == "
+            f"its plain version on the same inputs (tolerance 0); {held} (host wall, the held "
+            f"plain versions included); peak torch.cuda.max_memory_allocated {peak} bytes")
+
+
+def phase_hybrid_serving(device, api, card: str) -> dict:
+    """Phase 3 and 5, the hybrid family served at recurrentgemma-9b's full
+    width and depth (38 layers: 12 ``(rec, rec, attn)`` superblocks and a
+    2-layer tail; d_model 4096, lru_width 4096, 16 heads of 256 with one KV
+    head, local window 2048, d_ff 12288, vocab 256000; 9.40B float32
+    parameters from the seed, bfloat16 compute): ``ServingEngine`` with 4
+    slots x 4096 positions (float32 cache: the RG-LRU ``h`` and conv
+    buffers, the attention cache a 2048-slot ring), 8 requests of 32 + 16
+    tokens; the served cache parked in a ``KVPageStore`` at zfp rate 12,
+    fetched and restored resident and after a spill, every ZFP launch held
+    to plain; then the window at full width: the first superblock (3
+    layers, float32 compute), HYB_WINDOW_STEPS decode steps over a prompt
+    (the ring wraps at 2048) against the forward's last-position logits
+    under ``local_causal_mask``; times."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import rms_norm
+
+    calls, errs, times = {}, {}, {}
+    cfg = get_config(HYB_ARCH)
+    model = build_model(cfg)
+    reset_peak(f"{HYB_ARCH} serving")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=device).manual_seed(SEED + 130), device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for _k, x in api.flatten_with_keys(params))
+    rng = np.random.default_rng(SEED + 131)
+    eng, stats, tokens = serve_requests(f"ServingEngine.serve {HYB_ARCH}", model, params,
+                                        HYB_SERVE_MAX_LEN, calls, rng, cfg.vocab)
+    ring = tuple(eng.cache["attn"]["k"].shape)
+    if ring[2] != cfg.hybrid.window or len(params["tail"]) != cfg.n_layers % 3:
+        raise PhaseError(f"{HYB_ARCH}: attention cache {ring}, tail {len(params['tail'])}")
+    decode_ms = decode_step_ms(eng)
+    peak_serve = torch.cuda.max_memory_allocated()
+    h = cfg.hybrid
+    log(f"phase 3 ok: serve {HYB_ARCH} at full width and depth ({cfg.n_layers} layers: "
+        f"{cfg.n_layers // 3} (rec, rec, attn) superblocks + {cfg.n_layers % 3} rec; d_model "
+        f"{cfg.d_model}, lru_width {h.lru_width}, {cfg.n_heads} heads of "
+        f"{cfg.resolved_head_dim}, {cfg.n_kv_heads} KV head, window {h.window}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab}; {n_params} float32 parameters from the seed, {cfg.dtype} compute): "
+        f"{SERVE_REQUESTS} requests x ({SERVE_PROMPT} + {SERVE_NEW}) on {SERVE_BATCH} slots of "
+        f"{HYB_SERVE_MAX_LEN} positions (float32 cache: h {tuple(eng.cache['rec_a']['h'].shape)}, "
+        f"conv {tuple(eng.cache['rec_a']['conv'].shape)}, the attention ring {ring}, tail "
+        f"{tuple(eng.cache['tail']['h'].shape)}), {stats['decode_steps']} decode steps after "
+        f"prefill, tokens in the vocabulary (first request {tokens[0]}); no kernel launched")
+    park = park_served_cache(HYB_ARCH, eng.cache, calls, errs, times)
+    log(f"phase 3 ok: {HYB_ARCH}'s served cache (" + park)
+    del eng
+
+    # -- the window at full width: decode past the ring against the forward --
+    cut = replace(cfg, n_layers=3, dtype="float32")
+    m32 = build_model(cut)
+    sub = {"embed": params["embed"], "ln_f": params["ln_f"], "tail": [],
+           "super": _layer_of(params["super"], slice(0, 1))}
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (HYB_WINDOW_BATCH, HYB_WINDOW_STEPS))
+                              .astype(np.int32)).to(device)
+
+    def decode_over_prompt():
+        cache = m32.init_cache(HYB_WINDOW_BATCH, HYB_WINDOW_STEPS, torch.float32, device)
+        for i in range(HYB_WINDOW_STEPS):
+            logits, cache = m32.decode_step(sub, prompt[:, i], cache, i)
+        return logits, tuple(cache["attn"]["k"].shape)
+
+    def forward_last():
+        with torch.no_grad():
+            hid, _ = m32._backbone(sub, m32._embed_in(sub, {"tokens": prompt}), {})
+            hid = rms_norm(hid, sub["ln_f"]["scale"], cut.norm_eps)
+            return m32._head(sub, hid[:, -1:])[:, 0]
+
+    t0 = time.perf_counter()
+    (by_decode, ring), calls["decode steps past the window"] = counted(
+        "decode steps past the window", decode_over_prompt, {})
+    window_s = time.perf_counter() - t0
+    by_forward, calls["forward under the local mask"] = counted(
+        "forward under the local mask", forward_last, {})
+    diff = float((by_decode - by_forward).abs().max())
+    bound = HYB_WINDOW_TOL * (1.0 + float(by_forward.abs().max()))
+    if not diff <= bound or ring[2] != h.window:
+        raise PhaseError(f"{HYB_ARCH}: {HYB_WINDOW_STEPS} decode steps (ring {ring}) vs the "
+                         f"forward's last logits: max |difference| {diff:.4e} > {bound:.4e}")
+    log(f"phase 3 ok: {HYB_ARCH}'s first superblock at full width, float32: {HYB_WINDOW_STEPS} "
+        f"decode steps over a prompt (batch {HYB_WINDOW_BATCH}; the {h.window}-slot ring wraps at "
+        f"step {h.window}) give the forward's last-position logits under local_causal_mask "
+        f"within {diff:.4e} <= {bound:.4e} ({HYB_WINDOW_TOL} x (1 + max |logit|)); no kernel "
+        "launched")
+    log(f"phase 5 [{card}] {HYB_ARCH} full width and depth: init {init_s:.3f} s; decode step "
+        f"(batch {SERVE_BATCH}, {cfg.dtype} compute, float32 cache) median of {TIMED_RUNS} "
+        f"{decode_ms:.4f} ms (host wall, synchronised) = {SERVE_BATCH / decode_ms * 1e3:.3f} "
+        f"tokens/s; serve {stats['new_tokens']} new tokens in {stats['wall_s']:.3f} s with "
+        f"prefill; peak torch.cuda.max_memory_allocated {peak_serve} bytes; " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in times.items())
+        + " (host wall, one run each, the held plain versions included); the window check's "
+        f"{HYB_WINDOW_STEPS} float32 decode steps of 3 layers {window_s:.3f} s")
+    del params, sub, by_decode, by_forward
+    torch.cuda.empty_cache()
+    return {"calls": calls, "errs": errs}
+
+
+def phase_hybrid_training(device, api, card: str) -> dict:
+    """Phase 3 and 5, the hybrid family trained: ``train_loop
+    ("recurrentgemma-9b", smoke=False, steps=6, batch=8, seq=128)`` at full
+    width cut to HYB_TRAIN_LAYERS of 38 layers (2 superblocks and the
+    2-layer tail: the superblock's shape and the tail kept; 2.83B float32
+    parameters from the seed, bfloat16 compute, float32 AdamW moments);
+    step times, tokens/s, model-FLOP share and peak memory, no kernel
+    launched; then the whole state (parameters and AdamW moments, 34.0 GB)
+    saved with the config's zfp policy and restored
+    (:func:`check_state_checkpoint`)."""
+    import tempfile
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import train as T
+    from repro_torch.models import build_model
+    from repro_torch.runtime import roofline
+
+    calls, errs, timings = {}, {}, []
+    cfg = replace(get_config(HYB_ARCH), n_layers=HYB_TRAIN_LAYERS)
+    model = build_model(cfg)
+    n_params = sum(x.numel() for _k, x in api.flatten_with_keys(model.param_shapes()))
+    reset_peak(f"train_loop {HYB_ARCH} at depth {HYB_TRAIN_LAYERS}")
+    what = f"train_loop {HYB_ARCH} (depth {HYB_TRAIN_LAYERS}, {TRAIN_STEPS} steps)"
+    t0 = time.perf_counter()
+    with resized(T, cfg):
+        out, calls[what] = counted(what, lambda: T.train_loop(
+            HYB_ARCH, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, smoke=False,
+            log_every=1), {})
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses, finite = out["losses"], out["finite"]
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses) or not all(finite):
+        raise PhaseError(f"{what}: losses {losses}, finite {finite}")
+    step_s = statistics.median(out["step_s"][-TRAIN_TIMED:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    counts = roofline.count_params(model.param_shapes())
+    flops = roofline.model_flops(cfg, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+                                 counts)["model_flops"]
+    log(f"phase 3 ok: train_loop({HYB_ARCH!r}, smoke=False, steps={TRAIN_STEPS}, "
+        f"batch={TRAIN_BATCH}, seq={TRAIN_SEQ}) at full width, {HYB_TRAIN_LAYERS} of 38 layers "
+        f"({cfg.n_layers // 3} superblocks + {cfg.n_layers % 3} rec), {n_params} float32 "
+        f"parameters, {cfg.dtype} compute, float32 moments; losses "
+        f"{[round(x, 4) for x in losses]} all finite, every step's update applied; no kernel "
+        "launched")
+    log(f"phase 5 [{card}] training {HYB_ARCH} full width, depth {HYB_TRAIN_LAYERS}, {tokens} "
+        f"tokens a step: step times {[round(x * 1e3, 2) for x in out['step_s']]} ms (host wall, "
+        f"each ending in the loss's read); median of the last {TRAIN_TIMED} {step_s * 1e3:.4f} "
+        f"ms = {tokens / step_s:.3f} tokens/s; model FLOPs (6·N·D + local attention, N = "
+        f"{counts['other']} without the embedding) {flops:.6e} a step = "
+        f"{flops / step_s / 1e12:.4f} TFLOP/s, {flops / step_s / roofline.PEAK_FLOPS:.4f} of "
+        f"{roofline.PEAK_FLOPS / 1e12:.0f} TFLOP/s; peak torch.cuda.max_memory_allocated {peak} "
+        f"bytes; the run {wall_s:.2f} s with init")
+    state = out.pop("state")
+    del out
+    torch.cuda.empty_cache()
+    tmp = tempfile.TemporaryDirectory(prefix="hpdr-hybrid-train-")
+    summary = check_state_checkpoint(HYB_ARCH, ckpt_policy(cfg), state, calls, errs, timings,
+                                     device, Path(tmp.name) / "ck")
+    del state
+    log(f"phase 3 ok: {HYB_ARCH}'s depth-{HYB_TRAIN_LAYERS} training state, with the config's "
+        "policy, " + summary)
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    return {"calls": calls, "errs": errs}
+
+
+def phase_hybrid_smoke(device, api, card: str) -> dict:
+    """Phase 3 and 5, the hybrid family's smoke cut (one superblock and a
+    1-layer tail, window 32), float32, no TF32: a train step on the card
+    against the CPU on tokens (4, 64) (past the window; the training
+    phase's float32 tolerances), the same 8 requests served to the same
+    tokens on both, and a bit-exact resume of ``train_loop
+    ("recurrentgemma-9b")`` at the cut (runs A, A, B, C as the training
+    phase's), every exact save and restore counted with the entropy kernels
+    held to plain on the embedding's keys."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as T
+    from repro_torch.models import build_model, load_params
+
+    calls, errs, timings = {}, {}, []
+    cpu = torch.device("cpu")
+    cut = get_config(HYB_ARCH).smoke()
+    model = build_model(cut)
+    params = model.init(torch.Generator(device=device).manual_seed(SEED + 135), device)
+    cpu_params = load_params(params, cpu)
+    window = torch.from_numpy(np.random.default_rng(SEED + 136).integers(
+        0, cut.vocab, (4, 65)).astype(np.int32))
+    batches = {dev: {"tokens": window[:, :-1].to(dev), "labels": window[:, 1:].to(dev)}
+               for dev in (device, cpu)}
+    diffs = check_step_vs_cpu(f"train step {HYB_ARCH} (smoke)", cut, params, cpu_params, batches,
+                              device, dtypes=("float32",))
+    _e, _s, on_card = serve_requests(f"ServingEngine.serve {HYB_ARCH} (smoke)", model, params,
+                                     128, calls, np.random.default_rng(SEED + 137), cut.vocab)
+    _e, _s, on_cpu = serve_requests(f"ServingEngine.serve {HYB_ARCH} (smoke, CPU)", model,
+                                    cpu_params, 128, calls, np.random.default_rng(SEED + 137),
+                                    cut.vocab)
+    if on_card != on_cpu:
+        raise PhaseError(f"serve {HYB_ARCH} (smoke): card tokens {on_card} vs CPU {on_cpu}")
+    log(f"phase 3 ok: {HYB_ARCH}'s smoke cut ({cut.n_layers} layers, d_model {cut.d_model}, "
+        f"lru_width {cut.hybrid.lru_width}, window {cut.hybrid.window}), card vs CPU (no TF32): "
+        "a train step on tokens (4, 64), " + step_diffs_text(diffs)
+        + f"; {SERVE_REQUESTS} requests served to the same tokens")
+    del params, cpu_params
+    tmp = tempfile.TemporaryDirectory(prefix="hpdr-hybrid-resume-")
+    c, summary = check_resume(T, HYB_ARCH, cut, calls, errs, timings, device,
+                              "params::embed::table", Path(tmp.name) / "ck", "H")
+    log("phase 3 ok: resume at the smoke cut, " + summary)
+    log(f"phase 5 [{card}] exact checkpoints of {HYB_ARCH}'s smoke-cut training state (host "
+        "wall, synchronised, one run each; the entropy probes after each call not included): "
+        + ", ".join(f"{name} {s:.3f} s ({raw} bytes -> {comp})"
+                    for name, s, raw, comp in timings))
+    del c
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    return {"calls": calls, "errs": errs}
+
+
+def encdec_batch(cfg, b: int, s_enc: int, s_dec: int, device, seed: int) -> dict:
+    """``{"enc_embeds": (b, s_enc, D) N(0, 1) float32, "tokens", "labels":
+    (b, s_dec)}`` made on ``device`` from ``seed``."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab, (b, s_dec + 1), device=device, dtype=torch.int32,
+                         generator=gen)
+    return {"enc_embeds": torch.randn((b, s_enc, cfg.d_model), device=device, generator=gen),
+            "tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def encdec_decode(model, params, enc_embeds, steps: int, first) -> tuple:
+    """``encode`` of ``enc_embeds`` (in the compute dtype), ``precompute_cross``
+    into a float32 cache of ``steps`` positions, then ``steps`` greedy
+    ``decode_step``s from the tokens ``first``: returns (cache, the tokens
+    fed at each step, each step's logits)."""
+    import torch
+
+    from repro_torch.models import encdec
+
+    cfg = model.cfg
+    with torch.no_grad():
+        memory = encdec.encode(params, enc_embeds.to(getattr(torch, cfg.dtype)), cfg)
+        cache = model.init_cache(enc_embeds.shape[0], steps, torch.float32, enc_embeds.device)
+        cache["cross_k"], cache["cross_v"] = encdec.precompute_cross(params, memory, cfg)
+    tok, fed, logits = first, [], []
+    for i in range(steps):
+        fed.append(tok)
+        out, cache = model.decode_step(params, tok, cache, i)
+        logits.append(out)
+        tok = torch.argmax(out, dim=-1).to(torch.int32)
+    return cache, fed, logits
+
+
+def phase_encdec(device, api, card: str) -> dict:
+    """Phase 3 and 5, the encdec family at seamless-m4t-medium's full width
+    and depth (12 encoder and 12 decoder layers, d_model 1024, 16 heads of
+    64, d_ff 4096, vocab 256206, an untied head; 0.88B float32 parameters
+    from the seed, bfloat16 compute; the audio frontend a stub, as in the
+    reference): 6 steps of ``value_and_grad`` + ``apply_updates_`` (AdamW,
+    float32 moments) on ``enc_embeds`` (8, 512, 1024) and tokens (8, 128)
+    (the reference's ``train_loop`` has no ``enc_embeds``); ``encode`` of 4
+    x 512 frames, ``precompute_cross`` and ED_DECODE_STEPS greedy
+    ``decode_step``s; the self-attention cache parked through ZFP,
+    resident and spilled; the training state saved with the config's zfp
+    policy and restored (:func:`check_state_checkpoint`); times and peak
+    memory."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as T
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, schedule
+
+    calls, errs, times, timings = {}, {}, {}, []
+    cfg = get_config(ED_ARCH)
+    model = build_model(cfg)
+    reset_peak(f"{ED_ARCH} training")
+    params = model.init(torch.Generator(device=device).manual_seed(SEED + 140), device)
+    n_params = sum(x.numel() for _k, x in api.flatten_with_keys(params))
+    opt_cfg = adamw.AdamWConfig()
+    opt = adamw.init_state(params, opt_cfg)
+    step_fn = T.make_train_step(model, opt_cfg, schedule.cosine, 3e-4, TRAIN_STEPS)
+    batch = encdec_batch(cfg, ED_BATCH, ED_ENC_SEQ, ED_DEC_SEQ, device, SEED + 141)
+
+    def train():
+        losses, finite, step_s = [], [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            met = step_fn(params, opt, batch)
+            losses.append(float(met["loss"]))
+            step_s.append(time.perf_counter() - t0)
+            finite.append(bool(met["finite"]))
+        return losses, finite, step_s
+
+    what = f"value_and_grad + apply_updates_ {ED_ARCH} ({TRAIN_STEPS} steps)"
+    (losses, finite, step_s), calls[what] = counted(what, train, {})
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses) or not all(finite):
+        raise PhaseError(f"{what}: losses {losses}, finite {finite}")
+    log(f"phase 3 ok: {ED_ARCH} at full width and depth ({cfg.n_enc_layers} encoder + "
+        f"{cfg.n_dec_layers} decoder layers, d_model {cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; {n_params} float32 "
+        f"parameters from the seed, {cfg.dtype} compute): {TRAIN_STEPS} steps of "
+        f"value_and_grad + apply_updates_ (AdamW, float32 moments) on enc_embeds "
+        f"{tuple(batch['enc_embeds'].shape)} and tokens {tuple(batch['tokens'].shape)}: losses "
+        f"{[round(x, 4) for x in losses]} all finite; no kernel launched")
+    del batch
+
+    frames = torch.randn((ED_SERVE_BATCH, ED_ENC_SEQ, cfg.d_model), device=device,
+                         generator=torch.Generator(device=device).manual_seed(SEED + 142))
+    first = torch.zeros(ED_SERVE_BATCH, dtype=torch.int32, device=device)
+    t0 = time.perf_counter()
+    (cache, fed, logits), calls["encode + precompute_cross + decode"] = counted(
+        "encode + precompute_cross + decode",
+        lambda: encdec_decode(model, params, frames, ED_DECODE_STEPS, first), {})
+    decode_s = time.perf_counter() - t0
+    toks = torch.stack(fed, dim=1)
+    if not all(bool(torch.isfinite(x).all()) for x in logits) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise PhaseError(f"{ED_ARCH} decode: non-finite logits or tokens out of the vocabulary")
+    step_ms = median_wall_ms(lambda: model.decode_step(params, fed[-1], cache,
+                                                       ED_DECODE_STEPS - 1))
+    log(f"phase 3 ok: {ED_ARCH}: encode of {ED_SERVE_BATCH} x {ED_ENC_SEQ} frames, "
+        f"precompute_cross (cross K/V {tuple(cache['cross_k'].shape)} {cache['cross_k'].dtype}) "
+        f"and {ED_DECODE_STEPS} greedy decode steps (self-attention cache "
+        f"{tuple(cache['k'].shape)} float32): logits finite, tokens in the vocabulary (first "
+        f"sequence {toks[0, 1:9].tolist()}...); no kernel launched")
+    park = park_served_cache(ED_ARCH, {"k": cache["k"], "v": cache["v"]}, calls, errs, times)
+    log(f"phase 3 ok: {ED_ARCH}'s self-attention cache (the bfloat16 cross K/V stay: the store "
+        "passes them raw and a spilled raw bfloat16 leaf does not restore; " + park)
+    del cache, fed, logits, frames
+    log(f"phase 5 [{card}] {ED_ARCH} full width and depth: a step of {ED_BATCH} x ({ED_ENC_SEQ} "
+        f"frames + {ED_DEC_SEQ} tokens) {[round(x * 1e3, 2) for x in step_s]} ms (host wall, "
+        f"each ending in the loss's read), median of the last {TRAIN_TIMED} "
+        f"{statistics.median(step_s[-TRAIN_TIMED:]) * 1e3:.4f} ms; peak "
+        f"torch.cuda.max_memory_allocated {peak} bytes; encode + precompute_cross + "
+        f"{ED_DECODE_STEPS} decode steps {decode_s:.3f} s, one decode step (batch "
+        f"{ED_SERVE_BATCH}) median of {TIMED_RUNS} {step_ms:.4f} ms (host wall, synchronised); "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+        + " (host wall, one run each, the held plain versions included)")
+    tmp = tempfile.TemporaryDirectory(prefix="hpdr-encdec-train-")
+    state = {"params": params, "opt": opt}
+    del params, opt
+    summary = check_state_checkpoint(ED_ARCH, ckpt_policy(cfg), state, calls, errs, timings,
+                                     device, Path(tmp.name) / "ck")
+    del state
+    log(f"phase 3 ok: {ED_ARCH}'s training state, with the config's policy, " + summary)
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    return {"calls": calls, "errs": errs}
+
+
+def phase_encdec_vs_cpu(device, api) -> dict:
+    """Phase 3, seamless-m4t-medium's smoke cut (2 + 2 layers), float32, no
+    TF32, card against CPU on the same weights: the loss and every gradient
+    on enc_embeds (4, 32) and tokens (4, 16) (the training phase's float32
+    tolerances), and ED_CHECK_STEPS decode steps' logits over the same fed
+    tokens after ``encode`` and ``precompute_cross`` (within
+    SERVE_CHECK_TOL["float32"] of 1 + max |logit|)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, encdec, load_params
+
+    calls = {}
+    cpu = torch.device("cpu")
+    cut = get_config(ED_ARCH).smoke()
+    model = build_model(cut)
+    params = model.init(torch.Generator(device=device).manual_seed(SEED + 145), device)
+    cpu_params = load_params(params, cpu)
+    batch = encdec_batch(cut, 4, 32, 16, device, SEED + 146)
+    batches = {device: batch, cpu: {k: v.to(cpu) for k, v in batch.items()}}
+    diffs = check_step_vs_cpu(f"train step {ED_ARCH} (smoke)", cut, params, cpu_params, batches,
+                              device, dtypes=("float32",))
+    first = batch["tokens"][:, 0].contiguous()
+    _c, fed, on_card = encdec_decode(model, params, batch["enc_embeds"], ED_CHECK_STEPS, first)
+    worst = 0.0
+    with torch.no_grad():
+        cache = model.init_cache(4, ED_CHECK_STEPS, torch.float32, cpu)
+        memory = encdec.encode(cpu_params, batches[cpu]["enc_embeds"], cut)
+        cache["cross_k"], cache["cross_v"] = encdec.precompute_cross(cpu_params, memory, cut)
+        for i in range(ED_CHECK_STEPS):
+            ref, cache = model.decode_step(cpu_params, fed[i].to(cpu), cache, i)
+            diff = float((on_card[i].cpu() - ref).abs().max())
+            bound = SERVE_CHECK_TOL["float32"] * (1.0 + float(ref.abs().max()))
+            if not diff <= bound:
+                raise PhaseError(f"{ED_ARCH} (smoke) decode step {i}: card vs CPU max |logit "
+                                 f"difference| {diff:.4e} > {bound:.4e}")
+            worst = max(worst, diff / bound)
+    log(f"phase 3 ok: {ED_ARCH}'s smoke cut ({cut.n_enc_layers} + {cut.n_dec_layers} layers, "
+        f"d_model {cut.d_model}), card vs CPU (no TF32): a train step on enc_embeds (4, 32) and "
+        "tokens (4, 16), " + step_diffs_text(diffs) + f"; {ED_CHECK_STEPS} decode steps' logits "
+        f"after encode and precompute_cross within {worst:.4f} of their bound "
+        f"({SERVE_CHECK_TOL['float32']} x (1 + max |logit|))")
+    del params, cpu_params
+    torch.cuda.empty_cache()
+    return {"calls": calls, "errs": {}}
 
 
 def main() -> int:
@@ -4872,6 +5387,18 @@ def main() -> int:
     lap("phase 3, moe card vs CPU")
     moe_resume = phase_moe_resume(device, api, card)
     lap("phase 3 and 5, moe resume")
+    GLOBAL_CMM.clear()  # the moe caches' plans: recurrentgemma-9b holds 37.6 GB of parameters
+    torch.cuda.empty_cache()
+    hyb_serve = phase_hybrid_serving(device, api, card)
+    lap("phase 3 and 5, recurrentgemma-9b serving")
+    hyb_train = phase_hybrid_training(device, api, card)
+    lap("phase 3 and 5, recurrentgemma-9b training")
+    hyb_smoke = phase_hybrid_smoke(device, api, card)
+    lap("phase 3 and 5, hybrid smoke cut")
+    ed = phase_encdec(device, api, card)
+    lap("phase 3 and 5, seamless-m4t-medium")
+    ed_cpu = phase_encdec_vs_cpu(device, api)
+    lap("phase 3, encdec card vs CPU")
     calibrate.set_calibration_dir(None)
     cal_dir.cleanup()
     for k in huff_kernels:  # the entropy tail runs on the Huffman and the MGARD paths
@@ -4883,7 +5410,10 @@ def main() -> int:
     new_paths = {"progressive": prog, "pytree": pyt, "stream": st, "checkpoint": ckpt,
                  "serving": srv, "training": train, "mamba2 training": ssm_train,
                  "mamba2 serving": ssm_serve, "qwen2-vl": vlm, "deepseek-v3": ds,
-                 "llama4-scout": l4, "moe card vs CPU": moe_cpu, "moe resume": moe_resume}
+                 "llama4-scout": l4, "moe card vs CPU": moe_cpu, "moe resume": moe_resume,
+                 "recurrentgemma-9b serving": hyb_serve, "recurrentgemma-9b training": hyb_train,
+                 "hybrid smoke cut": hyb_smoke, "seamless-m4t-medium": ed,
+                 "encdec card vs CPU": ed_cpu}
     for k in kernels + huff_kernels + mgard_kernels:
         for run in new_paths.values():
             k["launches"] += sum(counts[k["name"]] for counts in run["calls"].values())

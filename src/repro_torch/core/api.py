@@ -29,7 +29,6 @@ Methods: ``mgard`` (the default), ``mgard-progressive``, ``zfp``,
 from __future__ import annotations
 
 import dataclasses
-import io
 import json
 import math
 from collections import OrderedDict
@@ -560,14 +559,8 @@ class CompressorStream:
             ],
         }
         hbytes = json.dumps(header).encode()
-        buf = io.BytesIO()
-        buf.write(_STREAM_MAGIC)
-        buf.write(np.uint32(_STREAM_VERSION).tobytes())
-        buf.write(np.uint64(len(hbytes)).tobytes())
-        buf.write(hbytes)
-        for b in blobs:
-            buf.write(b)
-        return buf.getvalue()
+        return b"".join([_STREAM_MAGIC, np.uint32(_STREAM_VERSION).tobytes(),
+                         np.uint64(len(hbytes)).tobytes(), hbytes, *blobs])
 
     @staticmethod
     def from_bytes(raw: bytes, lazy: bool = True) -> pl.ChunkedResult:
@@ -722,7 +715,7 @@ class LazyChunks(Sequence):
             raise IndexError(i)
         if self._cache[i] is None:
             lo, hi = self._ranges[i]
-            self._cache[i] = Compressed.from_bytes(self._raw[lo:hi])
+            self._cache[i] = Compressed.from_bytes(memoryview(self._raw)[lo:hi])
         return self._cache[i]
 
     @property

@@ -87,6 +87,23 @@ def check_crc32(
         )
 
 
+def _bytes_view(a: Any) -> memoryview:
+    """The bytes of ``a`` in C order (``tobytes()``'s), as a flat view; a
+    copy only where ``a`` is not C-contiguous."""
+    a = np.ascontiguousarray(a)
+    return memoryview(a.reshape(-1).view(np.uint8))
+
+
+def _frozen_view(raw: Any) -> memoryview:
+    """A flat byte view of ``raw`` that nothing can change under it: of
+    ``raw`` itself where it is ``bytes`` or a view of ``bytes``, else of a
+    ``bytes`` copy (a ``bytearray`` or a reused buffer may be written
+    after the parse)."""
+    if isinstance(raw, memoryview) and isinstance(raw.obj, bytes):
+        return raw.cast("B")
+    return memoryview(raw if isinstance(raw, bytes) else bytes(raw))
+
+
 def _jsonable(d: dict) -> dict:
     out = {}
     for k, v in d.items():
@@ -126,36 +143,34 @@ class Compressed:
             raise ValueError(f"cannot write container version {version}")
         names = sorted(self.arrays)
         sections: dict[str, dict] = {}
-        payload = io.BytesIO()
+        # the sections' bytes are views, checksummed in place and copied
+        # once, into the result: a checkpoint's containers are host-bound
+        parts, offset, crc = [], 0, 0
         for n in names:
-            raw = np.ascontiguousarray(self.arrays[n]).tobytes()
+            raw = _bytes_view(self.arrays[n])
             sections[n] = {
                 "dtype": str(self.arrays[n].dtype),
                 "shape": list(self.arrays[n].shape),
-                "offset": payload.tell(),
-                "nbytes": len(raw),
+                "offset": offset,
+                "nbytes": raw.nbytes,
                 # per-section checksum (additive): lets a reader verify and
                 # decode one section — e.g. a progressive component prefix —
                 # without touching the rest of the payload
                 "crc32": zlib.crc32(raw) & 0xFFFFFFFF,
             }
-            payload.write(raw)
-        pbytes = payload.getvalue()
+            crc = zlib.crc32(raw, crc)  # the payload's, section after section
+            parts.append(raw)
+            offset += raw.nbytes
         header = {
             "method": self.method,
             "meta": _jsonable(self.meta),
             "sections": sections,
-            "payload_bytes": len(pbytes),
-            "crc32": zlib.crc32(pbytes) & 0xFFFFFFFF,
+            "payload_bytes": offset,
+            "crc32": crc & 0xFFFFFFFF,
         }
         hbytes = json.dumps(header).encode()
-        buf = io.BytesIO()
-        buf.write(MAGIC)
-        buf.write(np.uint32(2).tobytes())
-        buf.write(np.uint64(len(hbytes)).tobytes())
-        buf.write(hbytes)
-        buf.write(pbytes)
-        return buf.getvalue()
+        return b"".join([MAGIC, np.uint32(2).tobytes(), np.uint64(len(hbytes)).tobytes(),
+                         hbytes, *parts])
 
     def _to_bytes_v1(self) -> bytes:
         buf = io.BytesIO()
@@ -179,7 +194,9 @@ class Compressed:
 
     @classmethod
     def from_bytes(cls, raw: bytes) -> "Compressed":
-        raw = bytes(raw)
+        """Parse a container.  The arrays are read-only views of ``raw``
+        where it is ``bytes`` (or a view of ``bytes``), else of a copy."""
+        raw = _frozen_view(raw)
         if len(raw) < _HEADER_FIXED:
             raise ContainerError(
                 f"truncated HPDR stream: {len(raw)} bytes < {_HEADER_FIXED}-byte header"
@@ -195,7 +212,7 @@ class Compressed:
         if len(raw) < _HEADER_FIXED + hlen:
             raise ContainerError("truncated HPDR stream: incomplete header")
         try:
-            header = json.loads(raw[_HEADER_FIXED : _HEADER_FIXED + hlen].decode())
+            header = json.loads(bytes(raw[_HEADER_FIXED : _HEADER_FIXED + hlen]).decode())
         except (UnicodeDecodeError, json.JSONDecodeError) as e:
             raise ContainerError(f"corrupt HPDR header: {e}") from e
         if version == 1:

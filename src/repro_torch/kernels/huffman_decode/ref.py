@@ -3,9 +3,13 @@ oracle and the ``torch`` backend's implementation; counterpart of
 ``repro.kernels.huffman_decode.ref``).
 
 All chunks advance together, one symbol per step, so the loop runs
-``chunk_size`` times over ``(n_chunks,)`` tensors.  :func:`decode_lut` is
-the plain mirror of the lookup table the CUDA kernel builds in shared memory;
-the plain decode itself stays the canonical scan.
+``chunk_size`` times over ``(n_chunks,)`` tensors.  A stream of at most
+``JUMP_BITS`` bits takes the same scan at every bit position at once and
+follows each chunk's cursors by pointer doubling (``log2(chunk_size)``
+steps): the same symbols, without the loop's ~25 ops a symbol, which a
+small leaf's one chunk would otherwise pay 4096 times.  :func:`decode_lut`
+is the plain mirror of the lookup table the CUDA kernel builds in shared
+memory; the plain decode itself stays the canonical scan.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from ...core import bitstream as bs
 _I32_SPAN = 1 << 32
 LUT_BITS = 13  # the kernel's table covers the next min(max_len, 13) bits
 SYM_BITS = 25  # symbols its entries pack beside a length
+JUMP_BITS = 1 << 21  # streams of at most this many bits decode by pointer doubling
 
 
 def _gather(sym_sorted: torch.Tensor, so: torch.Tensor, rel: torch.Tensor) -> torch.Tensor:
@@ -88,6 +93,9 @@ def decode_chunks(
     # the words as unsigned int64 values, one zero word appended: reads
     # outside the stream index it (read_window's zero bits)
     ww = torch.cat([bs.u32(words), torch.zeros(1, dtype=torch.int64, device=device)])
+    if 0 < 32 * n <= JUMP_BITS and max_len >= 1 and bool((chunk_offsets >= 0).all()):
+        return _decode_by_jumps(ww, n, chunk_offsets, first_code, count, sym_offset,
+                                sym_sorted, chunk_size, max_len)
     lens = torch.arange(1, max_len + 1, dtype=torch.int64, device=device)
     shifts = 32 - lens
     fc = bs.u32(first_code[1 : max_len + 1])
@@ -106,3 +114,53 @@ def decode_chunks(
         out[:, i] = _gather(sym_sorted, so[li], rel[rows, li])
         cursor += li + 1
     return out
+
+
+def _scan_at(ww: torch.Tensor, n: int, p: torch.Tensor, first_code: torch.Tensor,
+             count: torch.Tensor, sym_offset: torch.Tensor, sym_sorted: torch.Tensor,
+             max_len: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(symbol, length) one step of :func:`decode_chunks`' loop gives at the
+    bit cursors ``p`` (int64, >= 0)."""
+    w = p >> 5
+    b = p & 31
+    w0 = ww[torch.where(w < n, w, n)]
+    w1 = ww[torch.where(w < n - 1, w + 1, n)]
+    window = ((w0 << b) | (w1 >> (32 - b))) & 0xFFFFFFFF  # b = 0: w1 >> 32 is 0
+    fc = bs.u32(first_code[1 : max_len + 1])
+    ct = count[1 : max_len + 1].to(torch.int64)
+    li = torch.full_like(p, -1)
+    for j in range(max_len):  # the first valid length, as the loop's argmax
+        rel = (window >> (31 - j)) - fc[j]
+        li = torch.where((li < 0) & (rel >= 0) & (rel < ct[j]), j, li)
+    li.clamp_(min=0)  # none valid: length 1, as the loop's argmax of zeros
+    rel = (window >> (31 - li)) - fc[li]
+    so = sym_offset[1 : max_len + 1].to(torch.int64)
+    return _gather(sym_sorted, so[li], rel), li + 1
+
+
+def _decode_by_jumps(ww, n, chunk_offsets, first_code, count, sym_offset, sym_sorted,
+                     chunk_size: int, max_len: int) -> torch.Tensor:
+    """:func:`decode_chunks` for offsets >= 0: the scan at every bit position
+    of the stream, then symbol ``i`` of a chunk read at ``f^i(offset)``,
+    ``f(p) = p + length(p)``, with ``f^(2^j)`` built by doubling.  Past the
+    stream's ``T = 32 n`` bits the window is zero, so a step there is the
+    same constant length."""
+    device = ww.device
+    tables = (first_code, count, sym_offset, sym_sorted, max_len)
+    t = 32 * n
+    sym, length = _scan_at(ww, n, torch.arange(t, dtype=torch.int64, device=device), *tables)
+    sym_past, len_past = _scan_at(ww, n, torch.full((1,), t, dtype=torch.int64,
+                                                    device=device), *tables)
+    jump = torch.arange(t, dtype=torch.int64, device=device) + length  # f on [0, t)
+
+    def apply(table, q, steps):
+        return torch.where(q < t, table[q.clamp(max=t - 1)], q + steps * len_past)
+
+    k = torch.arange(chunk_size, dtype=torch.int64, device=device)
+    pos = chunk_offsets.to(torch.int64)[:, None].expand(-1, chunk_size)
+    levels = max(chunk_size - 1, 0).bit_length()
+    for j in range(levels):
+        pos = torch.where(((k >> j) & 1).bool(), apply(jump, pos, 1 << j), pos)
+        if j + 1 < levels:
+            jump = apply(jump, jump, 1 << j)
+    return torch.where(pos < t, sym[pos.clamp(max=t - 1)], sym_past).to(torch.int32)

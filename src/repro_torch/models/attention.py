@@ -1,8 +1,9 @@
-"""GQA and MLA attention (counterpart of ``repro.models.attention``, the
-part the dense, vlm and moe families run: ``causal_mask``, ``init_gqa``,
-``gqa_qkv``, ``_sdpa``, ``gqa_attention`` for the training forward and
-``gqa_decode``; DeepSeek-V3's Multi-head Latent Attention ``init_mla``,
-``_mla_qkv``, ``mla_attention`` and ``mla_decode``).
+"""GQA, local, cross and MLA attention (counterpart of
+``repro.models.attention``: ``causal_mask``, ``local_causal_mask``,
+``init_gqa``, ``gqa_qkv``, ``_sdpa``, ``gqa_attention`` for the training
+forward and ``gqa_decode``; ``cross_attention`` of the encdec family;
+DeepSeek-V3's Multi-head Latent Attention ``init_mla``, ``_mla_qkv``,
+``mla_attention`` and ``mla_decode``).
 
 Shapes: hidden (B, S, D); q/k/v (B, S, H, hd); the KV cache of one layer
 ``{"k": (B, S_max, KH, hd), "v": ...}``; MLA's compressed cache of one
@@ -12,8 +13,11 @@ float32, as the reference computes them, with an additive -1e9 mask (no
 ``scaled_dot_product_attention``: its masking and accumulation differ, and
 the reference fuses nothing here).  ``gqa_attention`` takes the VLM
 family's M-RoPE positions ``(B, S, 3)``; decode keeps plain RoPE at
-``cache_len``, as the reference's does.  The local window belongs to the
-hybrid family, which is not ported.
+``cache_len``, as the reference's does.  The hybrid family's local
+attention masks keys more than ``window`` positions back in the forward
+(:func:`local_causal_mask`); its decode cache is a ring of
+``min(window, max_len)`` slots, written at ``cache_len % S_max``, every
+slot live once the ring has wrapped.
 
 ``gqa_decode`` writes the step's k/v into the cache *in place* (the
 reference returns an updated copy): the decode loop owns the cache and
@@ -52,9 +56,14 @@ def causal_mask(s_q: int, s_k: int, q_offset: int = 0, device=None) -> torch.Ten
     return torch.where(k_pos <= q_pos, zero, NEG_INF)
 
 
-def local_causal_mask(s_q: int, s_k: int, window: int, q_offset: int = 0, device=None):
-    raise NotImplementedError("local attention belongs to the hybrid family, which is not "
-                              "ported yet (see ROADMAP.md)")
+def local_causal_mask(s_q: int, s_k: int, window: int, q_offset: int = 0,
+                      device=None) -> torch.Tensor:
+    """(s_q, s_k) float32: 0 where the key is at most ``window - 1``
+    positions before the query (and not after it), else -1e9."""
+    q_pos = torch.arange(s_q, dtype=torch.int32, device=device)[:, None] + q_offset
+    k_pos = torch.arange(s_k, dtype=torch.int32, device=device)[None, :]
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return torch.where((k_pos <= q_pos) & (k_pos > q_pos - window), zero, NEG_INF)
 
 
 def _sdpa(q, k, v, mask, scale):
@@ -104,7 +113,8 @@ def gqa_attention(
     window: int = 0,
     mrope_positions: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Causal GQA over the whole sequence (the training forward); with
+    """Causal GQA over the whole sequence (the training forward), local
+    over the last ``window`` positions where ``window`` > 0; with
     ``cfg.mrope`` and ``mrope_positions`` (B, S, 3), M-RoPE in place of
     RoPE."""
     b, s, _ = x.shape
@@ -137,7 +147,11 @@ def gqa_decode(
     cfg: ModelConfig,
     cache: dict,                # {"k": (B, S_max, KH, hd), "v": ...}, written in place
     cache_len: int,             # tokens already in cache
+    # unused, as the reference's (the cache's size sets the ring); kept so
+    # that the two packages' callers pass the same arguments
+    window: int = 0,
 ) -> tuple[torch.Tensor, dict]:
+    del window
     b = x.shape[0]
     hd = cfg.resolved_head_dim
     check_cache_layout(cfg)
@@ -158,6 +172,23 @@ def gqa_decode(
     out = _sdpa(q, cache["k"], cache["v"], mask, 1.0 / math.sqrt(hd))
     y = linear(out.reshape(b, 1, -1), p["wo"])
     return y, cache
+
+
+def cross_attention(
+    x: torch.Tensor,            # (B, Sq, D) decoder states
+    memory: torch.Tensor,       # (B, Sk, D) encoder output
+    p: dict,
+    cfg: ModelConfig,
+) -> torch.Tensor:
+    """Every query over every memory position: no RoPE, no mask."""
+    b, sq, _ = x.shape
+    sk = memory.shape[1]
+    hd = cfg.resolved_head_dim
+    q = linear(x, p["wq"]).reshape(b, sq, cfg.n_heads, hd)
+    k = linear(memory, p["wk"]).reshape(b, sk, cfg.n_kv_heads, hd)
+    v = linear(memory, p["wv"]).reshape(b, sk, cfg.n_kv_heads, hd)
+    out = _sdpa(q, k, v, None, 1.0 / math.sqrt(hd))
+    return linear(out.reshape(b, sq, -1), p["wo"])
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
-"""Shared layers: norms, embeddings, MLPs, rotary embeddings and the
-multimodal rotary embedding (M-RoPE) of the VLM family (counterpart of
-``repro.models.layers``).
+"""Shared layers: norms, embeddings, the SwiGLU and GELU MLPs, rotary
+embeddings and the multimodal rotary embedding (M-RoPE) of the VLM family
+(counterpart of ``repro.models.layers``).
 
 Parameters are plain nested dicts of tensors.  The init functions take an
 explicit ``torch.Generator`` (its device is where the weights are made) and
@@ -27,6 +27,7 @@ class _MetaGenerator:
 
 
 META = _MetaGenerator()
+_SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 
 
 def _randn(gen: torch.Generator, shape: tuple, std: float, dtype: torch.dtype) -> torch.Tensor:
@@ -81,6 +82,31 @@ def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int, *, lead: tuple = 
         "wg": _randn(gen, lead + (d_model, d_ff), s_in, dtype),
         "wu": _randn(gen, lead + (d_model, d_ff), s_in, dtype),
         "wd": _randn(gen, lead + (d_ff, d_model), s_out, dtype),
+    }
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh form, op for op in ``x``'s dtype:
+    ``x · ½(1 + tanh(√(2/π)(x + 0.044715 x³)))`` (``F.gelu``'s default is
+    the erf form; its tanh form rounds once in float32, where the
+    reference rounds every op in bfloat16)."""
+    inner = _SQRT_2_OVER_PI * (x + 0.044715 * (x * x * x))
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+
+def gelu_mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """GELU MLP (seamless-m4t / classic transformer FFN)."""
+    h = gelu(x @ p["w1"].to(x.dtype) + p["b1"].to(x.dtype))
+    return h @ p["w2"].to(x.dtype) + p["b2"].to(x.dtype)
+
+
+def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int, *, lead: tuple = (),
+                  dtype=torch.float32) -> dict:
+    return {
+        "w1": _randn(gen, lead + (d_model, d_ff), 1.0 / math.sqrt(d_model), dtype),
+        "b1": torch.zeros(lead + (d_ff,), dtype=dtype, device=gen.device),
+        "w2": _randn(gen, lead + (d_ff, d_model), 1.0 / math.sqrt(d_ff), dtype),
+        "b2": torch.zeros(lead + (d_model,), dtype=dtype, device=gen.device),
     }
 
 

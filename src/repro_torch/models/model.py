@@ -1,5 +1,5 @@
-"""Model facade: init / train forward / cache / decode for the dense, vlm,
-ssm and moe families (counterpart of ``repro.models.model``).
+"""Model facade: init / train forward / cache / decode for all six
+families (counterpart of ``repro.models.model``).
 
 ``build_model(cfg)`` returns a :class:`Model`.  The port runs the dense
 decoder (qwen2.5-3b, qwen1.5-4b, minicpm-2b with its μP scaling,
@@ -8,8 +8,11 @@ deepseek-67b), the vlm family (qwen2-vl-72b: dense layers, M-RoPE from
 stub as in the reference), the ssm family (mamba2-370m), the moe family
 (deepseek-v3-671b: MLA, leading dense layers, 256 routed experts and the
 multi-token-prediction head; llama4-scout-17b-a16e: GQA, 16 routed
-experts), and their smoke cuts; the other families raise
-``NotImplementedError`` until they are ported (``ROADMAP.md``).
+experts), the hybrid family (recurrentgemma-9b: ``(rec, rec, attn)``
+superblocks of RG-LRU and local-attention sublayers, then a tail of rec
+sublayers), the encdec family (seamless-m4t-medium, routed to
+``models/encdec.py``), and their smoke cuts.  A family the reference does
+not know raises ``ValueError``, as the reference's ``init`` does.
 
 Entry points run on the card unless the caller names another device
 (``device="cpu"``, as the tests do).
@@ -21,13 +24,18 @@ shape ``(n_layers, B, S_max, KH, hd)`` (ssm: ``state`` (n_layers, B, H, P,
 N) float32 and ``conv`` (n_layers, B, d_conv - 1, conv_dim); moe:
 ``{"dense": ..., "moe": ...}``, one such tree for each stack, ``None`` for
 no dense layers, MLA's holding ``c_kv`` (n, B, S_max, kv_rank) and
-``k_rope`` (n, B, S_max, 1, rope_dim)) and returns ``(logits, cache)``.
+``k_rope`` (n, B, S_max, 1, rope_dim); hybrid: ``{"rec_a", "rec_b",
+"tail": {"h": (n, B, W) float32, "conv": (n, B, cw - 1, W)}, "attn": {"k",
+"v": (n_super, B, min(window, S_max), KH, hd)}}``, the attention cache a
+ring; encdec: ``{"k", "v", "cross_k", "cross_v"}``, the cross K/V from
+``encdec.precompute_cross``) and returns ``(logits, cache)``.
 The port's ``decode_step`` writes the cache in place and returns the same
 dict (the reference returns an updated copy).
 Training takes ``{"tokens": (B, S) int, "labels": (B, S) int}`` (vlm:
-``{"embeds": (B, S, D), "positions_3d": (B, S, 3) int, "labels"}``):
-``loss`` returns ``(loss, {"ce", "aux", "loss"})`` (with MTP also
-``"mtp_ce"``) and is differentiable in the parameters;
+``{"embeds": (B, S, D), "positions_3d": (B, S, 3) int, "labels"}``; encdec:
+``{"enc_embeds": (B, S_enc, D), "tokens", "labels"}``): ``loss`` returns
+``(loss, {"ce", "aux", "loss"})`` (with MTP also ``"mtp_ce"``; encdec
+``{"ce", "loss"}``) and is differentiable in the parameters;
 :meth:`Model.value_and_grad` is the reference's
 ``jax.value_and_grad(model.loss, has_aux=True)``.
 
@@ -48,6 +56,7 @@ from ..configs.base import ModelConfig
 from ..core import api
 from ..core import pipeline as pl
 from . import attention as attn
+from . import encdec as encdec_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from . import transformer as tfm
@@ -61,7 +70,9 @@ from .layers import (
     rms_norm,
 )
 
-_PORTED = ("dense", "vlm", "ssm", "moe")
+_PORTED = ("dense", "vlm", "ssm", "moe", "hybrid", "encdec")
+# a hybrid superblock's sublayers, in order: (parameter and cache key, kind)
+_SUPERBLOCK = (("rec_a", "rec"), ("rec_b", "rec"), ("attn", "attn"))
 
 
 def _torch_dtype(name: str) -> torch.dtype:
@@ -76,11 +87,9 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (logz - ll).mean()
 
 
-def _require_ported(cfg: ModelConfig) -> None:
+def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in _PORTED:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} ({cfg.name}) is not ported yet; the port runs "
-            f"{_PORTED} (see ROADMAP.md)")
+        raise ValueError(f"unknown family {cfg.family}")
     if cfg.family == "moe":
         moe_mod.check_dispatch(cfg)
 
@@ -98,9 +107,12 @@ class Model:
         N(0, 0.02²), matrices N(0, 1/d_in), norms and biases zero), not its
         random stream."""
         cfg = self.cfg
-        _require_ported(cfg)
+        _check_family(cfg)
         device = _device(device)
         dt = _torch_dtype(cfg.param_dtype)
+        if cfg.family == "encdec":
+            params = encdec_mod.init_encdec(generator, cfg, dt)
+            return params if generator.device == device else load_params(params, device)
         params: dict[str, Any] = {
             "embed": init_embedding(generator, cfg.vocab, cfg.d_model, dtype=dt),
             "ln_f": init_rms_norm(generator, cfg.d_model, dtype=dt),
@@ -121,6 +133,12 @@ class Model:
                     "block": _unstacked(tfm.init_dense_layers(generator, 1,
                                                               self._dense_ffn_cfg(), dt)),
                 }
+        elif cfg.family == "hybrid":
+            nsuper, tail = divmod(cfg.n_layers, len(cfg.hybrid.pattern))
+            params["super"] = {name: tfm.init_hybrid_sublayers(generator, nsuper, cfg, kind, dt)
+                               for name, kind in _SUPERBLOCK}
+            params["tail"] = [tfm.init_hybrid_sublayers(generator, None, cfg, "rec", dt)
+                              for _ in range(tail)]
         else:
             init_layers = tfm.init_ssm_layers if cfg.family == "ssm" else tfm.init_dense_layers
             params["layers"] = init_layers(generator, cfg.n_layers, cfg, dt)
@@ -160,8 +178,19 @@ class Model:
         """Returns (hidden, aux_loss); the aux loss is the moe layers' sum
         (0 for the other families)."""
         cfg = self.cfg
-        _require_ported(cfg)
+        _check_family(cfg)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if cfg.family == "hybrid":
+            def superblock(h, lp):
+                for name, kind in _SUPERBLOCK:
+                    h = tfm.hybrid_sublayer(h, lp[name], cfg, kind)
+                return h
+
+            # remat wraps the whole superblock, as jax.checkpoint(superblock)
+            x = tfm.scan_stack(x, params["super"], superblock, cfg.remat)
+            for tp in params["tail"]:
+                x = tfm.hybrid_sublayer(x, tp, cfg, "rec")
+            return x, aux
         if cfg.family == "moe":
             if "dense_layers" in params:
                 dense_cfg = self._dense_ffn_cfg()
@@ -183,9 +212,12 @@ class Model:
         of the next tokens plus the auxiliary loss (the moe layers'; 0
         otherwise); with MTP (deepseek-v3) plus 0.3 times ``"mtp_ce"``, the
         cross-entropy of the token after the next from the MTP block over
-        the final hidden state and the next token's embedding."""
+        the final hidden state and the next token's embedding.  encdec:
+        ``encdec.encdec_loss``, ``(ce, {"ce", "loss"})``."""
         cfg = self.cfg
-        _require_ported(cfg)
+        _check_family(cfg)
+        if cfg.family == "encdec":
+            return encdec_mod.encdec_loss(params, batch, cfg)
         x = self._embed_in(params, batch)
         h, aux = self._backbone(params, x, batch)
         h = rms_norm(h, params["ln_f"]["scale"], cfg.norm_eps)
@@ -235,12 +267,32 @@ class Model:
         float32, "conv": (n_layers, B, d_conv - 1, conv_dim) dtype}``, O(1)
         in ``max_len``.  moe: ``{"dense": stack or None, "moe": stack}``,
         each stack GQA's ``{"k", "v"}`` or MLA's compressed ``{"c_kv":
-        (n, B, S_max, kv_rank), "k_rope": (n, B, S_max, 1, rope_dim)}``."""
+        (n, B, S_max, kv_rank), "k_rope": (n, B, S_max, 1, rope_dim)}``.
+        hybrid: ``{"rec_a", "rec_b", "tail"}`` of ``{"h": (n, B, W) float32,
+        "conv": (n, B, cw - 1, W)}`` and ``"attn"``'s ring ``{"k", "v":
+        (n_super, B, min(window, max_len), KH, hd)}``.  encdec:
+        ``encdec.init_cache`` (``cross_k``/``cross_v`` None)."""
         cfg = self.cfg
-        _require_ported(cfg)
+        _check_family(cfg)
         if cfg.family != "ssm" and cfg.attn_type == "gqa":
             attn.check_cache_layout(cfg)
         device = _device(device)
+        if cfg.family == "encdec":
+            return encdec_mod.init_cache(cfg, batch_size, max_len, dtype, device)
+        if cfg.family == "hybrid":
+            nsuper, tail = divmod(cfg.n_layers, len(cfg.hybrid.pattern))
+            w = cfg.hybrid.lru_width or cfg.d_model
+            cw = cfg.hybrid.conv_width
+
+            def rec(n: int) -> dict:
+                return {"h": torch.zeros((n, batch_size, w), dtype=torch.float32, device=device),
+                        "conv": torch.zeros((n, batch_size, cw - 1, w), dtype=dtype,
+                                            device=device)}
+
+            return {"rec_a": rec(nsuper), "rec_b": rec(nsuper),
+                    "attn": self._kv(nsuper, batch_size, min(cfg.hybrid.window, max_len), dtype,
+                                     device),
+                    "tail": rec(tail)}
         if cfg.family == "moe":
             def stack(n: int) -> dict:
                 if cfg.attn_type == "mla":
@@ -271,9 +323,22 @@ class Model:
         """One decode step: ``token`` (B,) int → ``(logits (B, vocab), cache)``,
         the cache written in place at position ``cache_len``."""
         cfg = self.cfg
-        _require_ported(cfg)
+        _check_family(cfg)
+        if cfg.family == "encdec":
+            return encdec_mod.decode_step(params, token, cache, cache_len, cfg)
         x = self._embed_in(params, {"tokens": token[:, None]})
-        if cfg.family == "moe":
+        if cfg.family == "hybrid":
+            def superblock(h, lp, lc):
+                for name, kind in _SUPERBLOCK:
+                    h, _ = tfm.hybrid_sublayer_decode(h, lp[name], cfg, kind, lc[name], cache_len)
+                return h, lc
+
+            x, _ = tfm.scan_stack_decode(
+                x, params["super"], {name: cache[name] for name, _ in _SUPERBLOCK}, superblock)
+            for i, tp in enumerate(params["tail"]):
+                x, _ = tfm.hybrid_sublayer_decode(x, tp, cfg, "rec", tfm._layer(cache["tail"], i),
+                                                  cache_len)
+        elif cfg.family == "moe":
             if "dense_layers" in params:
                 dense_cfg = self._dense_ffn_cfg()
                 x, _ = tfm.scan_stack_decode(

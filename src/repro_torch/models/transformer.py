@@ -1,12 +1,15 @@
 """Decoder-only transformer assembly (counterpart of
-``repro.models.transformer``: the dense, vlm, moe and ssm families'
-training forward and decode path).
+``repro.models.transformer``: the dense, vlm, moe, ssm and hybrid
+families' training forward and decode path).
 
 dense — [GQA attn + SwiGLU] × L (qwen*, minicpm, deepseek-67b, qwen2-vl: the
         vlm family is the dense block with M-RoPE positions)
 moe   — [attn + MoE-FFN] × L, optional leading dense layers (deepseek-v3:
         MLA, 3 dense layers first; llama4-scout: GQA, every layer MoE)
 ssm   — [Mamba-2 mixer] × L (mamba2-370m)
+hybrid — [(rec, rec, local-attn) superblock] × L/3 + a tail of rec
+        sublayers (recurrentgemma-9b); each sublayer a temporal block
+        (RG-LRU or local GQA) and a SwiGLU MLP
 
 Per-layer parameters are stacked along a leading layer axis, as the
 reference's ``vmap``-ed init stacks them; the reference scans over that
@@ -26,6 +29,7 @@ import torch.utils.checkpoint
 from ..configs.base import ModelConfig
 from . import attention as attn
 from . import moe as moe_mod
+from . import rglru as rglru_mod
 from . import ssm as ssm_mod
 from .layers import init_rms_norm, init_swiglu, rms_norm, swiglu
 
@@ -143,6 +147,47 @@ def ssm_block_decode(x, p, cfg: ModelConfig, cache):
     h = rms_norm(x, p["ln"]["scale"], cfg.norm_eps)
     y, cache = ssm_mod.mamba2_decode(h, p["mixer"], cfg, cache)
     return x + y, cache
+
+
+def init_hybrid_sublayers(gen: torch.Generator, n: int | None, cfg: ModelConfig, kind: str,
+                          dtype=torch.float32) -> dict:
+    """``n`` hybrid sublayers of ``kind`` (``"rec"`` or ``"attn"``),
+    stacked along a leading axis; ``n`` None makes one, unstacked (a tail
+    sublayer)."""
+    lead = () if n is None else (n,)
+    p = {
+        "ln1": init_rms_norm(gen, cfg.d_model, lead=lead, dtype=dtype),
+        "ln2": init_rms_norm(gen, cfg.d_model, lead=lead, dtype=dtype),
+        "mlp": init_swiglu(gen, cfg.d_model, cfg.d_ff, lead=lead, dtype=dtype),
+    }
+    if kind == "attn":
+        p["temporal"] = attn.init_gqa(gen, cfg, lead=lead, dtype=dtype)
+    else:
+        p["temporal"] = rglru_mod.init_rglru_block(gen, cfg, lead=lead, dtype=dtype)
+    return p
+
+
+def hybrid_sublayer(x, p, cfg: ModelConfig, kind: str):
+    h = rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
+    if kind == "attn":
+        t = attn.gqa_attention(h, p["temporal"], cfg, window=cfg.hybrid.window)
+    else:
+        t = rglru_mod.rglru_block(h, p["temporal"], cfg)
+    x = x + t
+    h = rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
+    return x + swiglu(h, p["mlp"])
+
+
+def hybrid_sublayer_decode(x, p, cfg: ModelConfig, kind: str, cache, cache_len):
+    h = rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
+    if kind == "attn":
+        t, cache = attn.gqa_decode(h, p["temporal"], cfg, cache, cache_len,
+                                   window=cfg.hybrid.window)
+    else:
+        t, cache = rglru_mod.rglru_block_decode(h, p["temporal"], cfg, cache)
+    x = x + t
+    h = rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
+    return x + swiglu(h, p["mlp"]), cache
 
 
 def _layer(tree, i: int):

@@ -67,6 +67,27 @@ def align_up(n: int, align: int) -> int:
     return n if align <= 1 else -(-n // align) * align
 
 
+def _pread_full(fd: int, nbytes: int, offset: int) -> bytes | bytearray:
+    """Positional read of ``nbytes`` that survives short reads: one
+    ``os.pread`` returns at most 0x7ffff000 bytes on Linux, so a segment
+    past 2 GiB takes several.  Fewer bytes come back only at the end of the
+    file (the caller reports the truncation)."""
+    data = os.pread(fd, nbytes, offset)
+    if len(data) == nbytes or not data:
+        return data
+    buf = bytearray(nbytes)
+    got = len(data)
+    buf[:got] = data
+    del data
+    while got < nbytes:
+        part = os.pread(fd, nbytes - got, offset + got)
+        if not part:
+            return bytes(buf[:got])
+        buf[got:got + len(part)] = part
+        got += len(part)
+    return buf
+
+
 def _pwrite_full(fd: int, data: bytes, offset: int) -> None:
     """Positional write that survives short writes (signals, quotas, NFS).
 
@@ -386,8 +407,8 @@ class AggregatedReader:
     def __iter__(self) -> Iterator[str]:
         return iter(self.segments)
 
-    def pread(self, offset: int, nbytes: int) -> bytes:
-        raw = os.pread(self._fd, nbytes, offset)
+    def pread(self, offset: int, nbytes: int) -> bytes | bytearray:
+        raw = _pread_full(self._fd, nbytes, offset)
         with self._lock:
             self.preads += 1
             self.pread_bytes += len(raw)

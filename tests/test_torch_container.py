@@ -83,6 +83,22 @@ def test_truncated_streams_raise(version):
             tcont.Compressed.from_bytes(blob[:cut])
 
 
+@pytest.mark.parametrize("kind", ["bytes", "view of bytes", "bytearray", "view of bytearray"])
+def test_parsed_arrays_never_change_with_the_buffer(kind):
+    """``from_bytes`` parses ``bytes`` (or a view of them) in place and any
+    other buffer from a copy, so a buffer written after the parse (a reused
+    receive buffer) never changes the arrays; either way they are read-only,
+    as the reference's ``np.frombuffer`` arrays are, and equal its parse."""
+    raw = tcont.Compressed("zfp", _sample_meta(), _sample_arrays()).to_bytes()
+    buf = bytearray(b"\xff" * 8 + raw)
+    src = {"bytes": bytes(buf), "bytearray": buf}[kind.split()[-1]]
+    got = tcont.Compressed.from_bytes(memoryview(src)[8:] if kind.startswith("view") else
+                                      src[8:] if kind == "bytes" else buf[8:])
+    buf[:] = bytes(len(buf))
+    _same(got, jcont.Compressed.from_bytes(raw))
+    assert not any(a.flags.writeable for a in got.arrays.values())
+
+
 def test_unknown_version_raises():
     blob = _huffman_container()
     bad = blob[:4] + np.uint32(9).tobytes() + blob[8:]

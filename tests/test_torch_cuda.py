@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card
-(and the training side's steps, the ssm and vlm families' steps and decode
-among them, against the CPU and against themselves).
+(and the training side's steps, the ssm, vlm, hybrid and encdec families'
+steps and decode among them and the RG-LRU scan, against the CPU and
+against themselves).
 
 Kernels: ``zfp_block`` (encode, decode), ``histogram``, ``huffman_encode``
 (``encode_lookup``), ``huffman_decode`` (``decode_chunks``), ``quantize_map``
@@ -1040,3 +1041,61 @@ def test_cuda_ssm_and_vlm_step_and_decode_match_cpu(cuda_device, arch):
     assert (out["card"][0] - out["cpu"][0]).abs().max() <= 1e-4
     for k, v in out["cpu"][1].items():
         assert (out["card"][1][k] - v).abs().max() <= 1e-4 * max(1.0, float(v.abs().max())), k
+
+
+@pytest.mark.gpu
+def test_cuda_rglru_scan_is_the_cpu_s_bit_for_bit(cuda_device):
+    """The RG-LRU's associative scan on the same (a, b): the card's bits are
+    the CPU's (each level a separate multiply and add, rounded as written)."""
+    from repro_torch.models import rglru
+
+    rng = np.random.default_rng(58)
+    for length in (1, 17, 64, 2049):
+        a = torch.from_numpy(rng.uniform(0.5, 1.0, (2, length, 64)).astype(np.float32))
+        b = torch.from_numpy(rng.normal(size=(2, length, 64)).astype(np.float32))
+        ca, cb = rglru._associative_scan(a.to(cuda_device), b.to(cuda_device))
+        pa, pb = rglru._associative_scan(a, b)
+        assert torch.equal(ca.cpu(), pa) and torch.equal(cb.cpu(), pb), length
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "seamless-m4t-medium"])
+def test_cuda_hybrid_and_encdec_step_and_decode_match_cpu(cuda_device, arch):
+    """The hybrid and encdec smoke cuts in float32 on the card against the
+    CPU on the same weights: the loss within 1e-5 of its value, every
+    gradient leaf within 1e-4 of its largest magnitude, and 40 decode steps'
+    logits (the hybrid's 32-slot attention ring wraps; the encdec's after
+    ``encode`` and ``precompute_cross``) within 1e-4 (no TF32)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, encdec, load_params
+
+    model = build_model(get_config(arch).smoke())
+    cfg = model.cfg
+    params = model.init(torch.Generator().manual_seed(59), "cpu")
+    on_card = load_params(params, cuda_device)  # the hybrid's tail is a list
+    rng = np.random.default_rng(60)
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40)).astype(np.int32))
+    batch = {"tokens": torch.roll(labels, 1, 1), "labels": labels}
+    frames = torch.from_numpy(rng.normal(size=(3, 12, cfg.d_model)).astype(np.float32))
+    if cfg.family == "encdec":
+        batch["enc_embeds"] = frames[:2]
+    (loss, _), grads = model.value_and_grad(params, batch)
+    (closs, _), cgrads = model.value_and_grad(on_card, _to(batch, cuda_device))
+    assert abs(float(closs) - float(loss)) <= 1e-5 * abs(float(loss))
+    flat, cflat = dict(api.flatten_with_keys(grads)), dict(api.flatten_with_keys(cgrads))
+    for k, g in flat.items():
+        assert (cflat[k].cpu() - g).abs().max() <= 1e-4 * g.abs().max(), k
+    tok = torch.tensor([1, 17, 255], dtype=torch.int32)
+    out = {}
+    for name, dev, p in (("cpu", torch.device("cpu"), params), ("card", cuda_device, on_card)):
+        cache = model.init_cache(3, 48, torch.float32, device=dev)
+        if cfg.family == "encdec":
+            with torch.no_grad():
+                memory = encdec.encode(p, frames.to(dev), cfg)
+                cache["cross_k"], cache["cross_v"] = encdec.precompute_cross(p, memory, cfg)
+        logits = []
+        for step in range(40):
+            step_logits, cache = model.decode_step(p, tok.to(dev), cache, step)
+            logits.append(step_logits.cpu())
+        out[name] = torch.stack(logits)
+    assert (out["card"] - out["cpu"]).abs().max() <= 1e-4 * max(1.0, float(out["cpu"].abs().max()))

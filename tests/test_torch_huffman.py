@@ -307,6 +307,35 @@ def test_decode_chunks_twin_matches_reference_kernel(case):
     assert np.array_equal(got.reshape(-1)[: keys.size], keys)
 
 
+@pytest.mark.parametrize("seed", range(4))
+def test_decode_chunks_by_jumps_equals_the_loop(seed, monkeypatch):
+    """The pointer-doubling path of the plain decode (streams of at most
+    JUMP_BITS bits) gives the loop's whole output, bit for bit: on random
+    words (codes that match no length, cursors past the stream's end) and on
+    a reference stream, whose symbols it also decodes."""
+    rng = np.random.default_rng(40 + seed)
+    freq = _fibonacci(40) if seed % 2 else rng.integers(1, 1000, int(rng.integers(2, 300)))
+    lengths = thuff.build_codebook(np.asarray(freq, np.int64)).lengths
+    tables = thuff.padded_tables(thuff.decode_tables(lengths))
+    max_len = int(tables[0].shape[0]) - 1
+    n_words = int(rng.integers(1, 2000))
+    words = _tensor(rng.integers(-2**31, 2**31, n_words, dtype=np.int64).astype(np.int32))
+    offsets = _tensor(np.sort(rng.integers(0, 32 * n_words + 300, 9)).astype(np.int32))
+    keys = rng.integers(0, len(freq), 700).astype(np.int32)
+    book, _, _, ref_words, ref_offsets = _reference_stream(keys, 100, np.asarray(freq, np.int64))
+    ref_tables = thuff.padded_tables(thuff.decode_tables(book.lengths))
+    ref_max_len = int(ref_tables[0].shape[0]) - 1
+    cases = [(words, offsets, tables, 4096 >> seed, max_len),
+             (_tensor(np.asarray(ref_words).view(np.int32)), _tensor(np.asarray(ref_offsets)),
+              ref_tables, 100, ref_max_len)]
+    assert all(32 * w.shape[0] <= tdec_ref.JUMP_BITS for w, *_ in cases)
+    by_jumps = [tdec_ref.decode_chunks(w, o, *t, cs, ml) for w, o, t, cs, ml in cases]
+    monkeypatch.setattr(tdec_ref, "JUMP_BITS", 0)
+    for got, (w, o, t, cs, ml) in zip(by_jumps, cases):
+        assert torch.equal(got, tdec_ref.decode_chunks(w, o, *t, cs, ml))
+    assert np.array_equal(by_jumps[1].numpy().reshape(-1)[: keys.size], keys)
+
+
 def test_huffman_module_round_trip_matches_reference():
     keys = (np.random.default_rng(2).zipf(1.3, 5000) % 300).astype(np.int32)
     want = jhuff.compress(jnp.asarray(keys), 300, chunk_size=512)

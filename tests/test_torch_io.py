@@ -205,3 +205,22 @@ def test_detect_topology_env_override_and_default(monkeypatch):
     monkeypatch.delenv(tmesh.ENV_HOST_COUNT)
     monkeypatch.delenv(tmesh.ENV_HOST_ID)
     assert tmesh.detect_topology() == tmesh.HostTopology(0, 1)
+
+
+def test_port_reader_survives_short_preads(tmp_path, monkeypatch):
+    """One ``os.pread`` returns at most 0x7ffff000 bytes on Linux, so a
+    segment past 2 GiB (recurrentgemma-9b's embedding moments through zfp)
+    comes back in several reads: with every pread capped at 1000 bytes the
+    port's reader still returns each segment whole and counts one logical
+    read a segment."""
+    import os
+
+    path = tmp_path / "seg.hpdr"
+    _write(tio, path, 64, False, 4 << 20)
+    real = os.pread
+    monkeypatch.setattr(os, "pread", lambda fd, n, off: real(fd, min(n, 1000), off))
+    with tio.AggregatedReader(path) as r:
+        for name, blob in _blobs():
+            assert r.read(name) == blob
+        assert r.preads == len(_blobs())
+        assert r.pread_bytes == sum(len(b) for _, b in _blobs())

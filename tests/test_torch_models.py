@@ -50,8 +50,9 @@ def test_config_is_the_reference_s():
                          (get_config("qwen2.5-3b").smoke(), jget_config("qwen2.5-3b").smoke())):
         assert asdict(ours) == asdict(theirs)
         assert ours.resolved_head_dim == theirs.resolved_head_dim
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("recurrentgemma-9b")
+    # every config of the reference's registry is the port's too
+    for arch in ("recurrentgemma-9b", "seamless-m4t-medium"):
+        assert asdict(get_config(arch)) == asdict(jget_config(arch))
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("gpt-17")
 
@@ -136,8 +137,14 @@ def test_greedy_decode_is_deterministic(pair):
 
 
 def test_unported_families_raise():
-    cfg = replace(get_config("qwen2.5-3b").smoke(), family="hybrid")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A family the reference does not know raises ``ValueError``, as the
+    reference's ``init`` does; the mesh-only ``kv_replicate`` stays
+    refused."""
+    cfg = replace(get_config("qwen2.5-3b").smoke(), family="rnn")
+    with pytest.raises(ValueError, match="unknown family rnn"):
+        jbuild(replace(jget_config("qwen2.5-3b").smoke(), family="rnn")).init(
+            jax.random.PRNGKey(0))
+    with pytest.raises(ValueError, match="unknown family rnn"):
         build_model(cfg).init(torch.Generator(), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(replace(get_config("qwen2.5-3b").smoke(), kv_replicate=2)).init_cache(1, 4)
@@ -157,6 +164,10 @@ def test_port_imports_no_jax_or_reference_in_a_subprocess():
         "assert 'repro_torch.models.model' in sys.modules\n"
         "assert 'repro_torch.models.ssm' in sys.modules\n"
         "assert 'repro_torch.models.moe' in sys.modules\n"
+        "assert 'repro_torch.models.rglru' in sys.modules\n"
+        "assert 'repro_torch.models.encdec' in sys.modules\n"
+        "assert 'repro_torch.configs.recurrentgemma_9b' in sys.modules\n"
+        "assert 'repro_torch.configs.seamless_m4t_medium' in sys.modules\n"
         "assert 'repro_torch.launch.train' in sys.modules\n"
         "assert 'repro_torch.optim.adamw' in sys.modules\n"
     )

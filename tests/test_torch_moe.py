@@ -107,7 +107,7 @@ def test_configs_are_the_reference_s(arch, pairs):
                          (get_config(arch).smoke(), jget_config(arch).smoke())):
         assert asdict(ours) == asdict(theirs)
     assert arch not in NOT_PORTED
-    assert NOT_PORTED == ("recurrentgemma-9b", "seamless-m4t-medium")
+    assert NOT_PORTED == ()
     # the port's own init has the reference's tree, the MTP block unstacked
     _jm, jparams, model, _p = pairs[arch]
     mine = model.init(torch.Generator().manual_seed(0), "cpu")

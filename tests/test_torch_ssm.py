@@ -84,7 +84,7 @@ def test_configs_are_the_reference_s():
         assert asdict(ours) == asdict(theirs)
     cut = get_config(ARCH).smoke().ssm
     assert (cut.d_state, cut.head_dim, cut.chunk) == (16, 16, 16)
-    assert ARCH not in NOT_PORTED and len(NOT_PORTED) == 2
+    assert ARCH not in NOT_PORTED and len(NOT_PORTED) == 0
 
 
 def _ssd_inputs(b, l, h, p, g, n, seed):
