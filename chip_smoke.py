@@ -153,10 +153,13 @@ any fails:
      bfloat16 within 1e-2 / 5e-2 (loss / a leaf's largest |gradient|, no
      TF32); a resume at depth 2 under ``torch.use_deterministic_algorithms``
      (the config resized by patching ``train.get_config``, as the
-     reference's example does): runs A and A again (6 steps), B (an exact
+     reference's example does), placed: ``train_loop(mesh=)`` on a 1 x 1
+     ``("data","model")`` mesh over the card (a world-size-1 NCCL group,
+     started before this phase and ended after the next), parameters and
+     moments placed by ``param_shardings``: runs A and A again (6 steps), B (an exact
      checkpoint at step 3, ``sync_ckpt``, a failure injected at step 4), C
-     restarting on B's directory (restore of step 3, steps 3-5, a
-     ``save_async`` of step 6 and ``wait()``), C's losses and final state
+     restarting on B's directory (restore of step 3 onto the placements,
+     steps 3-5, a ``save_async`` of step 6 and ``wait()``), C's losses and final state
      == A's bit for bit (or, were an op nondeterministic, within the
      spread of the two A runs, named); every save and restore counted
      exactly (one ``histogram`` and ``encode_lookup`` per ``huffman-bytes``
@@ -164,10 +167,20 @@ any fails:
      embedding and its moments in 128 MiB chunks) with the entropy
      kernels held to their plain versions inside the call on the 2^27
      byte keys and the container of the embedding's first chunk; then C's
-     state saved with the default zfp policy and restored, every launch
+     placed state saved with the default zfp policy and restored onto its
+     placements, every launch
      of the ZFP and entropy kernels inside both calls held to its plain
      version on the same inputs, each leaf == the one-shot or streamed
-     decode of its containers.  The ssm family (the previous phase's
+     decode of its containers.  The placed path (same mesh) —
+     ``train_loop(mesh=)`` of qwen2.5-3b at full width and depth under the
+     ``tp`` policy (against the unplaced run above) and under ``dp_zero1``
+     with the dry run's ``OPT_OVERRIDES`` (bfloat16 parameters; against an
+     unplaced run of that config): losses and parameters within the
+     bfloat16 tolerances above, ms a step, tokens/s and peak placed and
+     unplaced; at the depth-2 cut ``make_prefill_step`` against the
+     forward's last position and ``make_decode_step`` on a placed cache of
+     8 slots for 10 steps, the masked update == the slice write bit for
+     bit, placed vs unplaced.  The ssm family (the previous phase's
      model and state freed first) — ``train_loop("mamba2-370m",
      smoke=False, steps=6, batch=8, seq=1024)`` at full width and depth
      (48 layers, 368M float32 parameters from the seed, bfloat16 compute,
@@ -283,10 +296,11 @@ The last two lines are one JSON object per kernel (``{"kernels": [...]}``;
 the Huffman kernels' times are those of the ``huffman-bytes`` leaf; a
 kernel's launches are summed over every counted main-path call (the ZFP,
 Huffman, MGARD, progressive, pytree, stream, checkpoint, serving,
-training, mamba2 training, mamba2 serving, qwen2-vl, deepseek-v3,
-llama4-scout, moe card vs CPU, moe resume, recurrentgemma-9b serving and
-training, hybrid smoke cut, seamless-m4t-medium and encdec card vs CPU
-paths; a line before gives the last eighteen paths' calls' own), its error
+training, placed path, mamba2 training, mamba2 serving, qwen2-vl,
+deepseek-v3, llama4-scout, moe card vs CPU, moe resume,
+recurrentgemma-9b serving and training, hybrid smoke cut,
+seamless-m4t-medium and encdec card vs CPU paths; a line before gives the
+last nineteen paths' calls' own), its error
 the largest of them) and
 ``{"ok": true, "device": {...}}``.
 """
@@ -376,6 +390,7 @@ TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 1, 64
 # (loss, each gradient leaf) within these shares of the CPU's value / largest |gradient|
 TRAIN_CHECK_TOL = {"float32": (1e-5, 1e-3), "bfloat16": (1e-2, 5e-2)}
 RESUME_EVERY, RESUME_FAIL_AT = 3, 4  # checkpoint at step 3, failure injected at step 4
+PLACED_DECODE_SLOTS = 8             # the placed decode's cache; 10 steps wrap its ring
 SSM_ARCH = "mamba2-370m"            # arXiv:2405.21060 at full width and depth (48 layers)
 SSM_BATCH, SSM_SEQ = 8, 1024        # 8 SSD chunks of 128: the inter-chunk recurrence runs
 SSM_CHECK_BATCH, SSM_CHECK_SEQ = 2, 256   # the card vs CPU step: two chunks
@@ -460,6 +475,15 @@ def same_bits(a, b) -> bool:
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
     return bool(torch.equal(a, b.to(a.device)))
+
+
+def local_leaves(tree) -> dict:
+    """``{key: leaf}`` of ``tree`` with ``::`` keys, a placed leaf (DTensor)
+    as its local block (on a 1 x 1 mesh: the whole tensor)."""
+    from repro_torch.core import api
+    from repro_torch.runtime.sharding import is_placed
+
+    return {k: x.to_local() if is_placed(x) else x for k, x in api.flatten_with_keys(tree, "::")}
 
 
 def max_abs_err(a, b) -> float:
@@ -3776,7 +3800,7 @@ def counted_checkpoints(calls: dict, errs: dict, timings: list, device, probe: s
     def counted_save(self, step, tree, extra=None):
         manifest, seconds, counts, held = run(lambda: save(self, step, tree, extra))
         name = f"CheckpointManager.save (step {step}, {policy_name(self)})"
-        flat = dict(api.flatten_with_keys(tree, "::"))
+        flat = local_leaves(tree)
         checked(name, counts, checkpoint_want(flat, manifest, self.policy, False, device), held)
         calls[name] = counts
         timings.append((name, seconds, manifest["raw_bytes"], manifest["compressed_bytes"]))
@@ -3788,7 +3812,7 @@ def counted_checkpoints(calls: dict, errs: dict, timings: list, device, probe: s
         (tree, manifest), seconds, counts, held = run(
             lambda: restore(self, step, *args, **kwargs))
         name = f"CheckpointManager.restore (step {manifest['step']}, {policy_name(self)})"
-        flat = dict(api.flatten_with_keys(tree, "::"))
+        flat = local_leaves(tree)
         checked(name, counts, checkpoint_want(flat, manifest, self.policy, True, device), held)
         calls[name] = counts
         timings.append((name, seconds, manifest["raw_bytes"], manifest["compressed_bytes"]))
@@ -3919,8 +3943,8 @@ def check_resume(T, arch: str, cut, calls: dict, errs: dict, timings: list, devi
     finally:
         torch.use_deterministic_algorithms(deterministic)
     a1, a2 = runs
-    fa1, fa2 = (dict(api.flatten_with_keys(r["state"], "::")) for r in runs)
-    fc = dict(api.flatten_with_keys(c["state"], "::"))
+    fa1, fa2 = (local_leaves(r["state"]) for r in runs)
+    fc = local_leaves(c["state"])
     spread = max(float((fa1[k].double() - fa2[k].double()).abs().max()) for k in fa1)
     same_a = a1["losses"] == a2["losses"] and spread == 0.0
     if c["steps_run"] != TRAIN_STEPS - RESUME_EVERY or not all(c["finite"]):
@@ -3949,21 +3973,24 @@ def check_resume(T, arch: str, cut, calls: dict, errs: dict, timings: list, devi
     return c, summary
 
 
-def phase_training(device, api, card: str) -> dict:
+def phase_training(device, api, card: str, mesh) -> dict:
     """Phase 3 and 5, training: ``train_loop`` of qwen2.5-3b at full width and
     depth (36 layers, 3.09B float32 parameters from the seed, bfloat16
     compute, float32 moments, batch 8 x 128, 6 steps, no checkpoint) with
     its peak memory, step times, tokens/s and model-FLOP share; one step
     under ``torch.profiler``; a depth-2 full-width step on the card against
     the same step on the CPU (float32 and bfloat16); a bit-exact resume at
-    depth 2 from an exact checkpoint (runs A, A again, B failing at step 4
-    after the step-3 save, C restarting on B's directory and saving
-    asynchronously at step 6) under deterministic algorithms, every save
-    and restore counted exactly with the entropy kernels held to their
-    plain versions inside the call on a full 128 MiB chunk of the
-    embedding; and C's state saved with the default zfp policy and
-    restored, every kernel launch inside both calls held to its plain
-    version, each leaf held to the one-shot or streamed decode."""
+    depth 2 from an exact checkpoint, placed on ``mesh`` (runs A, A again,
+    B failing at step 4 after the step-3 save, C restarting on B's
+    directory, restoring onto the placements and saving asynchronously at
+    step 6) under deterministic algorithms, every save and restore counted
+    exactly with the entropy kernels held to their plain versions inside
+    the call on a full 128 MiB chunk of the embedding; and C's placed state
+    saved with the default zfp policy and restored onto its placements,
+    every kernel launch inside both calls held to its plain version, each
+    leaf held to the one-shot or streamed decode.  Returns the calls and
+    errors, and the full-size run's losses, step times, peak and final
+    parameters (a host copy) for the placed phase."""
     import tempfile
     from dataclasses import replace
 
@@ -4002,6 +4029,8 @@ def phase_training(device, api, card: str) -> dict:
     losses, finite = out["losses"], out["finite"]
     if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses) or not all(finite):
         raise PhaseError(f"train_loop (full): losses {losses}, finite {finite}")
+    unplaced = {"losses": losses, "step_s": out["step_s"], "peak": peak,
+                "params": {k: x.cpu() for k, x in local_leaves(out["state"]["params"]).items()}}
     step_s = statistics.median(out["step_s"][-TRAIN_TIMED:])
     tokens = TRAIN_BATCH * TRAIN_SEQ
     counts = roofline.count_params(model.param_shapes())
@@ -4058,15 +4087,19 @@ def phase_training(device, api, card: str) -> dict:
     timings: list = []
     probe = "params::embed::table"  # streamed in 128 MiB chunks: 2^27 byte keys each
     c, summary = check_resume(T, TRAIN_ARCH, cut, calls, errs, timings, device, probe,
-                              root / "ck", "A")
-    log(f"phase 3 ok: resume at depth {TRAIN_CUT_LAYERS}, full width, " + summary)
+                              root / "ck", "A", mesh=mesh)
+    log(f"phase 3 ok: resume at depth {TRAIN_CUT_LAYERS}, full width, placed on the "
+        f"{tuple(mesh.mesh.shape)} {mesh.mesh_dim_names} mesh (parameters and moments by "
+        "param_shardings, step replicated, C restored onto those placements), " + summary)
     torch.cuda.empty_cache()
     lap("resume")
 
     # -- C's state through the default (zfp) policy -------------------------
     summary = check_state_checkpoint(TRAIN_ARCH, CheckpointPolicy(), c["state"], calls, errs,
-                                     timings, device, root / "lossy")
-    log("phase 3 ok: C's state, with the default policy, " + summary)
+                                     timings, device, root / "lossy",
+                                     places=placements_of(c["state"]))
+    log("phase 3 ok: C's placed state, with the default policy, restored onto its placements, "
+        + summary)
     log(f"phase 5 [{card}] checkpoints of the depth-{TRAIN_CUT_LAYERS} training state (host wall, "
         "synchronised, one run each; filesystem " + fs_type(root) + "; a held call's seconds "
         "include its plain versions): " + ", ".join(
@@ -4076,7 +4109,208 @@ def phase_training(device, api, card: str) -> dict:
     tmp.cleanup()
     torch.cuda.empty_cache()
     lap("lossy checkpoint")
+    return {"calls": calls, "errs": errs, "unplaced": unplaced}
+
+
+def placed_vs_unplaced(what: str, out: dict, ref: dict, tol: tuple, device,
+                       exact: bool) -> tuple:
+    """A placed run's losses and final parameters against the unplaced
+    run's (``ref``: losses and a host copy of the parameters): the largest
+    loss difference relative to the unplaced loss, the largest parameter
+    difference relative to the leaf's largest |value|; with ``exact``
+    every loss and every parameter equal bit for bit, else each within its
+    share of ``tol``."""
+    ldiff = max(abs(a - b) / abs(b) for a, b in zip(out["losses"], ref["losses"]))
+    worst, where, differ = 0.0, "every leaf equal", []
+    for k, x in local_leaves(out["state"]["params"]).items():
+        want = ref["params"][k].to(device)
+        if not same_bits(x, want):
+            differ.append(k)
+        share = float((x.float() - want.float()).abs().max()) / max(
+            float(want.float().abs().max()), 1e-30)
+        if share > worst:
+            worst, where = share, f"at {k}"
+        del want
+    if exact:
+        bad = out["losses"] != ref["losses"] or bool(differ)
+    else:
+        bad = (len(out["losses"]) != len(ref["losses"]) or not ldiff <= tol[0]
+               or not worst <= tol[1])
+    if bad:
+        held = "bit for bit" if exact else f"within {tol}"
+        raise PhaseError(f"{what}: placed losses {out['losses']} vs unplaced {ref['losses']} "
+                         f"({ldiff:.4e}), parameters within {worst:.4e} ({where}; "
+                         f"{len(differ)} leaves differ), held {held}")
+    return ldiff, worst, where
+
+
+def phase_placed(device, api, card: str, mesh, unplaced: dict) -> dict:
+    """Phase 3 and 5, the placed path on ``mesh`` (1 x 1 over the card, a
+    world-size-1 NCCL group): ``train_loop(mesh=)`` of qwen2.5-3b at full
+    width and depth, its parameters and moments placed by
+    ``param_shardings`` and its batches ``Shard(0)`` over the data axis,
+    under the ``tp`` policy (against the training phase's unplaced run)
+    and under ``dp_zero1`` with the dry run's ``OPT_OVERRIDES`` for this
+    arch (bfloat16 parameters; against an unplaced run of the same config):
+    the losses and final parameters, the largest differences, ms a step,
+    tokens/s and peak memory placed and unplaced; then, at the depth-2
+    cut, ``make_prefill_step`` on placed parameters and batch against the
+    unplaced step and the forward's last position, and ``make_decode_step``
+    on a placed cache with ``decode_masked_update`` off and on (past the
+    cache's end: the ring's wrap) against each other and the unplaced
+    decode.  On a mesh whose axes all have one rank every placement is
+    ``Replicate``: the placed path runs the same kernels on the same
+    tensors, so the placed losses, parameters and logits must equal the
+    unplaced ones bit for bit; TRAIN_CHECK_TOL (and the forward's
+    comparison) holds where a mesh splits tensors."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import specs as S
+    from repro_torch.launch import train as T
+    from repro_torch.launch.dryrun import opt_overrides_for
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.runtime import sharding as shr
+
+    calls, errs = {}, {}
+    clock = [time.perf_counter()]
+
+    def lap(what: str) -> None:
+        now = time.perf_counter()
+        log(f"(phase 3 placed, {what}: {now - clock[0]:.1f} s)")
+        clock[0] = now
+
+    cfg = get_config(TRAIN_ARCH)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tol = TRAIN_CHECK_TOL[cfg.dtype]
+    exact = all(n == 1 for n in mesh.mesh.shape)
+    held = "bit for bit" if exact else f"within {tol}"
+    kw = dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, smoke=False,
+              log_every=TRAIN_STEPS)
+    shape = f"{tuple(mesh.mesh.shape)} {mesh.mesh_dim_names}"
+
+    def med_ms(step_s) -> float:
+        return statistics.median(step_s[-TRAIN_TIMED:]) * 1e3
+
+    for policy, overrides in (("tp", {"sharding_policy": "tp"}),
+                              ("dp_zero1", opt_overrides_for(TRAIN_ARCH, "train"))):
+        run_cfg = replace(cfg, **overrides)
+        ref = unplaced
+        if policy != "tp":  # the unplaced twin of this config
+            with resized(T, run_cfg):
+                reset_peak(f"train_loop {TRAIN_ARCH} {policy} unplaced")
+                out, calls[f"train_loop {policy} unplaced (full, {TRAIN_STEPS} steps)"] = counted(
+                    f"train_loop {policy} unplaced", lambda: T.train_loop(TRAIN_ARCH, **kw), {})
+            ref = {"losses": out["losses"], "step_s": out["step_s"],
+                   "peak": torch.cuda.max_memory_allocated(),
+                   "params": {k: x.cpu() for k, x in local_leaves(out["state"]["params"]).items()}}
+            del out
+            torch.cuda.empty_cache()
+        with resized(T, run_cfg):
+            reset_peak(f"train_loop {TRAIN_ARCH} {policy} placed")
+            out, calls[f"train_loop {policy} placed (full, {TRAIN_STEPS} steps)"] = counted(
+                f"train_loop {policy} placed", lambda: T.train_loop(TRAIN_ARCH, mesh=mesh, **kw),
+                {})
+        peak = torch.cuda.max_memory_allocated()
+        if not all(out["finite"]):
+            raise PhaseError(f"train_loop {policy} placed: finite {out['finite']}")
+        pl = local_leaves(out["state"]["params"])
+        leaf = next(iter(api.flatten_with_keys(out["state"]["params"], "::")))[1]
+        ldiff, worst, where = placed_vs_unplaced(f"train_loop {policy}", out, ref, tol, device,
+                                                 exact)
+        placed_ms, plain_ms = med_ms(out["step_s"]), med_ms(ref["step_s"])
+        log(f"phase 3 ok: train_loop({TRAIN_ARCH!r}, mesh={shape}) under {policy} "
+            f"({overrides}): {run_cfg.n_layers} layers, {run_cfg.param_dtype} parameters "
+            f"placed as DTensors ({type(leaf).__name__}, e.g. {leaf.placements}); losses "
+            f"{[round(x, 4) for x in out['losses']]} vs unplaced "
+            f"{[round(x, 4) for x in ref['losses']]}: largest relative difference {ldiff:.4e}, "
+            f"parameters within {worst:.4e} of a leaf's largest |value| ({where}); held "
+            f"{held}; no kernel launched")
+        log(f"phase 5 [{card}] placed training {TRAIN_ARCH} under {policy}, {tokens} tokens a "
+            f"step: placed median of the last {TRAIN_TIMED} steps {placed_ms:.4f} ms = "
+            f"{tokens / placed_ms * 1e3:.3f} tokens/s, peak {peak / 1e9:.3f} GB; unplaced "
+            f"{plain_ms:.4f} ms = {tokens / plain_ms * 1e3:.3f} tokens/s, peak "
+            f"{ref['peak'] / 1e9:.3f} GB (host wall, each step ending in the loss's read; the "
+            f"difference is DTensor's host cost: {placed_ms - plain_ms:.4f} ms a step)")
+        del out, pl, leaf, ref
+        torch.cuda.empty_cache()
+        lap(f"train_loop {policy}")
+    unplaced.pop("params")
+
+    # -- prefill and decode steps at the depth-2 cut ------------------------
+    cut = replace(cfg, n_layers=TRAIN_CUT_LAYERS)
+    model = build_model(cut)
+    params = model.init(torch.Generator(device=device).manual_seed(SEED + 80), device)
+    toks = torch.from_numpy(np.random.default_rng(SEED + 81).integers(
+        0, cut.vocab, (4, 64)).astype(np.int32)).to(device)
+    with use_mesh(mesh):
+        pp = T._placed(shr.param_shardings(params, cut, mesh), params)
+        prompt = {"tokens": toks}
+        pb = T._placed(shr.batch_shardings(prompt, cut, mesh), prompt)
+        (got, calls["make_prefill_step (placed)"]) = counted(
+            "make_prefill_step", lambda: S.make_prefill_step(model)(pp, pb), {})
+        got = got.to_local()
+    plain_prefill = S.make_prefill_step(model)(params, prompt)
+    with torch.no_grad():
+        h, _ = model._backbone(params, model._embed_in(params, prompt), prompt)
+        want = model._head(params, rms_norm(h, params["ln_f"]["scale"], cut.norm_eps))[:, -1]
+    pdiff = float((got.float() - want.float()).abs().max()) / float(want.float().abs().max())
+    pplain = float((got.float() - plain_prefill.float()).abs().max())
+    if not pdiff <= tol[0] or (exact and not same_bits(got, plain_prefill)):
+        raise PhaseError(f"make_prefill_step: placed vs unplaced {pplain:.4e} (held {held}), "
+                         f"vs the forward's last position {pdiff:.4e} (<= {tol[0]}?)")
+    decoded = {}
+    for masked in (False, True):
+        m = build_model(replace(cut, decode_masked_update=masked))
+        step = S.make_decode_step(m)
+        cache = m.init_cache(4, PLACED_DECODE_SLOTS, torch.bfloat16, device)
+        ref_cache = m.init_cache(4, PLACED_DECODE_SLOTS, torch.bfloat16, device)
+        with use_mesh(mesh):
+            pc = T._placed(shr.cache_shardings(cache, cut, mesh), cache)
+            for i in range(PLACED_DECODE_SLOTS + 2):  # the last two past the end: the ring wraps
+                logits, pc = step(pp, toks[:, i], pc, i)
+                decoded.setdefault(masked, []).append(logits.to_local())
+        for i in range(PLACED_DECODE_SLOTS + 2):
+            logits, _ = m.decode_step(params, toks[:, i], ref_cache, i)
+            decoded.setdefault(("ref", masked), []).append(logits)
+    same = all(same_bits(a, b) for a, b in zip(decoded[False], decoded[True]))
+    ddiff = max(max_abs_err(a, b) for k in (False, True)
+                for a, b in zip(decoded[k], decoded[("ref", k)]))
+    if exact:
+        dheld = all(same_bits(a, b) for k in (False, True)
+                    for a, b in zip(decoded[k], decoded[("ref", k)]))
+    else:
+        dheld = ddiff <= tol[0] * float(decoded[("ref", False)][0].float().abs().max())
+    if not same or not dheld:
+        raise PhaseError(f"make_decode_step: masked == slice write {same}, placed vs unplaced "
+                         f"{ddiff:.4e} (held {held})")
+    log(f"phase 3 ok: at the depth-{TRAIN_CUT_LAYERS} cut, full width, on the {shape} mesh: "
+        f"make_prefill_step's last-position logits (batch 4 x 64) vs the unplaced step's "
+        f"within {pplain:.4e} (held {held}), vs the forward's within {pdiff:.4e} of the "
+        f"largest |logit| (<= {tol[0]}); make_decode_step, {PLACED_DECODE_SLOTS + 2} steps on "
+        f"a placed bfloat16 cache of {PLACED_DECODE_SLOTS} slots (the last two past the end), "
+        f"decode_masked_update on == off bit for bit ({same}), placed vs unplaced logits "
+        f"within {ddiff:.4e} (held {held}); no kernel launched")
+    del params, pp, pc, decoded, cache, ref_cache
+    torch.cuda.empty_cache()
+    lap("prefill and decode")
     return {"calls": calls, "errs": errs}
+
+
+def placements_of(tree):
+    """A tree of ``runtime.sharding.Placed`` like ``tree``'s placed leaves."""
+    from repro_torch.core import api
+    from repro_torch.runtime import sharding as shr
+
+    flat = dict(api.flatten_with_keys(tree, "::"))
+    return api.unflatten_like(
+        tree, lambda k: shr.Placed(flat[k].device_mesh, tuple(flat[k].placements), shr.P()),
+        "::")
 
 
 def vlm_positions(b: int, s: int, image_at: int = VLM_IMAGE_AT,
@@ -4786,7 +5020,7 @@ def ckpt_policy(cfg):
 
 
 def check_state_checkpoint(what: str, policy, state: dict, calls: dict, errs: dict,
-                           timings: list, device, ckpt_dir: Path) -> str:
+                           timings: list, device, ckpt_dir: Path, places=None) -> str:
     """A training state saved under ``policy`` and restored: every launch of
     both calls counted exactly and every launch of LOSSY_KERNELS inside them
     held to its plain version on the same inputs (tolerance 0); each
@@ -4794,7 +5028,9 @@ def check_state_checkpoint(what: str, policy, state: dict, calls: dict, errs: di
     one-shot or streamed decode of its containers (an exact leaf: itself),
     compared a stream chunk at a time, since a state and its restore may
     fill most of the card; the lossy leaves within STATE_ERR_TOL of the
-    leaf's largest |value|.  Returns the log line's tail."""
+    leaf's largest |value|.  With ``places`` (a tree of placements like
+    ``state``'s) the restore puts every leaf onto its placement and each
+    leaf's local block is compared.  Returns the log line's tail."""
     import torch
 
     from repro_torch.checkpoint import CheckpointManager
@@ -4805,9 +5041,14 @@ def check_state_checkpoint(what: str, policy, state: dict, calls: dict, errs: di
     torch.cuda.reset_peak_memory_stats()
     with counted_checkpoints(calls, errs, timings, device, hold=LOSSY_KERNELS):
         manifest = mgr.save(TRAIN_STEPS, state)
-        restored, _ = mgr.restore(TRAIN_STEPS)
+        if places is None:
+            restored, _ = mgr.restore(TRAIN_STEPS)
+        else:  # onto the placements: every leaf a DTensor, its block compared
+            tree, _ = mgr.restore(TRAIN_STEPS, target=state, shardings=places)
+            restored = local_leaves(tree)
+            del tree
     worst, kinds = 0.0, {"streamed": 0, "zfp": 0, "huffman-bytes": 0}
-    for k, x in api.flatten_with_keys(state, "::"):
+    for k, x in local_leaves(state).items():
         e, got = manifest["leaves"][k], restored.pop(k)
         if got.device != device or got.dtype != x.dtype or got.shape != x.shape:
             raise PhaseError(f"{what} checkpoint {k}: restored {got.device} {got.dtype} "
@@ -5367,8 +5608,17 @@ def main() -> int:
 
     GLOBAL_CMM.clear()  # cached plans' device tables (the MGARD level map: 540 MB)
     torch.cuda.empty_cache()
-    train = phase_training(device, api, card)
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+
+    mesh = make_test_mesh(1, 1, device)  # a world-size-1 NCCL group, ended below
+    train = phase_training(device, api, card, mesh)
     lap("phase 3 and 5, training")
+    placed = phase_placed(device, api, card, mesh, train.pop("unplaced"))
+    dist.destroy_process_group()
+    del mesh
+    lap("phase 3 and 5, placed path")
     GLOBAL_CMM.clear()  # the lossy checkpoint's plans: mamba2's step peaks at ~74 GB
     torch.cuda.empty_cache()
     ssm_train = phase_ssm_training(device, api, card)
@@ -5408,7 +5658,8 @@ def main() -> int:
     # the progressive, pytree, stream, checkpoint, serving and training paths'
     # launches and checks join every kernel's
     new_paths = {"progressive": prog, "pytree": pyt, "stream": st, "checkpoint": ckpt,
-                 "serving": srv, "training": train, "mamba2 training": ssm_train,
+                 "serving": srv, "training": train, "placed path": placed,
+                 "mamba2 training": ssm_train,
                  "mamba2 serving": ssm_serve, "qwen2-vl": vlm, "deepseek-v3": ds,
                  "llama4-scout": l4, "moe card vs CPU": moe_cpu, "moe resume": moe_resume,
                  "recurrentgemma-9b serving": hyb_serve, "recurrentgemma-9b training": hyb_train,

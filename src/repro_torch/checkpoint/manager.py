@@ -32,8 +32,12 @@ only its compressed bytes cross to the host; a host array or tensor goes
 to the card through the engine (one-shot leaves) or the stream's
 page-locked staging (streamed leaves).  Restored leaves are tensors on the
 engine's device; ``restore(target=..., shardings=...)`` re-places them
-(``shardings``: a tree of per-leaf ``torch.device``\\ s, the one-card form of
-the reference's mesh shardings).
+(``shardings``: a tree of per-leaf ``torch.device``\\ s, or of
+``runtime.sharding.Placed`` placements over a mesh, the reference's mesh
+shardings: each rank keeps its block of the decoded leaf).  A placed leaf
+(a DTensor) is saved whole: gathered to the full tensor on every rank
+first, so the containers are those of the unplaced leaf, and a checkpoint
+written placed, unplaced or by the reference restores either way.
 
 Layout:  <dir>/step_<N>/manifest.json + <dir>/step_<N>/leaves.hpdr
          (multi-host: <dir>/step_<N>/leaves-<host>.hpdr per host)
@@ -57,6 +61,7 @@ from ..core.container import Compressed, _jsonable
 from ..core.pipeline import host_tensor
 from ..launch.mesh import HostTopology, barrier_payloads, fs_barrier
 from ..runtime.executor import IO, Submission
+from ..runtime.sharding import Placed, is_placed
 from ..runtime.io import (
     AggregatedReader,
     AggregatedWriter,
@@ -208,6 +213,16 @@ def _stream_leaf(arr: torch.Tensor, policy: CheckpointPolicy, backend: str) -> t
     return stream.to_bytes(res), info
 
 
+def _gathered(tree: Any) -> Any:
+    """``tree`` with every placed leaf (DTensor) gathered to its full tensor
+    (a collective: every rank of its mesh calls this, in the same order)."""
+    flat = dict(api.flatten_with_keys(tree, _SEP))
+    if not any(is_placed(x) for x in flat.values()):
+        return tree
+    return api.unflatten_like(
+        tree, lambda k: flat[k].full_tensor() if is_placed(flat[k]) else flat[k], _SEP)
+
+
 def _snapshot(tree: Any) -> Any:
     """A copy of ``tree`` the caller may go on mutating: tensors cloned where
     they lie (the card's copies complete before this returns), arrays
@@ -285,6 +300,7 @@ class CheckpointManager:
     # ----------------------------------------------------------------- save
 
     def save(self, step: int, tree: Any, extra: dict | None = None) -> dict:
+        tree = _gathered(tree)
         topo = self.topology
         if topo.multi_host:
             return self._save_multihost(step, tree, extra, topo)
@@ -481,7 +497,7 @@ class CheckpointManager:
         exception propagates from this submission's ``result()`` (the
         chained save is skipped).
         """
-        snapshot = _snapshot(tree)  # the only sync point
+        snapshot = _snapshot(_gathered(tree))  # the only sync point
         prev, self._pending = self._pending, None
         if prev is None:
             self._pending = self.engine.submit(self.save, step, snapshot, extra, lane=IO)
@@ -525,7 +541,10 @@ class CheckpointManager:
 
         ``target`` supplies the pytree structure (and each leaf's dtype, and
         its device where the leaf is a tensor); ``shardings`` (same
-        structure, ``torch.device`` leaves) re-places every leaf.
+        structure, ``torch.device`` or ``runtime.sharding.Placed`` leaves)
+        re-places every leaf: a placement keeps this rank's block of the
+        decoded leaf (no communication: every rank decodes the whole
+        leaf).
         ``leaves`` (flat mode only) selects a subset of leaf keys: only
         those leaves' byte ranges are ``pread``.  ``leaves="local"`` selects
         the leaves this host owns under its current topology.
@@ -616,8 +635,11 @@ class CheckpointManager:
             if hasattr(like, "dtype"):
                 out = out.to(_leaf(np.empty(0, like.dtype)).dtype
                              if isinstance(like, np.ndarray | np.generic) else like.dtype)
-            if key in places:
-                out = out.to(places[key])
+            where = places.get(key)
+            if isinstance(where, Placed):
+                out = where.distribute(out)
+            elif where is not None:
+                out = out.to(where)
             elif isinstance(like, torch.Tensor):
                 out = out.to(like.device)
             return out

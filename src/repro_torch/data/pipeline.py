@@ -8,8 +8,10 @@ token maker, bit for bit the reference's.
 
 The token distribution is a Zipf-like categorical with AR(1)-style
 repetition, so losses move during a run (uniform tokens give a flat CE).
-The reference's ``mesh`` (each host materialising its shard) becomes
-``device``: the batch lands on one device, the card by default.
+Without a mesh the batch lands on one device, the card by default; with a
+mesh (as the reference's) each batch is placed ``Shard(0)`` over the mesh's
+data-parallel axes ("pod", "data"), every rank keeping only its block
+(made from the same tokens, with no communication).
 """
 
 from __future__ import annotations
@@ -48,10 +50,14 @@ class SyntheticLMStream:
     """Stateless stream facade with a checkpointable position.
 
     ``next_batch()`` gives int32 ``tokens``/``labels`` of shape (B, S) on
-    ``device`` (default: the card)."""
+    ``device`` (default: the card), or placed over ``mesh`` (on the mesh's
+    device type: the current card, or the CPU)."""
 
-    def __init__(self, cfg: DataConfig, device=None):
+    def __init__(self, cfg: DataConfig, device=None, mesh=None):
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None and device is None:
+            device = "cpu" if mesh.device_type == "cpu" else None
         if device is None:
             device = torch.device("cuda", torch.cuda.current_device())
         self.device = torch.device(device)
@@ -69,8 +75,14 @@ class SyntheticLMStream:
     def next_batch(self) -> dict:
         tokens = torch.from_numpy(_batch_tokens(self.cfg, self.step))
         self.step += 1
-        tokens = tokens.to(self.device)
-        return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+        batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+        if self.mesh is None:
+            tokens = tokens.to(self.device)
+            return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+        from ..runtime.sharding import P, dp_axes, placed
+
+        where = placed(P(dp_axes(self.mesh) or None), self.mesh)
+        return {k: where.distribute(v, self.device) for k, v in batch.items()}
 
     def __iter__(self) -> Iterator[dict]:
         while True:

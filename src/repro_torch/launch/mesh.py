@@ -1,5 +1,12 @@
-"""Multi-controller host topology and the shared-filesystem barrier
-(counterpart of the topology half of ``repro.launch.mesh``).
+"""Device meshes, the ambient mesh, the multi-controller host topology
+and the shared-filesystem barrier (counterpart of ``repro.launch.mesh``).
+
+A mesh is a :class:`torch.distributed.device_mesh.DeviceMesh` whose
+``mesh_dim_names`` are the reference's axis names; it spans the ranks of
+the default process group, one device a rank.  :func:`use_mesh` makes a
+mesh ambient (a ``contextvars`` variable), where
+``runtime.sharding.constrain_activation_dp`` and the MoE dispatches look
+for it, as the reference's code looks for JAX's ambient mesh.
 
 The multi-host I/O layer (per-host aggregated shard files, global manifest,
 topology-aware restore) and the engine's ``owned_only`` route are
@@ -10,11 +17,80 @@ reference's rule, so both packages assign every leaf to the same host.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 import zlib
 from dataclasses import dataclass
 from pathlib import Path
+
+from ..runtime.sharding import AMBIENT_MESH
+
+
+def _mesh_device_type(device) -> str:
+    """The DeviceMesh device type: ``"cuda"`` (the default: the card) or
+    ``"cpu"``."""
+    if device is None:
+        return "cuda"
+    return str(device).split(":")[0]
+
+
+def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], device=None):
+    """A DeviceMesh of ``shape`` over the default process group's ranks,
+    its dims named ``axes``; on the card unless ``device="cpu"``.  The
+    group must exist and hold ``prod(shape)`` ranks."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh(_mesh_device_type(device), tuple(shape), mesh_dim_names=tuple(axes))
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Make ``mesh`` the ambient mesh while the block runs."""
+    token = AMBIENT_MESH.set(mesh)
+    try:
+        yield mesh
+    finally:
+        AMBIENT_MESH.reset(token)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    """The (16, 16) ``("data","model")`` mesh, or (2, 16, 16)
+    ``("pod","data","model")``: over 256 or 512 ranks (the dry run's fake
+    process group gives them to one process)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device)
+
+
+def ensure_process_group(device=None) -> bool:
+    """Start a process group of world size 1 when none exists (``gloo`` on
+    the CPU, ``nccl`` on the card; an in-process ``HashStore``, so nothing
+    is listened on).  Returns whether it started one, so that the caller
+    can end it with ``torch.distributed.destroy_process_group()``."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return False
+    backend = "gloo" if _mesh_device_type(device) == "cpu" else "nccl"
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
+    return True
+
+
+def make_test_mesh(n_data: int = 2, n_model: int = 2, device=None):
+    """A ``("data","model")`` mesh over the ranks that exist (tests,
+    examples, the card's smoke run): ``n_data`` cut to the world size,
+    ``n_model`` to what is left; the two must cover every rank.  In one
+    process with no process group it first starts a world-size-1 group
+    (:func:`ensure_process_group`), so the mesh is (1, 1) there."""
+    import torch.distributed as dist
+
+    ensure_process_group(device)
+    n = dist.get_world_size()
+    n_data = min(n_data, n)
+    n_model = min(n_model, max(1, n // n_data))
+    return make_mesh((n_data, n_model), ("data", "model"), device)
+
 
 ENV_HOST_ID = "HPDR_HOST_ID"
 ENV_HOST_COUNT = "HPDR_HOST_COUNT"

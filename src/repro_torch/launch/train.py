@@ -1,16 +1,22 @@
 """Training launcher: --arch config → train loop with HPDR features
-(counterpart of ``repro.launch.train``), on one device.
+(counterpart of ``repro.launch.train``).
 
 The path: data stream → train step (loss and backward, the schedule's
 learning rate, AdamW in place with the non-finite guard) → straggler
 watchdog → HPDR-compressed checkpoints (exact by default) → auto-restore
 on restart.
 
-There is no mesh and no sharding: every tensor lives on ``device``
-(default: the card; without one, ``device="cpu"`` must be asked for), and
-the step runs eagerly (no ``torch.compile``).  Parameters come from
-``Model.init`` with a ``torch.Generator`` seeded 0 on that device: the
-reference's init scheme, the port's own random stream.
+Without ``mesh`` every tensor lives on ``device`` (default: the card;
+without one, ``device="cpu"`` must be asked for).  With ``mesh`` (a
+DeviceMesh over the ranks, e.g. ``launch.mesh.make_test_mesh``), as the
+reference does on its test mesh: the parameters and both moments are
+placed by ``runtime.sharding.param_shardings``, the optimizer's step
+replicated, each batch ``Shard(0)`` over the data axes; the step runs on
+DTensors (``launch.specs``), and a restart restores onto the same
+placements.  The step runs eagerly (no ``torch.compile``).  Parameters
+come from ``Model.init`` with a ``torch.Generator`` seeded 0 on that
+device: the reference's init scheme, the port's own random stream; placed,
+every rank makes them and keeps its block.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b --smoke \\
@@ -32,6 +38,7 @@ from ..data import DataConfig, SyntheticLMStream
 from ..models import build_model
 from ..optim import adamw, schedule
 from ..runtime import fault
+from ..runtime import sharding as shr
 
 
 def resolve_device(device=None) -> torch.device:
@@ -53,10 +60,13 @@ def make_train_step(model, opt_cfg: adamw.AdamWConfig, sched_fn, lr: float, step
     device)."""
 
     def train_step(params, opt_state, batch_) -> dict:
-        (_loss, metrics), grads = model.value_and_grad(params, batch_)
-        lr_t = sched_fn(opt_state["step"], peak_lr=lr, warmup=max(steps // 10, 1), total=steps)
-        metrics.update(adamw.apply_updates_(params, grads, opt_state, lr_t, opt_cfg))
-        return metrics
+        with shr.placed_ops():
+            (_loss, metrics), grads = model.value_and_grad(params, batch_)
+            step = opt_state["step"]
+            lr_t = sched_fn(step.to_local() if shr.is_placed(step) else step, peak_lr=lr,
+                            warmup=max(steps // 10, 1), total=steps)
+            metrics.update(adamw.apply_updates_(params, grads, opt_state, lr_t, opt_cfg))
+        return {k: shr.whole(v) for k, v in metrics.items()}
 
     return train_step
 
@@ -76,13 +86,16 @@ def train_loop(
     inject_failure_at: int | None = None,
     sync_ckpt: bool = False,
     device=None,
+    mesh=None,
 ) -> dict:
     """Train ``arch`` for ``steps`` steps (resuming from the newest
-    checkpoint in ``ckpt_dir``).  Returns the reference's dict
-    (``first_loss``, ``last_loss``, ``steps_run``, ``stragglers``,
-    ``ckpt_report``) and, for its callers' checks, ``losses``, ``finite``
-    and ``step_s`` of every step run and the final ``state``
-    (``{"params", "opt"}``, on the device)."""
+    checkpoint in ``ckpt_dir``), on ``device`` or placed over ``mesh``.
+    Returns the reference's dict (``first_loss``, ``last_loss``,
+    ``steps_run``, ``stragglers``, ``ckpt_report``) and, for its callers'
+    checks, ``losses``, ``finite`` and ``step_s`` of every step run and the
+    final ``state`` (``{"params", "opt"}``, on the device or placed)."""
+    if mesh is not None and device is None:
+        device = "cpu" if mesh.device_type == "cpu" else None
     device = resolve_device(device)
     cfg = get_config(arch)
     if smoke:
@@ -93,10 +106,16 @@ def train_loop(
     params = model.init(torch.Generator(device=device).manual_seed(0), device)
     opt_cfg = adamw.AdamWConfig()
     opt_state = adamw.init_state(params, opt_cfg)
+    places = None
+    if mesh is not None:  # onto the mesh, as the reference's device_put
+        p_sh = shr.param_shardings(model.param_shapes(), cfg, mesh)
+        places = {"params": p_sh,
+                  "opt": {"m": p_sh, "v": p_sh, "step": shr.replicated(mesh)}}
+        params, opt_state = _placed(places, {"params": params, "opt": opt_state}).values()
 
     sched_fn = schedule.SCHEDULES[sched]
     data = SyntheticLMStream(DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch),
-                             device)
+                             device, mesh)
     train_step = make_train_step(model, opt_cfg, sched_fn, lr, steps)
 
     mgr = None
@@ -109,10 +128,10 @@ def train_loop(
             # the target gives each leaf's dtype and device; the initial
             # state goes before the restored one is made (at qwen2.5-3b both
             # would take 74 GB)
-            target = adamw.map_tree(lambda t: t.new_empty(0),
+            target = adamw.map_tree(lambda t: torch.empty(0, dtype=t.dtype, device=device),
                                     {"params": params, "opt": opt_state})
             del params, opt_state
-            tree, manifest = mgr.restore(latest, target=target)
+            tree, manifest = mgr.restore(latest, target=target, shardings=places)
             params, opt_state = tree["params"], tree["opt"]
             data.load_state_dict(manifest["extra"]["data"])
             start_step = latest
@@ -157,6 +176,15 @@ def train_loop(
         "step_s": step_s,
         "state": {"params": params, "opt": opt_state},
     }
+
+
+def _placed(places: dict, tree: dict) -> dict:
+    """``tree``'s leaves placed by the same-shaped ``places``."""
+    from ..core import api
+
+    where = dict(api.flatten_with_keys(places))
+    flat = dict(api.flatten_with_keys(tree))
+    return api.unflatten_like(tree, lambda k: where[k].distribute(flat[k]))
 
 
 def main() -> None:

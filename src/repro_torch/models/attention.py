@@ -21,19 +21,26 @@ slot live once the ring has wrapped.
 
 ``gqa_decode`` writes the step's k/v into the cache *in place* (the
 reference returns an updated copy): the decode loop owns the cache and
-every step would otherwise copy all of it.  The reference's
-``kv_replicate`` and ``decode_masked_update`` are layout levers for sharded
-meshes; the masked update computes the same values as the slice write, and
-a replicated cache is refused (it changes the cache's layout, which parked
-containers record).
+every step would otherwise copy all of it.  ``kv_replicate`` repeats each
+KV head that many times before the write, as the reference does, so the
+cache holds ``n_kv_heads * kv_replicate`` heads (its head dim then fills a
+mesh's model axis); the attention is the same.  ``decode_masked_update``
+gives the reference's masked ``where`` over every slot, which selects the
+step's slot alone, or none past the end: so it is the slot write, and
+nothing past the end.  On a placed cache (a DTensor, its sequence dim
+sharded) the slot write lands on the rank that holds the slot, in that
+rank's local block (DTensor has no strategy for an indexed write into a
+sharded dim).
 
 MLA keeps the reference's expanded form: every decode step expands the
 cached latents of all ``S_max`` slots through ``wkv_b`` to per-head k and v
 (the weight-absorbed form is a performance change the reference leaves as
 an option).  ``mla_decode`` writes the step's latents into the cache in
-place at ``cache_len``, as ``gqa_decode`` does; past the end the write
-lands on the last slot, where the reference's ``dynamic_update_slice``
-clamps it.
+place at ``cache_len``, as ``gqa_decode`` does; past the end the slot
+write lands on the last slot, where the reference's
+``dynamic_update_slice`` clamps it, and the masked write
+(``decode_masked_update``) writes nothing, as the reference's
+``iota == cache_len`` selects no slot.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ import math
 import torch
 
 from ..configs.base import MLAConfig, ModelConfig
+from ..runtime import sharding as shr
 from .layers import apply_mrope, apply_rope, init_linear, init_rms_norm, linear, rms_norm
 
 NEG_INF = -1e9
@@ -73,14 +81,14 @@ def _sdpa(q, k, v, mask, scale):
     g = h // kh
     vd = v.shape[-1]
     dtype = q.dtype
-    q = q.reshape(b, sq, kh, g, q.shape[-1])
+    q = shr.reshape(q, b, sq, kh, g, q.shape[-1])
     scores = torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float())
     scores = scores * scale
     if mask is not None:
         scores = scores + mask  # (Sq, Sk) broadcast
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float())
-    return out.reshape(b, sq, h, vd).to(dtype)
+    return shr.reshape(out, b, sq, h, vd).to(dtype)
 
 
 def init_gqa(gen: torch.Generator, cfg: ModelConfig, *, lead: tuple = (),
@@ -99,9 +107,9 @@ def init_gqa(gen: torch.Generator, cfg: ModelConfig, *, lead: tuple = (),
 def gqa_qkv(x, p, cfg: ModelConfig):
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = linear(x, p["wq"]).reshape(b, s, cfg.n_heads, hd)
-    k = linear(x, p["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
-    v = linear(x, p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    q = shr.reshape(linear(x, p["wq"]), b, s, cfg.n_heads, hd)
+    k = shr.reshape(linear(x, p["wk"]), b, s, cfg.n_kv_heads, hd)
+    v = shr.reshape(linear(x, p["wv"]), b, s, cfg.n_kv_heads, hd)
     return q, k, v
 
 
@@ -131,14 +139,31 @@ def gqa_attention(
     mask = (local_causal_mask(s, s, window, device=x.device) if window > 0
             else causal_mask(s, s, device=x.device))
     out = _sdpa(q, k, v, mask, 1.0 / math.sqrt(hd))
-    return linear(out.reshape(b, s, -1), p["wo"])
+    return linear(shr.reshape(out, b, s, -1), p["wo"])
 
 
-def check_cache_layout(cfg: ModelConfig) -> None:
-    if cfg.kv_replicate != 1:
-        raise NotImplementedError(
-            f"kv_replicate={cfg.kv_replicate} replicates KV heads for a sharded mesh; the "
-            "port keeps the reference's unreplicated cache layout (see ROADMAP.md)")
+def write_slot_(cache: torch.Tensor, pos: int, value: torch.Tensor, masked: bool) -> None:
+    """Write ``value`` (B, 1, ...) into slot ``pos`` of ``cache`` (B, S_max,
+    ...) in place.  ``masked``: the reference's ``where(iota == pos, value,
+    cache)``, which writes the same slot, and no slot when ``pos`` is past
+    the end.  A placed cache takes the slot write in the local block of the
+    rank that holds the slot."""
+    if masked and pos >= cache.shape[1]:
+        return
+    value = value.to(cache.dtype)
+    if not shr.is_placed(cache):
+        cache[:, pos] = value[:, 0]
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = cache.device_mesh
+    # the value laid out as the cache is, the slot dim whole on every rank
+    want = [Replicate() if isinstance(pl, Shard) and pl.dim == 1 else pl
+            for pl in cache.placements]
+    local_value = value.redistribute(mesh, want).to_local()
+    shape, offset = shr.local_block(cache.shape, mesh, cache.placements)
+    if offset[1] <= pos < offset[1] + shape[1]:
+        cache.to_local()[:, pos - offset[1]] = local_value[:, 0]
 
 
 def gqa_decode(
@@ -154,23 +179,26 @@ def gqa_decode(
     del window
     b = x.shape[0]
     hd = cfg.resolved_head_dim
-    check_cache_layout(cfg)
     q, k, v = gqa_qkv(x, p, cfg)
     pos = torch.full((b, 1), int(cache_len), dtype=torch.int32, device=x.device)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
+    if cfg.kv_replicate > 1:
+        # each KV head repeated in place along the head axis (jnp.repeat)
+        k = torch.repeat_interleave(k, cfg.kv_replicate, dim=2)
+        v = torch.repeat_interleave(v, cfg.kv_replicate, dim=2)
     # ring write: window caches are sized `window`, full caches max_len
     # (write_pos == cache_len there); RoPE is absolute, so ring order does
     # not matter, validity is all that is masked
     s_max = cache["k"].shape[1]
     write_pos = int(cache_len) % s_max
-    cache["k"][:, write_pos] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, write_pos] = v[:, 0].to(cache["v"].dtype)
+    write_slot_(cache["k"], write_pos, k, cfg.decode_masked_update)
+    write_slot_(cache["v"], write_pos, v, cfg.decode_masked_update)
     slot = torch.arange(s_max, dtype=torch.int32, device=x.device)
     valid = slot <= int(cache_len)  # ring-full => every slot holds a live token
     mask = torch.where(valid, 0.0, NEG_INF).float()[None, :]  # (1, S)
     out = _sdpa(q, cache["k"], cache["v"], mask, 1.0 / math.sqrt(hd))
-    y = linear(out.reshape(b, 1, -1), p["wo"])
+    y = linear(shr.reshape(out, b, 1, -1), p["wo"])
     return y, cache
 
 
@@ -184,11 +212,11 @@ def cross_attention(
     b, sq, _ = x.shape
     sk = memory.shape[1]
     hd = cfg.resolved_head_dim
-    q = linear(x, p["wq"]).reshape(b, sq, cfg.n_heads, hd)
-    k = linear(memory, p["wk"]).reshape(b, sk, cfg.n_kv_heads, hd)
-    v = linear(memory, p["wv"]).reshape(b, sk, cfg.n_kv_heads, hd)
+    q = shr.reshape(linear(x, p["wq"]), b, sq, cfg.n_heads, hd)
+    k = shr.reshape(linear(memory, p["wk"]), b, sk, cfg.n_kv_heads, hd)
+    v = shr.reshape(linear(memory, p["wv"]), b, sk, cfg.n_kv_heads, hd)
     out = _sdpa(q, k, v, None, 1.0 / math.sqrt(hd))
-    return linear(out.reshape(b, sq, -1), p["wo"])
+    return linear(shr.reshape(out, b, sq, -1), p["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -220,7 +248,7 @@ def _mla_q(x, p, cfg: ModelConfig, positions):
     m: MLAConfig = cfg.mla
     b, s, _ = x.shape
     q = linear(rms_norm(linear(x, p["wq_a"]), p["q_norm"]["scale"], cfg.norm_eps), p["wq_b"])
-    q = q.reshape(b, s, cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q = shr.reshape(q, b, s, cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
     return torch.cat([q_nope, apply_rope(q_rope, positions, cfg.rope_theta)], dim=-1)
 
@@ -241,7 +269,7 @@ def _mla_expand(c_kv, k_rope, p, cfg: ModelConfig):
     m: MLAConfig = cfg.mla
     b, s, _ = c_kv.shape
     h = cfg.n_heads
-    kv = linear(c_kv, p["wkv_b"]).reshape(b, s, h, m.qk_nope_head_dim + m.v_head_dim)
+    kv = shr.reshape(linear(c_kv, p["wkv_b"]), b, s, h, m.qk_nope_head_dim + m.v_head_dim)
     k_nope, v = kv.split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
     k_rope_b = k_rope.expand(b, s, h, m.qk_rope_head_dim)
     return torch.cat([k_nope, k_rope_b], dim=-1), v
@@ -267,7 +295,7 @@ def mla_attention(x: torch.Tensor, p: dict, cfg: ModelConfig,
         positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
     q, k, v, _ = _mla_qkv(x, p, cfg, positions)
     out = _sdpa(q, k, v, causal_mask(s, s, device=x.device), _mla_scale(cfg))
-    return linear(out.reshape(b, s, -1), p["wo"])
+    return linear(shr.reshape(out, b, s, -1), p["wo"])
 
 
 def mla_decode(
@@ -285,12 +313,15 @@ def mla_decode(
     q = _mla_q(x, p, cfg, pos)
     c_kv_new, k_rope_new = _mla_latents(x, p, cfg, pos)
     s_max = cache["c_kv"].shape[1]
-    write_pos = min(int(cache_len), s_max - 1)  # dynamic_update_slice clamps its start
-    cache["c_kv"][:, write_pos] = c_kv_new[:, 0].to(cache["c_kv"].dtype)
-    cache["k_rope"][:, write_pos] = k_rope_new[:, 0].to(cache["k_rope"].dtype)
+    masked = cfg.decode_masked_update
+    # dynamic_update_slice clamps its start; the masked write selects no
+    # slot past the end
+    write_pos = int(cache_len) if masked else min(int(cache_len), s_max - 1)
+    write_slot_(cache["c_kv"], write_pos, c_kv_new, masked)
+    write_slot_(cache["k_rope"], write_pos, k_rope_new, masked)
     k, v = _mla_expand(cache["c_kv"], cache["k_rope"], p, cfg)
     k_pos = torch.arange(s_max, dtype=torch.int32, device=x.device)[None, :]
     mask = torch.where(k_pos <= int(cache_len), 0.0, NEG_INF).float()
     out = _sdpa(q, k, v, mask, _mla_scale(cfg))
-    y = linear(out.reshape(b, 1, -1), p["wo"])
+    y = linear(shr.reshape(out, b, 1, -1), p["wo"])
     return y, cache

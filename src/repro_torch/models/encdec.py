@@ -26,6 +26,7 @@ import math
 import torch
 
 from ..configs.base import ModelConfig
+from ..runtime import sharding as shr
 from . import attention as attn
 from . import transformer as tfm
 from .layers import (apply_rope, embed, gelu_mlp, init_embedding, init_gelu_mlp, init_linear,
@@ -88,7 +89,7 @@ def _enc_block(x, p, cfg: ModelConfig):
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
     a = attn._sdpa(q, k, v, None, 1.0 / math.sqrt(hd))  # bidirectional
-    x = x + linear(a.reshape(b, s, -1), p["attn"]["wo"])
+    x = x + linear(shr.reshape(a, b, s, -1), p["attn"]["wo"])
     h = rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
     return x + gelu_mlp(h, p["mlp"])
 
@@ -154,8 +155,8 @@ def precompute_cross(params, memory: torch.Tensor,
     hd = cfg.resolved_head_dim
     ks, vs = [], []
     for lp in tfm._unstack(params["dec_layers"]["cross"]):
-        ks.append(linear(memory, lp["wk"]).reshape(b, sk, cfg.n_kv_heads, hd))
-        vs.append(linear(memory, lp["wv"]).reshape(b, sk, cfg.n_kv_heads, hd))
+        ks.append(shr.reshape(linear(memory, lp["wk"]), b, sk, cfg.n_kv_heads, hd))
+        vs.append(shr.reshape(linear(memory, lp["wv"]), b, sk, cfg.n_kv_heads, hd))
     return torch.stack(ks), torch.stack(vs)
 
 
@@ -178,9 +179,9 @@ def decode_step(params, token: torch.Tensor, cache: dict, cache_len: int,
                                cache_len)
         x = x + a
         hh = rms_norm(x, lp["lnx"]["scale"], cfg.norm_eps)
-        q = linear(hh, lp["cross"]["wq"]).reshape(b, 1, cfg.n_heads, hd)
+        q = shr.reshape(linear(hh, lp["cross"]["wq"]), b, 1, cfg.n_heads, hd)
         a = attn._sdpa(q, cache["cross_k"][i], cache["cross_v"][i], None, scale)
-        x = x + linear(a.reshape(b, 1, -1), lp["cross"]["wo"])
+        x = x + linear(shr.reshape(a, b, 1, -1), lp["cross"]["wo"])
         hh = rms_norm(x, lp["ln2"]["scale"], cfg.norm_eps)
         x = x + gelu_mlp(hh, lp["mlp"])
     h = rms_norm(x, params["ln_dec"]["scale"], cfg.norm_eps)

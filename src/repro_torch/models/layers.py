@@ -19,6 +19,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..runtime.sharding import is_placed
+
 
 class _MetaGenerator:
     """No random state: init with it makes tensors on the ``meta`` device."""
@@ -140,7 +142,30 @@ class _Embed(torch.autograd.Function):
 
 
 def embed(tokens: torch.Tensor, p: dict, dtype=torch.bfloat16) -> torch.Tensor:
-    return _Embed.apply(p["table"], tokens, dtype)
+    table = p["table"]
+    if is_placed(table):
+        return _embed_placed(table, tokens, dtype)
+    return _Embed.apply(table, tokens, dtype)
+
+
+def _embed_placed(table, tokens, dtype):
+    """:class:`_Embed` on a placed table (DTensor has no strategy for its
+    backward's ``index_put_``): each rank gathers its tokens' rows from the
+    whole table (made whole first, as a vocab-sharded gather needs), and
+    the rows come back placed as the tokens are.  The table's gradient on
+    a rank is its tokens' share: a partial sum over the mesh dims the
+    tokens are split on, which autograd reduces onto the table's
+    placement."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = table.device_mesh
+    if not is_placed(tokens):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim)
+    split = [isinstance(pl, Shard) for pl in tokens.placements]
+    whole = table.redistribute(mesh, [Replicate()] * mesh.ndim)
+    local = whole.to_local(grad_placements=[Partial() if s else Replicate() for s in split])
+    rows = _Embed.apply(local, tokens.to_local(), dtype)
+    return DTensor.from_local(rows, mesh, list(tokens.placements))
 
 
 # ---------------------------------------------------------------------------
@@ -182,7 +207,8 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     assert sum(sections) == half, (sections, half)
     inv = rope_freqs(head_dim, theta, x.device)
     sect_id = torch.repeat_interleave(torch.arange(len(sections), device=x.device),
-                                      torch.tensor(sections, device=x.device))  # (half,)
+                                      torch.tensor(sections, device=x.device),
+                                      output_size=half)  # (half,); a meta x needs the size
     pos = positions.float()
     pos_per_freq = torch.take_along_dim(pos, sect_id.expand(pos.shape[:-1] + (half,)), dim=-1)
     return _rotate(x, pos_per_freq * inv)

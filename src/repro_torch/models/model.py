@@ -55,9 +55,9 @@ import torch
 from ..configs.base import ModelConfig
 from ..core import api
 from ..core import pipeline as pl
+from ..runtime import sharding as shr
 from . import attention as attn
 from . import encdec as encdec_mod
-from . import moe as moe_mod
 from . import ssm as ssm_mod
 from . import transformer as tfm
 from .layers import (
@@ -83,15 +83,13 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean over tokens of float32 ``logsumexp`` minus the label's logit."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
+    ll = shr.take_last(logits, labels)
     return (logz - ll).mean()
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in _PORTED:
         raise ValueError(f"unknown family {cfg.family}")
-    if cfg.family == "moe":
-        moe_mod.check_dispatch(cfg)
 
 
 @dataclass(frozen=True)
@@ -262,7 +260,8 @@ class Model:
     def init_cache(self, batch_size: int, max_len: int, dtype=torch.bfloat16,
                    device=None) -> dict:
         """Zeroed KV cache ``{"k", "v"}``, each ``(n_layers, B, S_max, KH, hd)``
-        on ``device`` (default: the card): the reference's layout, which
+        (KH = ``n_kv_heads * kv_replicate``) on ``device`` (default: the
+        card): the reference's layout, which
         parked containers record.  ssm: ``{"state": (n_layers, B, H, P, N)
         float32, "conv": (n_layers, B, d_conv - 1, conv_dim) dtype}``, O(1)
         in ``max_len``.  moe: ``{"dense": stack or None, "moe": stack}``,
@@ -274,8 +273,6 @@ class Model:
         ``encdec.init_cache`` (``cross_k``/``cross_v`` None)."""
         cfg = self.cfg
         _check_family(cfg)
-        if cfg.family != "ssm" and cfg.attn_type == "gqa":
-            attn.check_cache_layout(cfg)
         device = _device(device)
         if cfg.family == "encdec":
             return encdec_mod.init_cache(cfg, batch_size, max_len, dtype, device)
@@ -291,7 +288,7 @@ class Model:
 
             return {"rec_a": rec(nsuper), "rec_b": rec(nsuper),
                     "attn": self._kv(nsuper, batch_size, min(cfg.hybrid.window, max_len), dtype,
-                                     device),
+                                     device, cfg.n_kv_heads),
                     "tail": rec(tail)}
         if cfg.family == "moe":
             def stack(n: int) -> dict:
@@ -313,8 +310,13 @@ class Model:
                     "conv": torch.zeros(conv_shape, dtype=dtype, device=device)}
         return self._kv(cfg.n_layers, batch_size, max_len, dtype, device)
 
-    def _kv(self, n: int, batch_size: int, max_len: int, dtype, device) -> dict:
-        shape = (n, batch_size, max_len, self.cfg.n_kv_heads, self.cfg.resolved_head_dim)
+    def _kv(self, n: int, batch_size: int, max_len: int, dtype, device,
+            heads: int | None = None) -> dict:
+        """A GQA stack's ``{"k", "v"}``: ``n_kv_heads * kv_replicate`` heads
+        (the hybrid's ring: ``n_kv_heads``, as the reference's)."""
+        if heads is None:
+            heads = self.cfg.n_kv_heads * self.cfg.kv_replicate
+        shape = (n, batch_size, max_len, heads, self.cfg.resolved_head_dim)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
 

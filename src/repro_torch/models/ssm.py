@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..runtime import sharding as shr
 from .layers import META, _randn, init_linear, init_rms_norm, linear, rms_norm
 
 
@@ -137,10 +138,10 @@ def ssd_chunked(
     q = chunk
 
     # heads as (group, head within the group): h = group·rep + r
-    xc = x.reshape(b, nc, q, g, rep, p_)
-    dtc = dt.reshape(b, nc, q, g, rep)
-    Bc = Bm.reshape(b, nc, q, g, n)
-    Cc = Cm.reshape(b, nc, q, g, n)
+    xc = shr.reshape(x, b, nc, q, g, rep, p_)
+    dtc = shr.reshape(dt, b, nc, q, g, rep)
+    Bc = shr.reshape(Bm, b, nc, q, g, n)
+    Cc = shr.reshape(Cm, b, nc, q, g, n)
 
     a = dtc * A.reshape(g, rep)               # (b,nc,q,g,r) log decay per step (negative)
     a_hq = a.permute(0, 1, 3, 4, 2)           # (b,nc,g,r,q)
@@ -171,7 +172,7 @@ def ssd_chunked(
     decay_in = torch.exp(cum).permute(0, 1, 4, 2, 3)                    # (b,nc,q,g,r)
     yoff = torch.einsum("bzqgn,bzgrpn->bzqgrp", Cc, s_before.to(Cc.dtype)) * decay_in[..., None]
 
-    y = (yd + yoff).reshape(b, lq, h, p_)
+    y = shr.reshape(yd + yoff, b, lq, h, p_)
     return y[:, :l]
 
 
@@ -193,14 +194,14 @@ def mamba2_forward(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
                for k in range(s.d_conv)) + p["conv_b"][None, None, :]
     xbc = F.silu(conv)
     xs, Bm, Cm = torch.split(xbc, [d_inner, g * n, g * n], dim=-1)
-    xs = xs.reshape(b, l, h, p_)
-    Bm = Bm.reshape(b, l, g, n)
-    Cm = Cm.reshape(b, l, g, n)
+    xs = shr.reshape(xs, b, l, h, p_)
+    Bm = shr.reshape(Bm, b, l, g, n)
+    Cm = shr.reshape(Cm, b, l, g, n)
     dt = _softplus(dt.float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
     y = ssd_chunked(xs.float(), dt, A, Bm.float(), Cm.float(), s.chunk)
     y = y + xs.float() * p["D"].float()[None, None, :, None]
-    y = y.reshape(b, l, d_inner).to(x.dtype)
+    y = shr.reshape(y, b, l, d_inner).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["norm"]["scale"], cfg.norm_eps)
     return linear(y, p["out_proj"])
 
@@ -219,17 +220,17 @@ def mamba2_decode(
     conv = torch.sum(conv_buf * p["conv_w"][None, :, :], dim=1) + p["conv_b"][None, :]
     xbc_t = F.silu(conv)
     xs, Bm, Cm = torch.split(xbc_t, [d_inner, g * n, g * n], dim=-1)
-    xs = xs.reshape(b, h, p_).float()
+    xs = shr.reshape(xs, b, h, p_).float()
     rep = h // g
-    Bh = torch.repeat_interleave(Bm.reshape(b, g, n).float(), rep, dim=1)  # (B,H,N)
-    Ch = torch.repeat_interleave(Cm.reshape(b, g, n).float(), rep, dim=1)
+    Bh = torch.repeat_interleave(shr.reshape(Bm, b, g, n).float(), rep, dim=1)  # (B,H,N)
+    Ch = torch.repeat_interleave(shr.reshape(Cm, b, g, n).float(), rep, dim=1)
     dt = _softplus(dt.float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
     decay = torch.exp(dt * A)  # (B,H)
     state = cache["state"]
     state.mul_(decay[..., None, None]).add_((xs * dt[..., None])[..., None] * Bh[:, :, None, :])
     y = torch.einsum("bhpn,bhn->bhp", state, Ch) + xs * p["D"].float()[None, :, None]
-    y = y.reshape(b, 1, d_inner).to(x.dtype)
+    y = shr.reshape(y, b, 1, d_inner).to(x.dtype)
     y = rms_norm(y * F.silu(z[:, None, :]), p["norm"]["scale"], cfg.norm_eps)
     cache["conv"].copy_(conv_buf[:, 1:, :])
     return linear(y, p["out_proj"]), cache

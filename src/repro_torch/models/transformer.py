@@ -13,9 +13,11 @@ hybrid — [(rec, rec, local-attn) superblock] × L/3 + a tail of rec
 
 Per-layer parameters are stacked along a leading layer axis, as the
 reference's ``vmap``-ed init stacks them; the reference scans over that
-axis, the port loops over it.  The reference's ``_constrain`` (a sharding hint pinning
-the residual stream to the data-parallel axes) has no meaning on one card
-and is left out.
+axis, the port loops over it.  ``_constrain`` places the residual stream's
+batch dim on the data-parallel axes of the ambient mesh under the
+``fsdp_dp`` and ``dp_zero1`` policies, where the reference pins it
+(``runtime.sharding.constrain_activation_dp``: a no-op on a plain tensor
+or under no mesh).
 """
 
 from __future__ import annotations
@@ -41,10 +43,16 @@ def _res_scale(cfg: ModelConfig) -> float:
     return 1.0
 
 
+def _constrain(x, cfg: ModelConfig):
+    """fsdp_dp / dp_zero1: the residual stream's batch on the DP axes."""
+    if cfg.sharding_policy in ("fsdp_dp", "dp_zero1"):
+        from ..runtime.sharding import constrain_activation_dp
+
+        return constrain_activation_dp(x)
+    return x
+
+
 def _init_attn(gen: torch.Generator, cfg: ModelConfig, lead: tuple, dtype) -> dict:
-    if cfg.attn_type not in ("gqa", "mla"):
-        raise NotImplementedError(f"attention {cfg.attn_type!r} is not ported yet (see "
-                                  "ROADMAP.md); the port runs GQA and MLA")
     init = attn.init_mla if cfg.attn_type == "mla" else attn.init_gqa
     return init(gen, cfg, lead=lead, dtype=dtype)
 
@@ -74,6 +82,7 @@ def init_dense_layers(gen: torch.Generator, n: int, cfg: ModelConfig,
 
 
 def dense_block(x, p, cfg: ModelConfig, mrope_positions=None):
+    x = _constrain(x, cfg)
     s = _res_scale(cfg)
     h = rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
     a = _attention(h, p["attn"], cfg, mrope_positions)
@@ -110,6 +119,7 @@ def moe_block(x_aux, p, cfg: ModelConfig):
     """``(x, aux) -> (x', aux + the layer's aux loss)``; no residual scale,
     as the reference."""
     x, aux = x_aux
+    x = _constrain(x, cfg)
     h = rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
     x = x + _attention(h, p["attn"], cfg)
     h = rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
@@ -139,6 +149,7 @@ def init_ssm_layers(gen: torch.Generator, n: int, cfg: ModelConfig,
 
 
 def ssm_block(x, p, cfg: ModelConfig):
+    x = _constrain(x, cfg)
     h = rms_norm(x, p["ln"]["scale"], cfg.norm_eps)
     return x + ssm_mod.mamba2_forward(h, p["mixer"], cfg)
 
@@ -168,6 +179,7 @@ def init_hybrid_sublayers(gen: torch.Generator, n: int | None, cfg: ModelConfig,
 
 
 def hybrid_sublayer(x, p, cfg: ModelConfig, kind: str):
+    x = _constrain(x, cfg)
     h = rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
     if kind == "attn":
         t = attn.gqa_attention(h, p["temporal"], cfg, window=cfg.hybrid.window)

@@ -28,6 +28,15 @@ Two forms:
   always (NaN moments included, as in the reference), and the parameters
   change only where ``finite`` holds, chosen on the device without a host
   sync.
+
+Placed trees (DTensor leaves, over a mesh) take the same arithmetic on
+each rank's local block: a gradient is first redistributed onto its
+moment's placement (under ZeRO-1 the moments are sharded while the
+parameters are replicated: the update runs on the moment's block of the
+parameter and the new block is all-gathered back), the global norm sums
+each leaf's local squares over the ranks that hold distinct blocks (all
+leaves in one reduction), and ``finite`` holds on every rank only if it
+holds on all.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ import torch
 
 from ..core import api
 from ..runtime.fault import all_finite
+from ..runtime.sharding import is_placed
 
 _F32 = torch.float32
 # the largest subnormal float32: ``hardshrink`` at it keeps exactly the
@@ -93,10 +103,36 @@ def init_state(params, cfg: AdamWConfig) -> dict:
     }
 
 
+def _local(x: torch.Tensor) -> torch.Tensor:
+    return x.to_local() if is_placed(x) else x
+
+
+def _over_ranks(parts: list, leaves: list) -> list:
+    """Each leaf's sum over the mesh of its local-block sum in ``parts``,
+    for placed ``leaves`` (``Shard`` or ``Replicate``): all the leaves' sums
+    in one reduction over the mesh (one all-reduce a mesh dim, as DTensor
+    runs it).  A rank contributes a leaf's sum only where it
+    is the first of the ranks that hold the same block (coordinate 0 on
+    each mesh dim the leaf is replicated over), and an exact zero
+    elsewhere."""
+    from torch.distributed.tensor import DTensor, Partial, Shard
+
+    mesh = next(x.device_mesh for x in leaves if is_placed(x))
+    coord = mesh.get_coordinate()
+    first = [all(coord[d] == 0 for d, pl in enumerate(x.placements) if not isinstance(pl, Shard))
+             if is_placed(x) else not any(coord) for x in leaves]
+    local = torch.stack([p if f else torch.zeros_like(p) for p, f in zip(parts, first)])
+    return list(DTensor.from_local(local, mesh, [Partial()] * mesh.ndim).full_tensor().unbind(0))
+
+
 def _global_norm(tree) -> torch.Tensor:
+    leaves = _leaves(tree)
+    parts = [torch.sum(_ftz_nonneg_(torch.square(_local(x).to(_F32)))) for x in leaves]
+    if any(is_placed(x) for x in leaves):
+        parts = _over_ranks(parts, leaves)
     total = 0
-    for x in _leaves(tree):
-        total = total + torch.sum(_ftz_nonneg_(torch.square(x.to(_F32))))
+    for part in parts:
+        total = total + part
     return torch.sqrt(torch.as_tensor(total, dtype=_F32))
 
 
@@ -117,7 +153,7 @@ def apply_updates(params, grads, state, lr, cfg: AdamWConfig) -> tuple[Any, dict
     """One AdamW step; returns ``(new_params, new_state, metrics)`` and leaves
     its arguments as they are."""
     step = state["step"] + 1
-    gnorm, scale, bc1, bc2 = _scale_and_corrections(grads, step, cfg)
+    gnorm, scale, bc1, bc2 = _scale_and_corrections(grads, _local(step), cfg)
     b1, b2 = cfg.b1, cfg.b2
 
     def upd(p, g, m, v):
@@ -143,15 +179,27 @@ def apply_updates_(params, grads, state, lr, cfg: AdamWConfig) -> dict:
     (scaled in place).  Returns ``{"grad_norm", "finite"}``; the result
     equals :func:`apply_updates` followed by
     ``fault.skip_nonfinite_update(new_params, params, grads)``."""
-    finite = all_finite(grads)
-    state["step"] += 1
-    gnorm, scale, bc1, bc2 = _scale_and_corrections(grads, state["step"], cfg)
-    b1, b2 = cfg.b1, cfg.b2
+    if is_placed(lr):
+        lr = lr.to_local()
     flat_g = dict(api.flatten_with_keys(grads))
     flat_m = dict(api.flatten_with_keys(state["m"]))
     flat_v = dict(api.flatten_with_keys(state["v"]))
+    for k, g in flat_g.items():  # each gradient on its moment's placement
+        if is_placed(g) and tuple(g.placements) != tuple(flat_m[k].placements):
+            flat_g[k] = g.redistribute(g.device_mesh, flat_m[k].placements)
+    finite = all_finite(flat_g)
+    state["step"] += 1
+    gnorm, scale, bc1, bc2 = _scale_and_corrections(flat_g, _local(state["step"]), cfg)
+    b1, b2 = cfg.b1, cfg.b2
     for k, p in api.flatten_with_keys(params):
         g, m, v = flat_g[k], flat_m[k], flat_v[k]
+        whole = None
+        if is_placed(p):
+            if tuple(p.placements) != tuple(m.placements):  # ZeRO-1: m's block of p
+                whole, p = p, p.redistribute(p.device_mesh, m.placements).to_local().clone()
+            else:
+                p = p.to_local()
+            g, m, v = g.to_local(), m.to_local(), v.to_local()
         if g.dtype != _F32:
             g = g.to(_F32)
         g.mul_(scale)
@@ -179,4 +227,10 @@ def apply_updates_(params, grads, state, lr, cfg: AdamWConfig) -> dict:
         torch.sub(p.to(_F32), mhat, out=mhat)
         p.copy_(torch.where(finite, mhat, p.to(_F32), out=mhat))
         del t, m32, v32, mhat, vhat
+        if whole is not None:  # the new block gathered back onto p's placement
+            from torch.distributed.tensor import DTensor
+
+            block = DTensor.from_local(p, whole.device_mesh, flat_m[k].placements)
+            whole.to_local().copy_(block.redistribute(whole.device_mesh, whole.placements)
+                                   .to_local())
     return {"grad_norm": gnorm, "finite": finite}

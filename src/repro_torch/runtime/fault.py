@@ -52,14 +52,25 @@ def install_preemption_handler(save_fn: Callable[[], None]) -> None:
 
 
 def all_finite(grads: Any) -> torch.Tensor:
-    """0-d bool on the gradients' device: every gradient finite."""
+    """0-d bool on the gradients' device: every gradient finite.  Placed
+    gradients (DTensors) are checked on each rank's block and the verdict
+    is shared: finite on every rank only if on all."""
     from ..core import api
+    from .sharding import is_placed
 
     leaves = [g for _k, g in api.flatten_with_keys(grads)]
+    placed = [g for g in leaves if is_placed(g)]
+    leaves = [g.to_local() if is_placed(g) else g for g in leaves]
     device = leaves[0].device if leaves else torch.device("cpu")
     finite = torch.ones((), dtype=torch.bool, device=device)
     for g in leaves:
         finite &= torch.isfinite(g.to(torch.float32)).all()
+    if placed:
+        from torch.distributed.tensor import DTensor, Partial
+
+        mesh = placed[0].device_mesh
+        bad = DTensor.from_local((~finite).to(torch.int32), mesh, [Partial()] * mesh.ndim)
+        finite = bad.full_tensor() == 0
     return finite
 
 

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card
 (and the training side's steps, the ssm, vlm, hybrid and encdec families'
 steps and decode among them and the RG-LRU scan, against the CPU and
-against themselves).
+against themselves, and the placed train step over a world-size-1 NCCL
+group against the unplaced one).
 
 Kernels: ``zfp_block`` (encode, decode), ``histogram``, ``huffman_encode``
 (``encode_lookup``), ``huffman_decode`` (``decode_chunks``), ``quantize_map``
@@ -1099,3 +1100,62 @@ def test_cuda_hybrid_and_encdec_step_and_decode_match_cpu(cuda_device, arch):
             logits.append(step_logits.cpu())
         out[name] = torch.stack(logits)
     assert (out["card"] - out["cpu"]).abs().max() <= 1e-4 * max(1.0, float(out["cpu"].abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["tp", "dp_zero1"])
+def test_cuda_placed_train_step_matches_unplaced(cuda_device, policy):
+    """A world-size-1 NCCL group and a 1 x 1 ``("data","model")`` mesh over
+    the card: ``launch.specs.make_train_step`` on placed parameters, moments
+    and batches (qwen2.5-3b's smoke cut, two steps) gives the unplaced
+    step's losses, parameters and moments bit for bit: on a mesh of one
+    rank every placement is ``Replicate``, so the placed step runs the same
+    kernels on the same tensors; the group is ended after."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.mesh import make_test_mesh, use_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding as shr
+
+    cfg = dataclasses.replace(get_config("qwen2.5-3b").smoke(), sharding_policy=policy)
+    model = build_model(cfg)
+    opt_cfg = adamw.AdamWConfig()
+    step = S.make_train_step(model, opt_cfg)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    state = adamw.init_state(params, opt_cfg)
+    toks = torch.randint(0, cfg.vocab, (2, 4, 33), generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32).to(cuda_device)
+    batches = [{"tokens": t[:, :-1], "labels": t[:, 1:]} for t in toks]
+
+    def placed(tree, places):
+        where = dict(api.flatten_with_keys(places))
+        return api.unflatten_like(tree, lambda k: where[k].distribute(
+            dict(api.flatten_with_keys(tree))[k].clone()))
+
+    started = not dist.is_initialized()
+    mesh = make_test_mesh(1, 1, cuda_device)
+    try:
+        with use_mesh(mesh):
+            sh = shr.param_shardings(params, cfg, mesh)
+            pp = placed(params, sh)
+            ps = {"m": placed(state["m"], sh), "v": placed(state["v"], sh),
+                  "step": shr.replicated(mesh).distribute(state["step"].clone())}
+            got = [float(step(pp, ps, {k: shr.placed(shr.batch_spec(v, cfg, mesh), mesh)
+                                       .distribute(v) for k, v in b.items()})[2]["loss"])
+                   for b in batches]
+        want = [float(step(params, state, b)[2]["loss"]) for b in batches]
+        assert got == want
+        for tree, ref in ((pp, params), (ps["m"], state["m"]), (ps["v"], state["v"])):
+            flat = dict(api.flatten_with_keys(tree))
+            for k, x in api.flatten_with_keys(ref):
+                local = flat[k].to_local()
+                assert local.is_cuda
+                assert torch.equal(local.view(torch.int32), x.view(torch.int32)), k
+    finally:
+        if started:
+            dist.destroy_process_group()

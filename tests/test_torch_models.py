@@ -138,16 +138,20 @@ def test_greedy_decode_is_deterministic(pair):
 
 def test_unported_families_raise():
     """A family the reference does not know raises ``ValueError``, as the
-    reference's ``init`` does; the mesh-only ``kv_replicate`` stays
-    refused."""
+    reference's ``init`` does; the mesh-only ``kv_replicate`` is no longer
+    refused: its cache holds the replicated heads, as the reference's."""
     cfg = replace(get_config("qwen2.5-3b").smoke(), family="rnn")
     with pytest.raises(ValueError, match="unknown family rnn"):
         jbuild(replace(jget_config("qwen2.5-3b").smoke(), family="rnn")).init(
             jax.random.PRNGKey(0))
     with pytest.raises(ValueError, match="unknown family rnn"):
         build_model(cfg).init(torch.Generator(), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(replace(get_config("qwen2.5-3b").smoke(), kv_replicate=2)).init_cache(1, 4)
+    rep = replace(get_config("qwen2.5-3b").smoke(), kv_replicate=2)
+    cache = build_model(rep).init_cache(1, 4, device="cpu")
+    jcache = jbuild(replace(jget_config("qwen2.5-3b").smoke(), kv_replicate=2)).init_cache(1, 4)
+    assert {k: tuple(v.shape) for k, v in cache.items()} == \
+        {k: tuple(v.shape) for k, v in jcache.items()}
+    assert cache["k"].shape[3] == 2 * rep.n_kv_heads
 
 
 def test_port_imports_no_jax_or_reference_in_a_subprocess():
