@@ -233,8 +233,8 @@ any fails:
      last-position logits under ``local_causal_mask`` (the ring wraps at
      2048; within 1e-3 of 1 + max |logit|); ``train_loop
      ("recurrentgemma-9b", smoke=False, steps=6, batch=8, seq=128)`` at full
-     width cut to 8 of 38 layers (2 superblocks and the tail, 2.83B
-     parameters, AdamW), its parameters saved with the config's policy
+     width cut to 5 of 38 layers (1 superblock and the 2-layer tail, as
+     the full model's 12 and 2; AdamW), its parameters saved with the config's policy
      (zfp rate 16, ``huffman-bytes`` below 16384 elements) and restored, every
      ZFP launch inside both calls held to plain, exact leaves bit for bit,
      zfp leaves within 1e-2 of their largest |value|; the smoke cut card
@@ -247,7 +247,24 @@ any fails:
      ``decode_step``s, the self-attention cache parked as above, the
      training state through the config's zfp policy as recurrentgemma's;
      its smoke cut card against CPU (the loss and gradients, 8 decode
-     steps' logits);
+     steps' logits).  Abstractions and examples (last) — the paper's
+     parallel abstractions on the 512^3 field: ``locality`` with 4^3
+     blocks and an elementwise ``fn`` and, on a 128^3 cut, with a halo of
+     1 (card == the same call on a CPU copy, bit for bit), ``iterative`` as
+     a prefix sum along axis 0 (512 steps, forward and reversed),
+     ``map_and_process`` with MGARD's 513^3 level map as subset ids,
+     ``global_pipeline`` and ``jitted_dem``; the standalone
+     ``zfp.compress``/``decompress`` at rate 16 (the kernel, as a card
+     tensor takes it == ``compress_jit(adapter="torch")``, the plain block
+     path == the ``zfp`` codec container) and
+     ``mgard.compress``/``decompress`` at the absolute bound 1e-2 (stream ==
+     the ``mgard`` codec container, decode == the codec's, within the
+     bound); ``ExecutionEngine(mesh=make_data_mesh())`` against the
+     ``devices=`` engine; then the four examples through their ``main``
+     (``examples/*_torch.py``: quickstart at 64^3, serve_batched and
+     compressed_checkpoint_io at the smoke cuts, train_lm ``--preset
+     small`` for 200 steps and ``--preset 100m`` for 20), every launch
+     inside held to its plain version;
   4. the container bytes round trip on the card (one ZFP, one Huffman, one
      MGARD and one progressive container, and the pytree's containers):
      ``to_bytes`` -> ``from_bytes`` -> decode, bit-identical;
@@ -299,8 +316,9 @@ Huffman, MGARD, progressive, pytree, stream, checkpoint, serving,
 training, placed path, mamba2 training, mamba2 serving, qwen2-vl,
 deepseek-v3, llama4-scout, moe card vs CPU, moe resume,
 recurrentgemma-9b serving and training, hybrid smoke cut,
-seamless-m4t-medium and encdec card vs CPU paths; a line before gives the
-last nineteen paths' calls' own), its error
+seamless-m4t-medium, encdec card vs CPU, abstractions and codec API
+and examples paths; a line before gives the last twenty-one paths'
+calls' own), its error
 the largest of them) and
 ``{"ok": true, "device": {...}}``.
 """
@@ -412,7 +430,7 @@ L4_LAYERS = 2                       # of 48: 6.47B float32 parameters, 25.9 GB
 L4_BATCH, L4_SEQ = 8, 128
 HYB_ARCH = "recurrentgemma-9b"      # arXiv:2402.19427, hf:google/recurrentgemma-9b at full width
 HYB_SERVE_MAX_LEN = 4096            # positions a slot; the attention cache is the 2048-slot ring
-HYB_TRAIN_LAYERS = 8                # of 38: 2 superblocks + the 2-layer tail, 2.83B parameters
+HYB_TRAIN_LAYERS = 5                # of 38: 1 superblock + the 2-layer tail (the time limit)
 HYB_WINDOW_STEPS = 2100             # decode steps of the first superblock, past the 2048 window
 HYB_WINDOW_BATCH = 1
 HYB_WINDOW_TOL = 1e-3               # float32: of 1 + max |logit|
@@ -439,6 +457,15 @@ KERNELS = {
     "decompress_blocks": "src/repro/kernels/zfp_block/kernel.py:114",
 }
 KERNEL_SOURCE = "src/repro_torch/kernels/zfp_block/csrc/zfp_block.cu"
+ABS_BLOCK = (4, 4, 4)                # locality's blocks (ZFP's)
+ABS_HALO_EDGE = 128                 # the 128^3 cut of locality with a halo
+ABS_MGARD_EB = 1e-2                 # mgard.compress's absolute bound on the 512^3 field
+ABS_TIMED_RUNS = 5
+EXAMPLE_EDGE = 64                   # quickstart's field, the reference's n
+EXAMPLE_TRAIN = {"small": 200, "100m": 20}   # the examples' --steps: the reference's default, a cut
+HELD_KERNELS = ("zfp_block.compress_blocks", "zfp_block.decompress_blocks", "histogram.histogram",
+                "huffman_encode.encode_lookup", "huffman_decode.decode_chunks",
+                "quantize_map.quantize", "quantize_map.dequantize", "tridiag.solve_mass")
 HUFF_KERNELS = {  # name: (TPU kernel it replaces, CUDA source)
     "histogram.histogram": ("src/repro/kernels/histogram/kernel.py:39",
                             "src/repro_torch/kernels/histogram/csrc/histogram.cu"),
@@ -1348,6 +1375,7 @@ def held_to_plain(names: tuple[str, ...] = DECODE_SIDE):
         "histogram.histogram": [(hk.histogram, hr.histogram)],
         "huffman_encode.encode_lookup": [(ek.encode_lookup, er.encode_lookup)],
         "huffman_decode.decode_chunks": [(dk.decode_chunks, dr.decode_chunks)],
+        "quantize_map.quantize": [(qk.quantize, qr.quantize)],
         "quantize_map.dequantize": [(qk.dequantize, qr.dequantize)],
         "tridiag.solve_mass": [(tk.solve_columns, tr.sweep_columns)],
     }
@@ -2338,7 +2366,7 @@ def reset_peak(what: str) -> int:
 
 def counted(what: str, fn, want):
     """``fn()`` with every counter zeroed just before and read just after;
-    the launches must be ``want`` (or ``want(result)``)."""
+    the launches must be ``want`` (or ``want(result)``) where it is given."""
     import torch
 
     torch.cuda.synchronize()
@@ -2346,7 +2374,8 @@ def counted(what: str, fn, want):
     out = fn()
     torch.cuda.synchronize()
     counts = read_counts()
-    check_counts(what, counts, want(out) if callable(want) else want)
+    if want is not None:
+        check_counts(what, counts, want(out) if callable(want) else want)
     return out, counts
 
 
@@ -5196,12 +5225,11 @@ def phase_hybrid_serving(device, api, card: str) -> dict:
 def phase_hybrid_training(device, api, card: str) -> dict:
     """Phase 3 and 5, the hybrid family trained: ``train_loop
     ("recurrentgemma-9b", smoke=False, steps=6, batch=8, seq=128)`` at full
-    width cut to HYB_TRAIN_LAYERS of 38 layers (2 superblocks and the
-    2-layer tail: the superblock's shape and the tail kept; 2.83B float32
+    width cut to HYB_TRAIN_LAYERS of 38 layers (1 superblock and the
+    2-layer tail: the superblock's shape and the tail kept; float32
     parameters from the seed, bfloat16 compute, float32 AdamW moments);
     step times, tokens/s, model-FLOP share and peak memory, no kernel
-    launched; then the whole state (parameters and AdamW moments, 34.0 GB)
-    saved with the config's zfp policy and restored
+    launched; then the whole state (parameters and AdamW moments) saved with the config's zfp policy and restored
     (:func:`check_state_checkpoint`)."""
     import tempfile
     from dataclasses import replace
@@ -5501,6 +5529,386 @@ def phase_encdec_vs_cpu(device, api) -> dict:
     return {"calls": calls, "errs": {}}
 
 
+# ---------------------------------------------------------------------------
+# abstractions and examples: the paper's parallel abstractions, the
+# standalone ZFP and MGARD API, the engine's data mesh, the four examples
+# ---------------------------------------------------------------------------
+
+
+def held_run(what: str, fn, calls: dict, errs: dict, want: dict | None = None,
+             must: tuple[str, ...] = ()):
+    """:func:`counted` with every kernel launch inside held to its plain
+    version on the same inputs (:func:`held_to_plain` over ``HELD_KERNELS``):
+    each kernel that launched was held in at least as many calls, at
+    tolerance 0, and each kernel of ``must`` launched at least once.
+    Returns ``(result, host wall seconds)``, the plain runs included."""
+    t0 = time.perf_counter()
+    with held_to_plain(HELD_KERNELS) as held:
+        out, counts = counted(what, fn, want)
+    seconds = time.perf_counter() - t0
+    for k in must:
+        if not counts[k]:
+            raise PhaseError(f"{what}: {k} launched no time ({counts})")
+    for k, n in counts.items():
+        got = held.get(k, [0, None])
+        if n and (got[0] < n or got[1]):
+            raise PhaseError(f"{what}: {k} launched {n} times, held to its plain version in "
+                             f"{got[0]} calls, max |kernel - plain| {got[1]}")
+        if n:
+            errs[k] = max(errs.get(k, 0.0), got[1])
+    calls[what] = counts
+    return out, seconds
+
+
+def phase_abstractions(device, api, card: str) -> dict:
+    """Phases 3 and 5, the paper's parallel abstractions and the standalone
+    codec API on the 512^3 field (SDRBench Nyx size): ``locality`` with 4^3
+    blocks and an elementwise ``fn`` (card == the same call on a CPU copy,
+    bit for bit), with ``halo=1`` on a 128^3 cut (a stencil of shifted
+    slices), ``iterative`` as a prefix sum along axis 0 (512 steps, forward
+    and reversed, a tuple carry), ``map_and_process`` with MGARD's 513^3
+    level map as subset ids (== ``map_and_process_param``), a
+    ``global_pipeline`` and ``jitted_dem``; ``zfp.compress_jit`` at rate 16
+    (``adapter="cuda"`` == ``adapter="torch"``), ``zfp.compress``/
+    ``decompress`` (the kernel on the card tensor, == ``compress_jit`` and
+    the ``zfp`` codec container's sections); ``mgard.compress``/
+    ``decompress`` at the absolute bound 1e-2 (the ``tridiag`` and
+    ``quantize_map`` kernels; the stream's words, offsets, length table,
+    outliers and bins == the ``mgard`` codec container's, the decode == the
+    codec's, within the bound); an ``ExecutionEngine(mesh=make_data_mesh())``
+    (a world-size-1 NCCL group, ended after) whose ``compress_pytree``
+    bytes == the ``devices=`` engine's.  Every launch counted and held to
+    its plain version; timings with CUDA events (median of 5)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import abstractions as ab
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.core import machine, mgard, zfp
+
+    calls, errs, times = {}, {}, {}
+    cpu = torch.device("cpu")
+    field = main_field(FIELD_EDGE, device)
+    on_cpu = field.cpu()
+
+    def same(what: str, a, b) -> None:
+        if not same_bits(a, b):
+            raise PhaseError(f"{what}: the card's result differs from the reference's bits")
+
+    # locality: elementwise over 4^3 blocks, then a stencil with a halo of 1
+    def elementwise(b):
+        return b * 2.0 + torch.abs(b)
+
+    out, _ = held_run("locality (512^3)", lambda: ab.locality(field, elementwise, ABS_BLOCK),
+                      calls, errs, want={})
+    same("locality (512^3) vs CPU", out, ab.locality(on_cpu, elementwise, ABS_BLOCK))
+    times["locality, 4^3 blocks, 512^3"] = median_ms(
+        lambda: ab.locality(field, elementwise, ABS_BLOCK), ABS_TIMED_RUNS)
+    del out
+
+    def stencil(p):
+        inner = p[1:-1, 1:-1, 1:-1]
+        return inner * 3.0 - p[:-2, 1:-1, 1:-1] + p[1:-1, 2:, 1:-1] - p[1:-1, 1:-1, :-2]
+
+    cut = field[:ABS_HALO_EDGE, :ABS_HALO_EDGE, :ABS_HALO_EDGE].contiguous()
+    out, _ = held_run("locality (halo 1, 128^3)",
+                      lambda: ab.locality(cut, stencil, ABS_BLOCK, halo=1), calls, errs, want={})
+    same("locality (halo 1) vs CPU", out, ab.locality(cut.cpu(), stencil, ABS_BLOCK, halo=1))
+    times["locality, halo 1, 128^3"] = median_ms(
+        lambda: ab.locality(cut, stencil, ABS_BLOCK, halo=1), ABS_TIMED_RUNS)
+
+    # iterative: a prefix sum along axis 0, with its running maximum in the carry
+    def step(carry, s):
+        total, peak = carry
+        total = total + s
+        return (total, torch.maximum(peak, total)), total
+
+    def scan(x, reverse):
+        init = (torch.zeros_like(x[0]), torch.full_like(x[0], -math.inf))
+        return ab.iterative(x, step, init, 0, reverse=reverse)
+
+    for reverse in (False, True):
+        name = f"iterative (512 steps{', reversed' if reverse else ''})"
+        ((tot, peak), ys), _ = held_run(name, lambda: scan(field, reverse), calls, errs, want={})
+        (ctot, cpeak), cys = scan(on_cpu, reverse)
+        for a, b in ((tot, ctot), (peak, cpeak), (ys, cys)):
+            same(f"{name} vs CPU", a, b)
+        times[name] = median_ms(lambda: scan(field, reverse), ABS_TIMED_RUNS)
+        del tot, peak, ys, ctot, cpeak, cys
+
+    # map & process over MGARD's level map (10 subsets of the 513^3 grid)
+    padded = tuple(mgard.padded_dim(n) for n in field.shape)
+    grid = mgard.pad_to_dyadic(field)
+    lmap = mgard.level_map(padded, device)
+    bins = torch.tensor(mgard.level_bins(ABS_MGARD_EB, mgard.total_levels(padded)),
+                        dtype=torch.float32, device=device)
+    # each level's bin as a 0-d tensor on the card: a Python scalar divisor
+    # would be applied as a multiplication by its reciprocal there
+    fns = [lambda v, b=b: torch.round(v / b) for b in bins]
+    out, _ = held_run("map_and_process (513^3, 10 levels)",
+                      lambda: ab.map_and_process(grid, lmap, fns), calls, errs, want={})
+    same("map_and_process vs map_and_process_param", out, ab.map_and_process_param(
+        grid, lmap.long(), lambda v, b: torch.round(v / b), bins))
+    times["map_and_process, 10 levels, 513^3"] = median_ms(
+        lambda: ab.map_and_process(grid, lmap, fns), ABS_TIMED_RUNS)
+    del out, grid, lmap
+
+    # global pipeline (DEM) and its cached fused program
+    stages = (lambda x: x - x.mean(), lambda x: x * 0.5)
+    out, _ = held_run("global_pipeline (512^3)", lambda: ab.global_pipeline(*stages)(field),
+                      calls, errs, want={})
+    same("global_pipeline", out, (field - field.mean()) * 0.5)
+    prog = machine.DEMProgram(stages=stages, name="centre")
+    if machine.jitted_dem(prog) is not machine.jitted_dem(prog):
+        raise PhaseError("jitted_dem built its program twice")
+    same("jitted_dem", machine.jitted_dem(prog)(field), out)
+    del out
+
+    # zfp: the kernel against the plain block path, both against the codec
+    shape = tuple(field.shape)
+    (p1, e1), _ = held_run("zfp.compress_jit (cuda)",
+                           lambda: zfp.compress_jit(field, RATE, 3, shape, adapter="cuda"),
+                           calls, errs, want={"zfp_block.compress_blocks": 1})
+    (p0, e0), _ = held_run("zfp.compress_jit (plain)",
+                           lambda: zfp.compress_jit(field, RATE, 3, shape, adapter="torch"),
+                           calls, errs, want={})
+    same("zfp.compress_jit payload, cuda vs plain", p1, p0)
+    same("zfp.compress_jit emax, cuda vs plain", e1, e0)
+    z, _ = held_run("zfp.compress", lambda: zfp.compress(field, RATE), calls, errs,
+                    want={"zfp_block.compress_blocks": 1})
+    same("zfp.compress payload vs compress_jit (cuda)", z.payload, p1)
+    same("zfp.compress emax vs compress_jit (cuda)", z.emax, e1)
+    c = api.compress(field, "zfp", rate=RATE)
+    if not (np.array_equal(c.arrays["payload"], z.payload.cpu().numpy().view(np.uint32))
+            and np.array_equal(c.arrays["emax"], z.emax.cpu().numpy())):
+        raise PhaseError("zfp.compress differs from the zfp codec container's sections")
+    d1, _ = held_run("zfp.decompress", lambda: zfp.decompress(z), calls, errs,
+                     want={"zfp_block.decompress_blocks": 1})
+    same("zfp.decompress vs decompress_jit (plain)",
+         d1, zfp.decompress_jit(p1, e1, RATE, 3, shape, adapter="torch"))
+    same("zfp.decompress vs the codec's decode", d1, api.decompress(c))
+    ratio = zfp.compression_ratio(z)
+    err = float((d1 - field).abs().max()) / float(field.max() - field.min())
+    if ratio != c.ratio() or not err <= ERR_TOL:
+        raise PhaseError(f"zfp standalone: ratio {ratio} (codec {c.ratio()}), error {err}")
+    times["zfp.compress"] = median_ms(lambda: zfp.compress(field, RATE), ABS_TIMED_RUNS)
+    times["api.compress zfp (codec, host wall)"] = median_wall_ms(
+        lambda: api.compress(field, "zfp", rate=RATE), ABS_TIMED_RUNS, warmup=0)
+    times["zfp.decompress"] = median_ms(lambda: zfp.decompress(z), ABS_TIMED_RUNS)
+    times["api.decompress zfp (codec, host wall)"] = median_wall_ms(
+        lambda: api.decompress(c), ABS_TIMED_RUNS, warmup=0)
+    del p0, e0, p1, e1, z, d1, c
+
+    # mgard: the standalone path against the codec on the same card
+    solves = mgard_solves(tuple(field.shape))
+    m, msec = held_run("mgard.compress (512^3)", lambda: mgard.compress(field, ABS_MGARD_EB),
+                       calls, errs, want={"tridiag.solve_mass": solves, "quantize_map.quantize": 1,
+                                          "histogram.histogram": 1,
+                                          "huffman_encode.encode_lookup": 1})
+    c = api.compress(field, "mgard", error_bound=ABS_MGARD_EB, relative=False)
+    sections = {"words": (c.arrays["words"].view(np.int32), m.entropy.words),
+                "chunk_offsets": (c.arrays["chunk_offsets"], m.entropy.chunk_offsets),
+                "outlier_idx": (c.arrays["outlier_idx"], m.outlier_idx),
+                "outlier_val": (c.arrays["outlier_val"], m.outlier_val)}
+    for name, (want_arr, got) in sections.items():
+        if not np.array_equal(want_arr, got.cpu().numpy()):
+            raise PhaseError(f"mgard.compress {name} differs from the mgard codec container's")
+    if not (np.array_equal(c.arrays["length_table"], m.entropy.length_table)
+            and np.array_equal(c.arrays["bins"], m.bins)
+            and c.meta["total_bits"] == m.entropy.total_bits):
+        raise PhaseError("mgard.compress length table, bins or bit total differ from the codec's")
+    out, dsec = held_run("mgard.decompress (512^3)", lambda: mgard.decompress(m), calls, errs,
+                         want={"tridiag.solve_mass": solves, "quantize_map.dequantize": 1,
+                               "huffman_decode.decode_chunks": 1})
+    same("mgard.decompress vs the codec's decode", out, api.decompress(c))
+    merr = float((out - field).abs().max())
+    if not merr <= ABS_MGARD_EB:
+        raise PhaseError(f"mgard standalone: max |error| {merr} > {ABS_MGARD_EB}")
+    # each was run once above: no warm-up runs
+    times["mgard.compress (host wall)"] = median_wall_ms(
+        lambda: mgard.compress(field, ABS_MGARD_EB), ABS_TIMED_RUNS, warmup=0)
+    times["api.compress mgard (codec, host wall)"] = median_wall_ms(
+        lambda: api.compress(field, "mgard", error_bound=ABS_MGARD_EB, relative=False),
+        ABS_TIMED_RUNS, warmup=0)
+    times["mgard.decompress (host wall)"] = median_wall_ms(lambda: mgard.decompress(m),
+                                                           ABS_TIMED_RUNS, warmup=0)
+    times["api.decompress mgard (codec, host wall)"] = median_wall_ms(
+        lambda: api.decompress(c), ABS_TIMED_RUNS, warmup=0)
+    log(f"phase 3 ok: mgard.compress of the 512^3 field at the absolute bound {ABS_MGARD_EB}: "
+        f"ratio {mgard.compression_ratio(m):.2f}, {m.outlier_idx.numel()} outliers, max |error| "
+        f"{merr:.3e}; its stream == the mgard codec container's section for section, its "
+        f"decode == the codec's bit for bit; held runs {msec:.2f} s / {dsec:.2f} s (with the "
+        "plain versions)")
+    del m, c, out
+
+    # the engine on a ("data",) mesh against the devices= engine
+    started = not dist.is_initialized()
+    mesh = engine_mod.make_data_mesh()
+    g = torch.Generator(device=device).manual_seed(SEED + 201)
+    tree = {"layers": [{"w": torch.randn((4096, 4096), generator=g, device=device) * 0.02,
+                        "scale": torch.ones(4096, device=device)} for _ in range(4)]}
+    try:
+        with engine_mod.ExecutionEngine(mesh=mesh) as on_mesh, \
+                engine_mod.ExecutionEngine(devices=[device]) as plain_eng:
+            if on_mesh.devices != [device] or on_mesh.mesh is not mesh:
+                raise PhaseError(f"the mesh engine's ring is {on_mesh.devices}, not [{device}]")
+            (fm, _st), _ = held_run("ExecutionEngine(mesh=).compress_pytree",
+                                    lambda: on_mesh.compress_pytree(tree), calls, errs,
+                                    must=("zfp_block.compress_blocks",))
+            fd, _ = plain_eng.compress_pytree(tree)
+    finally:
+        if started:
+            dist.destroy_process_group()
+    for key, cm in fm.items():
+        cd = fd[key]
+        equal = (cm.to_bytes() == cd.to_bytes()) if hasattr(cm, "to_bytes") \
+            else same_bits(cm, cd)
+        if not equal:
+            raise PhaseError(f"ExecutionEngine(mesh=): leaf {key} differs from the devices= "
+                             "engine's")
+    log(f"phase 3 ok: ExecutionEngine(mesh=make_data_mesh()) on a ('data',) mesh of "
+        f"{engine_mod.data_devices(mesh)}: compress_pytree of {len(fm)} leaves == the devices= "
+        "engine's bytes")
+    del tree, fm, fd, field, on_cpu, cut
+    torch.cuda.empty_cache()
+    log(f"phase 5: {card}: abstractions and the standalone codec API (CUDA events, median of "
+        f"{ABS_TIMED_RUNS}; host wall where named): " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in times.items()))
+    log(f"phase 3 ok: locality (4^3 blocks; halo 1 on 128^3), iterative (512 steps, both "
+        "directions, tuple carry), map_and_process (MGARD's level map), global_pipeline and "
+        "jitted_dem on the card == the CPU or their parameter form bit for bit; "
+        "zfp.compress_jit (cuda) == (torch), zfp.compress (kernel) == the zfp codec "
+        "container, decode bit for bit; "
+        f"launches {json.dumps({k: {n: c for n, c in v.items() if c} for k, v in calls.items()})}")
+    return {"calls": calls, "errs": errs, "times": times}
+
+
+def load_example(name: str):
+    """``examples/<name>_torch.py`` of this checkout as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"{name}_torch",
+                                                  ROOT / "examples" / f"{name}_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def quickstart_want(n: int) -> dict:
+    """The launches of the quickstart example on an ``n``^3 field: two MGARD
+    round trips, two ZFP round trips and the re-encode, one huffman-bytes
+    round trip."""
+    solves = mgard_solves((n, n, n))
+    return {"tridiag.solve_mass": 4 * solves, "quantize_map.quantize": 2,
+            "quantize_map.dequantize": 2, "histogram.histogram": 3,
+            "huffman_encode.encode_lookup": 3, "huffman_decode.decode_chunks": 3,
+            "zfp_block.compress_blocks": 3, "zfp_block.decompress_blocks": 2}
+
+
+def phase_examples(device, api, card: str) -> dict:
+    """Phases 3 and 5, the four examples through their ``main`` at the
+    reference's own settings, on the card: quickstart on the 64^3 field
+    (launches exact; MGARD within its relative bounds, the lossless round
+    trip exact, the re-encode a CMM hit), serve_batched on qwen2.5-3b's
+    smoke cut (5 requests on 2 slots, the cache parked at zfp rate 12 and
+    resumed; the same tokens as the CPU's run on the same weights),
+    compressed_checkpoint_io on qwen1.5-4b's smoke cut (four policies saved
+    and restored: lossless exact, zfp and MGARD within their bounds), and
+    train_lm ``--preset small`` for its 200 steps and ``--preset 100m`` for
+    20 (every loss finite, the exact checkpoints' report).  Every launch
+    inside each example held to its plain version."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, load_params
+
+    calls, errs, times = {}, {}, {}
+    cpu = torch.device("cpu")
+
+    ex = load_example("quickstart")
+    out, sec = held_run(f"examples/quickstart_torch.py ({EXAMPLE_EDGE}^3)",
+                        lambda: ex.main(EXAMPLE_EDGE), calls, errs,
+                        want=quickstart_want(EXAMPLE_EDGE))
+    for row in out["methods"]:
+        bound = row["params"].get("error_bound", 0.0 if row["method"] == "huffman-bytes"
+                                  else ERR_TOL * 2 ** (16 - row["params"].get("rate", 16)))
+        if not row["max_rel_err"] <= bound:
+            raise PhaseError(f"quickstart {row['method']} {row['params']}: relative error "
+                             f"{row['max_rel_err']} > {bound}")
+    if out["reencode_hits"] != 1:
+        raise PhaseError(f"quickstart: the re-encode made {out['reencode_hits']} CMM hits")
+    times[f"quickstart ({EXAMPLE_EDGE}^3)"] = sec
+
+    ex = load_example("serve_batched")
+    cfg = get_config("qwen2.5-3b").smoke()
+    params = build_model(cfg).init(torch.Generator(device=device).manual_seed(0), device)
+    out, sec = held_run("examples/serve_batched_torch.py", lambda: ex.main(params=params), calls,
+                        errs, must=("zfp_block.compress_blocks", "zfp_block.decompress_blocks"))
+    on_cpu = ex.main(device="cpu", params=load_params(params, cpu))
+    if out["tokens"] != on_cpu["tokens"]:
+        raise PhaseError(f"serve_batched: the card's tokens {out['tokens']} differ from the "
+                         f"CPU's {on_cpu['tokens']}")
+    if any(len(t) != 8 or not all(0 <= x < cfg.vocab for x in t) for t in out["tokens"].values()):
+        raise PhaseError(f"serve_batched: tokens {out['tokens']}")
+    for key, want_arr in on_cpu["cache"].items():
+        if isinstance(want_arr, torch.Tensor) and want_arr.is_floating_point():
+            got = out["cache"][key].cpu()
+            if not float((got - want_arr).abs().max()) <= 0.05 * max(
+                    1e-6, float(want_arr.abs().max())):
+                raise PhaseError(f"serve_batched: the resumed cache's {key} is off the CPU's")
+    times["serve_batched"] = sec
+    del params
+
+    ex = load_example("compressed_checkpoint_io")
+    out, sec = held_run("examples/compressed_checkpoint_io_torch.py", ex.main, calls, errs,
+                        must=HELD_KERNELS)
+    rows = {r["policy"]: r for r in out["policies"]}
+    params = build_model(get_config("qwen1.5-4b").smoke()).init(
+        torch.Generator(device=device).manual_seed(0), device)
+    leaves = ex.leaves(params)
+    span = max(float(x.max() - x.min()) for x in leaves)
+    checks = {"lossless (huffman-bytes)": 0.0, "zfp rate-28 (~1e-6 rel)": 1e-5 * span,
+              "zfp rate-16 (transport)": 5e-3 * span, "mgard eb 1e-4": 1e-4 * span}
+    for name, bound in checks.items():
+        if not rows[name]["max_abs_err"] <= bound or not rows[name]["ratio"] > 0:
+            raise PhaseError(f"compressed_checkpoint_io {name}: max |error| "
+                             f"{rows[name]['max_abs_err']} > {bound} or ratio {rows[name]['ratio']}")
+    times["compressed_checkpoint_io"] = sec
+    del params, leaves
+
+    ex = load_example("train_lm")
+    for preset, steps in EXAMPLE_TRAIN.items():
+        with tempfile.TemporaryDirectory() as d:
+            argv = ["--preset", preset, "--steps", str(steps), "--ckpt-dir", d]
+            out, sec = held_run(f"examples/train_lm_torch.py --preset {preset}",
+                                lambda: ex.main(argv), calls, errs,
+                                must=("histogram.histogram", "huffman_encode.encode_lookup"))
+        r = out["ckpt_report"]
+        if not (out["finite"] and out["result"]["steps_run"] == steps and r
+                and r["step"] == steps):
+            raise PhaseError(f"train_lm --preset {preset}: {out['result']}, finite "
+                             f"{out['finite']}, checkpoint {r and r['step']}")
+        step_ms = statistics.median(out["step_s"][-max(1, steps // 4):]) * 1e3
+        times[f"train_lm --preset {preset}"] = sec
+        log(f"phase 5: {card}: train_lm --preset {preset}: {steps} steps, "
+            f"{out['n_params']} parameters, loss {out['result']['first_loss']:.4f} -> "
+            f"{out['result']['last_loss']:.4f}, median step of the last quarter {step_ms:.2f} ms, "
+            f"last exact checkpoint {r['raw_bytes']} -> {r['compressed_bytes']} bytes "
+            f"(ratio {r['ratio']:.3f}) in {r['save_s']:.2f} s")
+    log(f"phase 5: {card}: examples, host wall s with every launch held to its plain version: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in times.items()))
+    log("phase 3 ok: the four examples at the reference's settings; launches "
+        + json.dumps({k: {n: c for n, c in v.items() if c} for k, v in calls.items()}))
+    torch.cuda.empty_cache()
+    return {"calls": calls, "errs": errs, "times": times}
+
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}; "
@@ -5649,6 +6057,12 @@ def main() -> int:
     lap("phase 3 and 5, seamless-m4t-medium")
     ed_cpu = phase_encdec_vs_cpu(device, api)
     lap("phase 3, encdec card vs CPU")
+    GLOBAL_CMM.clear()  # the encdec state's plans, before the 512^3 fields
+    torch.cuda.empty_cache()
+    abst = phase_abstractions(device, api, card)
+    lap("phase 3 and 5, abstractions and the standalone codec API")
+    exs = phase_examples(device, api, card)
+    lap("phase 3 and 5, examples")
     calibrate.set_calibration_dir(None)
     cal_dir.cleanup()
     for k in huff_kernels:  # the entropy tail runs on the Huffman and the MGARD paths
@@ -5664,7 +6078,8 @@ def main() -> int:
                  "llama4-scout": l4, "moe card vs CPU": moe_cpu, "moe resume": moe_resume,
                  "recurrentgemma-9b serving": hyb_serve, "recurrentgemma-9b training": hyb_train,
                  "hybrid smoke cut": hyb_smoke, "seamless-m4t-medium": ed,
-                 "encdec card vs CPU": ed_cpu}
+                 "encdec card vs CPU": ed_cpu, "abstractions and codec API": abst,
+                 "examples": exs}
     for k in kernels + huff_kernels + mgard_kernels:
         for run in new_paths.values():
             k["launches"] += sum(counts[k["name"]] for counts in run["calls"].values())

@@ -1,7 +1,8 @@
 """HPDR core in PyTorch (counterpart of ``repro.core``).
 
-Layers, bottom-up: device adapters (`adapters`), block views (`machine`,
-`abstractions`), the CMM (`context`), the ZFP, Huffman and MGARD pipelines
+Layers, bottom-up: device adapters (`adapters`), the machine abstraction
+(`machine`: GEM/DEM) and the parallel abstractions (`abstractions`), the
+CMM (`context`), the ZFP, Huffman and MGARD pipelines
 (`zfp`, `huffman`, `bitstream`, `mgard`, `quantize`) and the progressive
 tier (`progressive`) behind the codec registry (`codecs`) and stage graph
 (`stages`), the execution engine (`engine`), and the high-level API (`api`:

@@ -8,9 +8,14 @@ Two backends:
 
 ``auto`` resolves to ``cuda`` and raises where no CUDA device is present (the
 reference's ``default_adapter`` picks XLA on a GPU).  :func:`dispatch`
-raises when an op has no implementation for the requested backend (the
-reference silently falls back to its XLA implementation): a kernel that is
-missing is an error, never a slow path.
+raises ``KeyError`` for an op that no backend registers, as the reference
+does, and ``NotImplementedError`` when the op lacks only the requested
+backend (the reference silently falls back to its XLA implementation): a
+kernel that is missing is an error, never a slow path.
+
+The reference's ``supports_donation`` and ``donating_jit`` are XLA buffer
+donation.  Eager PyTorch has nothing to donate, and the plans already
+recycle their workspace in place, so they have no counterpart here.
 """
 
 from __future__ import annotations
@@ -38,6 +43,12 @@ def register(op: str, adapter: str) -> Callable[[Callable], Callable]:
         return fn
 
     return deco
+
+
+def default_adapter() -> str:
+    """The best backend here: ``cuda``, which raises without a card exactly
+    as ``resolve_backend("auto")`` does."""
+    return resolve_backend(AUTO)
 
 
 def available_backends() -> tuple[str, ...]:
@@ -73,11 +84,34 @@ def device_for(backend: str) -> torch.device:
     return torch.device("cpu")
 
 
+def for_tensor(adapter: str | None, t: torch.Tensor) -> str:
+    """``adapter``, or where none is given the backend of ``t``'s device:
+    the kernel for a CUDA tensor, the plain version for a CPU tensor (the
+    standalone entry points' rule)."""
+    if adapter is not None:
+        return adapter
+    return CUDA if t.device.type == "cuda" else TORCH
+
+
+def resolve(adapter: str | None) -> str:
+    """The reference's name for :func:`resolve_backend`."""
+    return resolve_backend(adapter)
+
+
 def dispatch(op: str, adapter: str | None = None) -> Callable:
-    """The registered implementation of ``op`` for ``adapter`` — or an error."""
+    """The registered implementation of ``op`` for ``adapter`` — or an error:
+    ``KeyError`` for an op no backend registers, ``NotImplementedError`` for
+    an op that lacks only this backend."""
     a = resolve_backend(adapter)
     impl = _REGISTRY.get((op, a))
     if impl is None:
+        if not any(key == op for key, _ in _REGISTRY):
+            raise KeyError(f"op {op!r} has no implementation (adapter={a!r})")
         raise NotImplementedError(f"op {op!r} has no {a!r} implementation")
     return impl
+
+
+def registered_ops() -> dict[tuple[str, str], Callable]:
+    """A copy of the registry: ``(op, backend) -> implementation``."""
+    return dict(_REGISTRY)
 

@@ -57,6 +57,8 @@ _NP_NAMES = {
 # the reference runs JAX with 64-bit types off: its ``jnp.asarray`` narrows
 _CANONICAL = {"float64": "float32", "int64": "int32", "uint64": "uint32"}
 
+METHODS = ("mgard", "mgard-progressive", "zfp", "huffman", "huffman-bytes")
+
 _STREAM_MAGIC = b"HPDS"
 _STREAM_VERSION = 1
 
@@ -80,6 +82,19 @@ def as_tensor(data: Any) -> torch.Tensor:
     if name is not None:
         data = data.to(getattr(torch, name))
     return data
+
+
+def place(data: Any, device: Any = None) -> torch.Tensor:
+    """``data`` as a tensor with the canonical dtype (:func:`as_tensor`) for
+    the standalone entry points (``zfp.compress``, ``mgard.compress``): a
+    tensor stays where it lies unless ``device`` is given; any other data
+    goes to ``device``, by default the card (raising without one, as the
+    ``auto`` backend does)."""
+    was_tensor = isinstance(data, torch.Tensor)
+    data = as_tensor(data)
+    if device is None and not was_tensor:
+        device = adapters.device_for(adapters.AUTO)
+    return data if device is None else data.to(device)
 
 
 # ---------------------------------------------------------------------------

@@ -136,6 +136,9 @@ class Codec:
     def __init__(self, name: str):
         self.name = name
 
+    def spec_params(self) -> tuple[str, ...]:
+        return tuple(self.spec_defaults)
+
     def make_spec(self, shape: tuple[int, ...], dtype: Any, **kwargs: Any) -> ReductionSpec:
         """Build a canonical spec from loose kwargs (irrelevant ones dropped,
         missing ones defaulted, ``backend`` resolved)."""

@@ -152,6 +152,10 @@ def sections_to_encoded(c: Compressed, device="cpu") -> huffman.Encoded:
     )
 
 
+# the reference's name in this module for the plan-cached decode tables
+plan_decode_tables = huffman.plan_decode_tables
+
+
 def byte_view(data: torch.Tensor) -> torch.Tensor:
     """``data``'s bytes as uint8 on its device: numpy's ``view(np.uint8)`` of
     ``ascontiguousarray(data)`` (a 0-d tensor counts as 1-d; the last axis

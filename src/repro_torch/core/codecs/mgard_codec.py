@@ -29,7 +29,6 @@ import math
 from functools import partial
 
 import numpy as np
-import torch
 
 from .. import adapters, mgard
 from .. import stages as sg
@@ -83,7 +82,7 @@ class MGARDCodec(Codec):
                 "dequantize": mgard.planned_dequantize_stage(spec.backend),
             },
             workspace={
-                "lmap": torch.from_numpy(mgard.level_map(padded)).to(device),
+                "lmap": mgard.level_map(padded, device),
                 "thomas": thomas,
             },
             meta={"padded": padded, "L": mgard.total_levels(padded),

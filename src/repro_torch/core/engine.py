@@ -20,9 +20,12 @@
      the serving layer run on.
 
 Most callers use the process-wide :func:`default_engine` (every visible
-CUDA device) through ``api.compress_pytree``; the CPU path builds its own::
+CUDA device) through ``api.compress_pytree``; the CPU path builds its own,
+and an engine built on a DeviceMesh takes its device ring from the mesh's
+``data`` axis (:func:`data_devices`, :func:`make_data_mesh`)::
 
     eng = ExecutionEngine(devices=[torch.device("cpu")], backend="torch")
+    eng = ExecutionEngine(mesh=make_data_mesh())   # a ("data",) mesh over the card
     flat, stats = eng.compress_pytree(params)
     sub = eng.submit_encode(spec, x)      # async single reduction
     c = sub.result()
@@ -45,6 +48,44 @@ from .stages.base import CallEnv, LeafView, TransferStats
 from ..runtime.executor import MESH, DeviceExecutor, Submission
 
 
+def _rank_device(device_type: str, rank: int) -> torch.device:
+    """The device of ``rank`` of a mesh (one device a rank)."""
+    if device_type == "cuda":
+        return torch.device("cuda", rank % max(1, torch.cuda.device_count()))
+    return torch.device(device_type)
+
+
+def data_devices(mesh) -> list[torch.device]:
+    """Devices holding distinct ``data``-axis shards (the fan-out ring).
+
+    For a multi-axis DeviceMesh this walks the ``data`` axis with every
+    other axis pinned at index 0: one device a data shard.  A mesh without
+    a ``data`` axis gives every rank's device; no mesh, every visible card
+    (the CPU without one).
+    """
+    if mesh is None:
+        n = torch.cuda.device_count()
+        return [torch.device("cuda", i) for i in range(n)] or [torch.device("cpu")]
+    ranks = mesh.mesh
+    names = list(mesh.mesh_dim_names or ())
+    if "data" in names:
+        ranks = ranks.movedim(names.index("data"), 0)
+        ranks = ranks.reshape(ranks.shape[0], -1)[:, 0]
+    return [_rank_device(mesh.device_type, int(r)) for r in ranks.reshape(-1)]
+
+
+def make_data_mesh(devices=None):
+    """One-axis ``("data",)`` DeviceMesh (``launch.mesh.make_data_mesh``,
+    which starts a world-size-1 process group where none exists), on the
+    type of ``devices`` where given (default: the card)."""
+    from ..launch import mesh as launch_mesh  # runtime import: layering
+
+    if devices is None:
+        return launch_mesh.make_data_mesh()
+    devices = [torch.device(d) for d in devices]
+    return launch_mesh.make_data_mesh(len(devices), device=devices[0].type)
+
+
 def _nbytes(arr: Any) -> int:
     if isinstance(arr, torch.Tensor):
         return arr.numel() * arr.element_size()
@@ -61,9 +102,15 @@ class ExecutionEngine:
         max_workers: int | None = None,
         io_workers: int = 1,
         topology=None,
+        mesh=None,
     ):
         self.backend = adapters.resolve_backend(backend)
         want = "cuda" if self.backend == adapters.CUDA else "cpu"
+        #: the DeviceMesh whose ``data`` axis gave the device ring, if any (an
+        #: engine built without one starts no process group)
+        self.mesh = mesh
+        if mesh is not None:
+            devices = data_devices(mesh)
         if devices:
             self.devices = [torch.device(d) for d in devices]
         elif want == "cuda":  # default: every visible card

@@ -30,6 +30,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from . import adapters
 from . import bitstream as bs
 
 MAX_CODE_LEN = 32
@@ -44,12 +45,28 @@ MAX_TOTAL_BITS = (1 << 31) - 1
 # ---------------------------------------------------------------------------
 
 
+def histogram(keys: torch.Tensor, num_bins: int) -> torch.Tensor:
+    """Frequency histogram over the whole domain (the DEM global stage):
+    ``(num_bins,)`` int32, where ``keys`` lie (the ``histogram`` kernel on a
+    CUDA tensor, its plain version on a CPU tensor).
+
+    As the reference's ``jnp.bincount(..., length=num_bins)``: a negative
+    key counts in bin 0, a key past the last bin is dropped.
+    """
+    from ..kernels.histogram import ops as histogram_ops  # lazy: layer order
+
+    keys = keys.reshape(-1).to(torch.int32).clamp_min(0)
+    return histogram_ops.histogram(keys, num_bins, adapter=adapters.for_tensor(None, keys))
+
+
 def histogram_op(keys: torch.Tensor, num_bins: int, adapter: str | None = None) -> torch.Tensor:
-    """Frequency histogram of int32 keys: ``(num_bins,)`` int32.
+    """Adapter-dispatched histogram of int32 keys: ``(num_bins,)`` int32.
 
     ``adapter`` binds the backend (``torch``: the plain version; ``cuda``:
-    the kernel); ``None`` resolves as ``auto``.
+    the kernel); ``None`` is the inline path, :func:`histogram`.
     """
+    if adapter is None:
+        return histogram(keys, num_bins)
     from ..kernels.histogram import ops as histogram_ops  # lazy: layer order
 
     return histogram_ops.histogram(keys.reshape(-1), num_bins, adapter=adapter)
@@ -232,17 +249,34 @@ def codebook_tables(book: Codebook, device) -> tuple[torch.Tensor, torch.Tensor]
     return codes_t, lens_t
 
 
+def symbol_lengths_total(keys: torch.Tensor, lengths_t: torch.Tensor) -> int:
+    """Total bit count of ``keys`` under the code lengths ``lengths_t`` (one
+    scalar crosses to the host: it sizes the exact output buffer).
+
+    Indices as the reference's gather takes them: a negative key counts
+    from the end, then every key is clamped into the table.  The sum is
+    exact (the reference's int32 sum wraps past 2^31 - 1, a stream the
+    format cannot hold).
+    """
+    k = keys.reshape(-1).to(torch.int64)
+    n = lengths_t.shape[0]
+    k = torch.where(k < 0, k + n, k).clamp_(0, n - 1)
+    return int(lengths_t.to(torch.int64)[k].sum())
+
+
 def encode(
     keys: torch.Tensor, book: Codebook, chunk_size: int = DEFAULT_CHUNK,
     adapter: str | None = None,
 ) -> Encoded:
-    """Encode ``keys`` (int in [0, K)) into a compact bitstream."""
+    """Encode ``keys`` (int in [0, K)) into a compact bitstream; ``adapter``
+    binds the lookup (``None``: where the keys lie)."""
     from ..kernels.huffman_encode import ops as encode_ops  # lazy: layer order
     from ..kernels.huffman_encode import ref as encode_ref
 
     keys = keys.reshape(-1).to(torch.int32)
     codes_t, lens_t = codebook_tables(book, keys.device)
-    code, length = encode_ops.encode_lookup(keys, codes_t, lens_t, adapter=adapter)
+    code, length = encode_ops.encode_lookup(keys, codes_t, lens_t,
+                                            adapter=adapters.for_tensor(adapter, keys))
     total_bits = int(length.to(torch.int64).sum())  # one scalar crosses to the host
     if total_bits > MAX_TOTAL_BITS:
         raise ValueError(_too_long(total_bits))
@@ -326,7 +360,7 @@ def decode(
 
     ``tables`` skips the per-call codebook derivation (pass the plan-cached
     :class:`DecodeTables`); ``adapter`` routes the chunk scan (``torch`` or
-    ``cuda``).
+    ``cuda``; ``None``: where the words lie).
     """
     from ..kernels.huffman_decode import ops as decode_ops  # lazy: layer order
 
@@ -335,7 +369,7 @@ def decode(
     fc, ct, so, ss = padded_tables(tables)
     syms = decode_ops.decode_chunks(
         enc.words, enc.chunk_offsets, fc, ct, so, ss,
-        enc.chunk_size, int(fc.shape[0]) - 1, adapter=adapter,
+        enc.chunk_size, int(fc.shape[0]) - 1, adapter=adapters.for_tensor(adapter, enc.words),
     )
     return syms.reshape(-1)[: enc.n_symbols]
 

@@ -15,9 +15,16 @@ then per-level linear quantization (the ``quantize_map`` kernels), which
 the codec (``codecs/mgard_codec.py``) follows with the Huffman entropy tail.
 The plan-bound quantize/dequantize executables
 (:func:`planned_quantize_stage`, :func:`planned_dequantize_stage`) are what
-the progressive tier (``core/progressive.py``) runs per precision tier.  The
-reference's module-level ``compress``/``decompress`` are not ported: the
-codec is the one single-bound MGARD path.
+the progressive tier (``core/progressive.py``) runs per precision tier.
+The reference's standalone :func:`compress` / :func:`decompress` (paper
+Algorithm 1 end to end, :class:`MGARDCompressed`) run the codec's stages
+where the data lies: the decomposition's solves (the ``tridiag`` kernel on
+a CUDA tensor), the planned quantize and dequantize stages (the
+``quantize_map`` kernels there), the codec's outlier split
+(:func:`split_outliers`) and the entropy tail (``huffman.compress``: the
+``histogram``, ``encode_lookup`` and ``decode_chunks`` kernels there).
+Their stream equals the ``mgard`` codec's container on the same device at
+the same absolute bound.
 
 Grid handling: each dim is edge-padded to 2^k+1, and dims stop decomposing
 when they reach 2 nodes.  Level-l coefficients stay at their node positions
@@ -34,11 +41,13 @@ rounding, not bit for bit.
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from functools import lru_cache
 
 import numpy as np
 import torch
 
+from . import adapters, huffman
 from .quantize import unsigned_to_signed
 
 # float32 constants of the mass matrix, as the reference rounds them.  A
@@ -91,16 +100,17 @@ def _level_scores_1d(n: int, k: int) -> np.ndarray:
     return score.astype(np.int32)
 
 
-def level_map(shape: tuple[int, ...]) -> np.ndarray:
-    """Map node → quantization subset id: step l (0..L-1) or L for nodal values."""
+def level_map(shape: tuple[int, ...], device=None) -> torch.Tensor:
+    """Map node → quantization subset id: step l (0..L-1) or L for nodal
+    values; int32, made on ``device`` (by default the CPU) from the 1-D
+    scores (a broadcast minimum there: no full-grid host array or copy)."""
     ks = [dim_levels(n) for n in shape]
-    L = max(ks)
     score = None
     for axis, (n, k) in enumerate(zip(shape, ks)):
-        s = _level_scores_1d(n, k)
-        view = s.reshape([-1 if a == axis else 1 for a in range(len(shape))])
-        score = view if score is None else np.minimum(score, view)
-    return np.minimum(score, L).astype(np.int32)
+        s = torch.from_numpy(_level_scores_1d(n, k)).to(device)
+        s = s.reshape([-1 if a == axis else 1 for a in range(len(shape))])
+        score = s if score is None else torch.minimum(score, s)
+    return score.clamp_max(max(ks)).expand(shape).contiguous()
 
 
 def _levels(shape: tuple[int, ...]) -> list[tuple[float, tuple[slice, ...]]]:
@@ -333,12 +343,33 @@ def level_bins(eb: float, L: int) -> np.ndarray:
     return (2.0 * eb / ((L + 1) * _SAFETY) * w).astype(np.float64)
 
 
+@dataclass
+class MGARDCompressed:
+    """A standalone MGARD-X stream (:func:`compress`): the entropy-coded keys,
+    the outliers on the padded grid and the per-level bins."""
+
+    entropy: huffman.Encoded
+    outlier_idx: torch.Tensor    # int64[n_out] flat indices (padded grid)
+    outlier_val: torch.Tensor    # int32[n_out] quantized values
+    bins: np.ndarray             # float64[L+1]
+    shape: tuple[int, ...]
+    padded: tuple[int, ...]
+    error_bound: float
+    dict_size: int
+    dtype: str = "float32"
+
+    def nbytes(self) -> int:
+        return int(self.entropy.nbytes() + self.outlier_idx.nbytes
+                   + self.outlier_val.nbytes + self.bins.nbytes)
+
+
 def _quantize_stage_impl(coeffs, lmap, bins, shape, dict_size, adapter):
     """``(q, keys, inlier)``: the signed quantized values, the Huffman keys
     (escape key ``dict_size - 1`` for outliers) and the inlier mask.
 
-    Keys are uint32 bits in int32, so the escape test compares as unsigned:
-    a zig-zagged key of 2^31 or more is negative here and escapes too.
+    ``adapter`` binds the ``quantize_map`` kernel.  Keys are uint32 bits in
+    int32, so the escape test compares as unsigned: a zig-zagged key of
+    2^31 or more is negative here and escapes too.
     """
     from ..kernels.quantize_map import ops as quantize_ops  # lazy: layer order
 
@@ -348,6 +379,13 @@ def _quantize_stage_impl(coeffs, lmap, bins, shape, dict_size, adapter):
     inlier = (u >= 0) & (u < escape)
     keys = torch.where(inlier, u, escape)
     return q, keys, inlier
+
+
+def split_outliers(q: torch.Tensor, inlier: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The escaped nodes, stored losslessly (sparse) as MGARD's escape path:
+    their flat int64 indices on the padded grid and their int32 values."""
+    where = torch.nonzero(~inlier.reshape(-1)).reshape(-1)
+    return where, q.reshape(-1)[where].to(torch.int32)
 
 
 def planned_quantize_stage(shape: tuple[int, ...], dict_size: int, adapter: str):
@@ -378,3 +416,59 @@ def planned_dequantize_stage(adapter: str):
         return coeffs.reshape(q.shape), lmap
 
     return stage
+
+
+# ---------------------------------------------------------------------------
+# the standalone end-to-end path (paper Algorithm 1)
+# ---------------------------------------------------------------------------
+
+
+def compress(
+    data: torch.Tensor,
+    error_bound: float,
+    dict_size: int = 4096,
+    chunk_size: int = huffman.DEFAULT_CHUNK,
+    device=None,
+) -> MGARDCompressed:
+    """MGARD-X end-to-end compression (paper Algorithm 1) at the absolute
+    ``error_bound``, where ``data`` lies (other data: on ``device``, by
+    default the card; ``api.place``).  Outliers are stored losslessly
+    (sparse), as MGARD's escape path."""
+    from .api import dtype_name, place  # lazy: api sits above this module
+
+    data = place(data, device)
+    shape = tuple(data.shape)
+    coeffs = decompose(data, shape)
+    padded = tuple(coeffs.shape)
+    bins = level_bins(error_bound, total_levels(padded))
+    quantize = planned_quantize_stage(padded, dict_size, adapters.for_tensor(None, coeffs))
+    q, keys, inlier, _ = quantize(
+        coeffs, level_map(padded, coeffs.device),
+        torch.as_tensor(bins, dtype=torch.float32, device=coeffs.device))
+    out_idx, out_val = split_outliers(q, inlier)
+    enc = huffman.compress(keys, dict_size, chunk_size=chunk_size)
+    return MGARDCompressed(
+        entropy=enc, outlier_idx=out_idx, outlier_val=out_val, bins=bins, shape=shape,
+        padded=padded, error_bound=float(error_bound), dict_size=dict_size,
+        dtype=dtype_name(data),
+    )
+
+
+def decompress(obj: MGARDCompressed) -> torch.Tensor:
+    """Inverse of :func:`compress`, on the stream's device: the outliers are
+    scattered into the decoded keys there, then the planned dequantize
+    stage and the recomposition run there."""
+    from .stages.library import float32_to  # lazy: stages sit above this module
+
+    keys = huffman.decompress(obj.entropy)
+    q = unsigned_to_signed(keys).reshape(-1)  # a new tensor: the scatter is its own
+    q[obj.outlier_idx.to(q.device)] = obj.outlier_val.to(device=q.device, dtype=torch.int32)
+    dequantize = planned_dequantize_stage(adapters.for_tensor(None, q))
+    coeffs, _ = dequantize(q.reshape(obj.padded), level_map(obj.padded, q.device),
+                           torch.as_tensor(obj.bins, dtype=torch.float32, device=q.device))
+    return float32_to(recompose(coeffs, obj.shape), getattr(torch, obj.dtype))
+
+
+def compression_ratio(obj: MGARDCompressed) -> float:
+    orig = math.prod(obj.shape) * torch.empty((), dtype=getattr(torch, obj.dtype)).element_size()
+    return orig / obj.nbytes()

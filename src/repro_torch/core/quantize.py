@@ -43,6 +43,35 @@ def saturating_int32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(small, torch.full_like(q, _INT32_MIN), q)
 
 
+def quantize(x: torch.Tensor, bin_size) -> torch.Tensor:
+    """Uniform scalar quantizer: ``q = int32(round_half_even(x / bin))``.
+
+    ``x`` is taken in its float dtype (an integer or float64 ``x`` as
+    float32, as JAX without 64-bit types takes it), ``bin_size`` a scalar or
+    a tensor that broadcasts against it; subnormals count as zero and the
+    conversion saturates, as on XLA.
+    """
+    dtype = x.dtype if x.dtype in (torch.float16, torch.bfloat16) else torch.float32
+    x = x.to(dtype)
+    b = torch.as_tensor(bin_size, dtype=dtype, device=x.device)
+    if dtype == torch.float32:
+        x, b = flush_subnormal(x), flush_subnormal(b)
+    return saturating_int32(torch.round(x / b).to(torch.float32))
+
+
+def dequantize(q: torch.Tensor, bin_size, dtype=torch.float32) -> torch.Tensor:
+    """``q * bin`` as ``dtype``.
+
+    The reference asks for float64, which JAX without 64-bit types computes
+    in float32: so does the port, with XLA's subnormal flush, then converts
+    to ``dtype`` as XLA converts (``stages.library.float32_to``).
+    """
+    from .stages.library import float32_to  # lazy: layer order
+
+    b = flush_subnormal(torch.as_tensor(bin_size, dtype=torch.float32, device=q.device))
+    return float32_to(flush_subnormal(q.to(torch.float32) * b), dtype)
+
+
 def quantize_by_subset(x: torch.Tensor, subset_ids: torch.Tensor, bins: torch.Tensor) -> torch.Tensor:
     """Per-subset (per-level) quantization via Map&Process → int32."""
     quotient = map_and_process_param(

@@ -309,12 +309,12 @@ class UniformQuantize(Stage):
             state["coeffs"], env.workspace("lmap"), env.operand("bins"),
             self.padded, self.dict_size, env.backend,
         )
-        where = torch.nonzero(~inlier.reshape(-1)).reshape(-1)
+        where, values = mgard.split_outliers(q, inlier)
         kept = where[: self.out_cap]
         out_idx = torch.zeros(self.out_cap, dtype=torch.int32, device=q.device)
         out_val = torch.zeros(self.out_cap, dtype=torch.int32, device=q.device)
         out_idx[: kept.numel()] = kept.to(torch.int32)
-        out_val[: kept.numel()] = q.reshape(-1)[kept]
+        out_val[: kept.numel()] = values[: self.out_cap]
         return {
             "q": q,
             "keys": keys.reshape(-1),

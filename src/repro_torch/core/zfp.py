@@ -24,13 +24,25 @@ the port writes the same garbage.  32-bit words travel as ``int32``.
 
 Header layout per block: 1 × int32 emax.  Payload: ceil(rate·4^d/32) words
 per block.  ``rate`` is bits/value, 1..32.
+
+Besides the block path the codec runs (:func:`compress_field`), the module
+keeps the reference's standalone whole-array API: :func:`compress` /
+:func:`decompress` and :class:`ZFPCompressed`, over :func:`compress_jit` /
+:func:`decompress_jit`, which run where the data lies: the ``zfp_block``
+kernel on a CUDA tensor, the plain block path on a CPU tensor (or where a
+caller passes ``adapter="torch"``).
 """
 
 from __future__ import annotations
 
+import functools
+import math
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
+from . import adapters
 from . import bitstream as bs
 from . import zfp_tables
 from .abstractions import pad_to_blocks, padded_shape
@@ -355,3 +367,93 @@ def decompress_stacked(
                             dims, merged, adapter, perm=perm, scale=scale)
     full = full.reshape((k, merged[0] // k) + tuple(merged[1:]))
     return full[(slice(None),) + tuple(slice(0, d) for d in shape)]
+
+
+# ---------------------------------------------------------------------------
+# the standalone whole-array API (the reference's ``compress``/``decompress``)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class ZFPCompressed:
+    """Fixed-rate ZFP-X stream: per-block emax headers + bitplane payload."""
+
+    payload: torch.Tensor        # int32[n_blocks, words_per_block], the uint32 words' bits
+    emax: torch.Tensor           # int32[n_blocks]
+    shape: tuple[int, ...]       # original array shape
+    rate: int                    # bits per value
+    dtype: str = "float32"
+    layout_version: int = 1
+
+    def nbytes(self) -> int:
+        return int(self.payload.nbytes + self.emax.nbytes)
+
+    @property
+    def dims(self) -> int:
+        return len(self.shape)
+
+
+@functools.lru_cache(maxsize=32)
+def _plain_tables(dims: int, device: torch.device) -> dict[str, torch.Tensor]:
+    from ..kernels.zfp_block import ref as zfp_block_ref  # lazy: layer order
+
+    return zfp_block_ref.default_tables(dims, device)
+
+
+def compress_jit(
+    data: torch.Tensor, rate: int, dims: int, shape: tuple[int, ...],
+    adapter: str | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Whole-array fixed-rate compress: ``((blocks, wpb) int32, (blocks,) int32)``.
+
+    ``adapter`` binds the block stage (:func:`compress_field`): ``cuda`` is
+    the ``zfp_block`` kernel, ``torch`` the plain block path (the
+    reference's inline one); ``None`` is the backend of ``data``'s device,
+    the kernel on a CUDA tensor.  Eager: there is no trace to cache, only
+    the tables.
+    """
+    tables = _plain_tables(dims, data.device)
+    return compress_field(data, rate, dims, tuple(shape), adapters.for_tensor(adapter, data),
+                          perm=tables["perm"], scale=tables["enc_scale"])
+
+
+def decompress_jit(
+    payload: torch.Tensor, emax: torch.Tensor, rate: int, dims: int,
+    shape: tuple[int, ...], adapter: str | None = None,
+) -> torch.Tensor:
+    """Inverse of :func:`compress_jit`: the float32 array of ``shape``."""
+    tables = _plain_tables(dims, payload.device)
+    return decompress_field(payload, emax, rate, dims, tuple(shape),
+                            adapters.for_tensor(adapter, payload),
+                            perm=tables["perm"], scale=tables["dec_scale"])
+
+
+def compress(data: torch.Tensor, rate: int = 16, device=None) -> ZFPCompressed:
+    """Fixed-rate compress an N-d array (N ≤ 4) where it lies (other data:
+    on ``device``, by default the card; ``api.place``): the ``zfp_block``
+    kernel on a CUDA tensor, the plain block path on a CPU tensor."""
+    from .api import dtype_name, place  # lazy: api sits above this module
+
+    data = place(data, device)
+    if data.ndim > 4:
+        raise ValueError("zfp supports 1-4 dimensional data")
+    if not 1 <= rate <= 32:
+        raise ValueError("rate must be in [1, 32] bits/value")
+    payload, emax = compress_jit(data, rate, data.ndim, tuple(data.shape))
+    return ZFPCompressed(payload=payload, emax=emax, shape=tuple(data.shape), rate=rate,
+                         dtype=dtype_name(data))
+
+
+def decompress(z: ZFPCompressed) -> torch.Tensor:
+    """The array of ``z``, on its payload's device (the kernel there where
+    it is a card), in its recorded dtype (converted from float32 as XLA
+    converts)."""
+    from .stages.library import float32_to  # lazy: stages sit above this module
+
+    out = decompress_jit(z.payload, z.emax, z.rate, z.dims, z.shape)
+    return float32_to(out, getattr(torch, z.dtype))
+
+
+def compression_ratio(z: ZFPCompressed) -> float:
+    orig = math.prod(z.shape) * torch.empty((), dtype=getattr(torch, z.dtype)).element_size()
+    return orig / z.nbytes()

@@ -92,6 +92,29 @@ def make_test_mesh(n_data: int = 2, n_model: int = 2, device=None):
     return make_mesh((n_data, n_model), ("data", "model"), device)
 
 
+def make_data_mesh(n: int | None = None, device=None):
+    """One-axis ``("data",)`` mesh over the ranks of the default process
+    group (the execution engine's canonical mesh: independent reductions
+    shard over this axis), starting a world-size-1 group where none exists
+    (:func:`ensure_process_group`).  ``n`` is cut to the world size; a
+    DeviceMesh spans every rank, so a smaller ``n`` raises."""
+    import torch.distributed as dist
+
+    ensure_process_group(device)
+    world = dist.get_world_size()
+    n = world if n is None else min(n, world)
+    if n != world:
+        raise ValueError(f"a data mesh spans every rank: n={n}, world size {world}")
+    return make_mesh((n,), ("data",), device)
+
+
+def data_axis_size(mesh) -> int:
+    """Size of the ``data`` axis (1 when the mesh has none)."""
+    from ..runtime.sharding import mesh_shape
+
+    return int(mesh_shape(mesh).get("data", 1))
+
+
 ENV_HOST_ID = "HPDR_HOST_ID"
 ENV_HOST_COUNT = "HPDR_HOST_COUNT"
 

@@ -272,6 +272,10 @@ class DeviceExecutor:
                     self._prio_entry(priority)["completed"] += 1
                 self._idle.notify_all()
 
+    def map(self, fn: Callable, items: Sequence[Any]) -> list[Any]:
+        """Fan ``fn`` over ``items`` across the device ring; ordered results."""
+        return [s.result() for s in [self.submit(fn, it) for it in items]]
+
     # ------------------------------------------------------------- lifecycle
 
     def stats(self) -> dict[str, int]:

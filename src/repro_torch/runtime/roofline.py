@@ -258,3 +258,24 @@ def _decode_state_bytes(cfg: ModelConfig, batch: int, s: int) -> float:
         m = cfg.mla
         return cfg.n_layers * batch * s * (m.kv_lora_rank + m.qk_rope_head_dim) * 2.0
     return cfg.n_layers * batch * s * cfg.n_kv_heads * hd * 2 * 2.0
+
+
+def device_label(device) -> str:
+    """What a printed rate was measured on: ``"CPU"``, or the card's name
+    and power limit as ``nvidia-smi --query-gpu=name,power.limit`` gives
+    them (a card may run below its 700 W maximum, and slower under load)."""
+    import subprocess
+
+    import torch
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "CPU"
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True, check=True, timeout=60)
+        return out.stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return f"{torch.cuda.get_device_name(index)}, power limit not read"

@@ -1159,3 +1159,110 @@ def test_cuda_placed_train_step_matches_unplaced(cuda_device, policy):
     finally:
         if started:
             dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the standalone ZFP and MGARD API and the parallel abstractions on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [1, 16, 32])
+@pytest.mark.parametrize("shape", [(1001,), (33, 47), (33, 47, 65), (5, 6, 7, 9)])
+def test_cuda_zfp_compress_jit_kernel_matches_plain(cuda_device, shape, rate):
+    """``zfp.compress_jit(adapter="cuda")`` (the kernel) against
+    ``adapter="torch"`` (the plain block path on the same card), and the
+    decode both ways; both against the CPU's plain path.  With no adapter
+    a card tensor goes through the kernel (``zfp.compress``/``decompress``
+    too)."""
+    from repro_torch.core import zfp
+
+    x = torch.from_numpy(np.random.default_rng(rate).normal(size=shape).astype(np.float32))
+    xd = x.to(cuda_device)
+    dims = len(shape)
+    before = kernel.launches["compress_blocks"]
+    p1, e1 = zfp.compress_jit(xd, rate, dims, shape, adapter="cuda")
+    assert kernel.launches["compress_blocks"] == before + 1
+    p0, e0 = zfp.compress_jit(xd, rate, dims, shape, adapter="torch")
+    assert kernel.launches["compress_blocks"] == before + 1
+    pc, ec = zfp.compress_jit(x, rate, dims, shape)
+    assert torch.equal(p1.cpu(), p0.cpu()) and torch.equal(e1.cpu(), e0.cpu())
+    assert torch.equal(p1.cpu(), pc) and torch.equal(e1.cpu(), ec)
+    before = kernel.launches["decompress_blocks"]
+    d1 = zfp.decompress_jit(p1, e1, rate, dims, shape, adapter="cuda")
+    assert kernel.launches["decompress_blocks"] == before + 1
+    d0 = zfp.decompress_jit(p1, e1, rate, dims, shape, adapter="torch")
+    dc = zfp.decompress_jit(pc, ec, rate, dims, shape)
+    assert torch.equal(d1.cpu().view(torch.int32), d0.cpu().view(torch.int32))
+    assert torch.equal(d1.cpu().view(torch.int32), dc.view(torch.int32))
+    before = (kernel.launches["compress_blocks"], kernel.launches["decompress_blocks"])
+    z = zfp.compress(xd, rate)
+    out = zfp.decompress(z)
+    assert (kernel.launches["compress_blocks"], kernel.launches["decompress_blocks"]) \
+        == (before[0] + 1, before[1] + 1)
+    assert torch.equal(z.payload.cpu(), pc) and torch.equal(z.emax.cpu(), ec)
+    assert torch.equal(out.cpu().view(torch.int32), dc.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_cuda_mgard_compress_runs_the_kernels(cuda_device):
+    """``mgard.compress``/``decompress`` of a card tensor quantize and
+    dequantize through the ``quantize_map`` kernels (one launch each), and
+    the round trip stays within its absolute bound (1e-3)."""
+    from repro_torch.core import mgard
+
+    g = np.meshgrid(*[np.linspace(0, 3, 33)] * 3, indexing="ij")
+    x = torch.from_numpy(np.sin(sum(g)).astype(np.float32)).to(cuda_device)
+    before = (quant_kernel.launches["quantize"], quant_kernel.launches["dequantize"])
+    m = mgard.compress(x, 1e-3)
+    out = mgard.decompress(m)
+    assert (quant_kernel.launches["quantize"], quant_kernel.launches["dequantize"]) \
+        == (before[0] + 1, before[1] + 1)
+    assert out.device.type == "cuda" and float((out - x).abs().max()) <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("halo", [0, 1, 2])
+def test_cuda_locality_matches_cpu(cuda_device, halo):
+    """``locality`` on the card against the same call on a CPU copy, bit for
+    bit (an elementwise ``fn``; with a halo, a stencil of shifted slices)."""
+    from repro_torch.core import abstractions as ab
+
+    x = torch.from_numpy(np.random.default_rng(halo).normal(size=(33, 18, 21))
+                         .astype(np.float32))
+
+    def fn(p):
+        if halo == 0:
+            return p * 2.0 + torch.abs(p)
+        inner = p[halo:-halo, halo:-halo, halo:-halo]
+        return inner * 3.0 - p[:-2 * halo, halo:-halo, halo:-halo] + p[halo:-halo, 2 * halo:,
+                                                                        halo:-halo]
+
+    out = ab.locality(x.to(cuda_device), fn, (4, 4, 4), halo=halo)
+    want = ab.locality(x, fn, (4, 4, 4), halo=halo)
+    assert out.device.type == "cuda"
+    assert torch.equal(out.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reverse", [False, True])
+def test_cuda_iterative_matches_cpu(cuda_device, reverse):
+    """``iterative`` as a prefix sum along axis 0 with a tuple carry, on the
+    card against the CPU, bit for bit."""
+    from repro_torch.core import abstractions as ab
+
+    x = torch.from_numpy(np.random.default_rng(7).normal(size=(40, 17, 9)).astype(np.float32))
+
+    def step(carry, s):
+        total, peak = carry
+        total = total + s
+        return (total, torch.maximum(peak, total)), total
+
+    def run(t):
+        return ab.iterative(t, step, (torch.zeros_like(t[0]), torch.full_like(t[0], -1e30)), 0,
+                            reverse=reverse)
+
+    (ct, cp), cy = run(x.to(cuda_device))
+    (wt, wp), wy = run(x)
+    for got, want in ((ct, wt), (cp, wp), (cy, wy)):
+        assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))

@@ -138,7 +138,7 @@ def test_planned_executables_match_reference():
     padded, dict_size = (9, 9, 9), 64
     rng = np.random.default_rng(3)
     coeffs = (rng.normal(size=padded) * 4).astype(np.float32)
-    lmap = tmgard.level_map(padded)
+    lmap = tmgard.level_map(padded).numpy()
     bins = np.asarray(tmgard.level_bins(0.05, tmgard.total_levels(padded)), np.float32)
     tq = tmgard.planned_quantize_stage(padded, dict_size, "torch")
     jq = jmgard.planned_quantize_stage(padded, dict_size, "xla")
