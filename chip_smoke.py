@@ -260,7 +260,13 @@ any fails:
      ``mgard.compress``/``decompress`` at the absolute bound 1e-2 (stream ==
      the ``mgard`` codec container, decode == the codec's, within the
      bound); ``ExecutionEngine(mesh=make_data_mesh())`` against the
-     ``devices=`` engine; then the four examples through their ``main``
+     ``devices=`` engine; the reference's API as the port now takes it (a
+     64 MiB cut through the single-phase ``ChunkedPipeline(compress_fn)``
+     == the two-phase stream's chunks, ``zfp``/``mgard.compress`` of a
+     numpy float64 array recording "float64", ``pad_to_blocks`` in every
+     mode and ``iterative`` over an empty axis card == CPU,
+     ``ExecutionEngine(make_data_mesh())`` given positionally); then the
+     four examples through their ``main``
      (``examples/*_torch.py``: quickstart at 64^3, serve_batched and
      compressed_checkpoint_io at the smoke cuts, train_lm ``--preset
      small`` for 200 steps and ``--preset 100m`` for 20), every launch
@@ -463,6 +469,12 @@ ABS_MGARD_EB = 1e-2                 # mgard.compress's absolute bound on the 512
 ABS_TIMED_RUNS = 5
 EXAMPLE_EDGE = 64                   # quickstart's field, the reference's n
 EXAMPLE_TRAIN = {"small": 200, "100m": 20}   # the examples' --steps: the reference's default, a cut
+GAP_CUT_PLANES = 64                 # the single-phase stream's cut: 64 x 512 x 512 float32, 64 MiB
+GAP_CHUNK_ELEMS = 4 << 20           # its chunking: four (64, 128, 512) chunks along axis 1
+GAP_WIDE_EDGE = 65                  # the numpy float64 field of the standalone API
+GAP_PAD_SHAPES = ((61, 62, 63), (1, 2, 5))   # padded by 3, 2 and 1; dims of 1 and 2
+PAD_MODES = ("constant", "edge", "reflect", "symmetric", "wrap", "maximum", "minimum", "mean",
+             "median", "linear_ramp", "empty")
 HELD_KERNELS = ("zfp_block.compress_blocks", "zfp_block.decompress_blocks", "histogram.histogram",
                 "huffman_encode.encode_lookup", "huffman_decode.decode_chunks",
                 "quantize_map.quantize", "quantize_map.dequantize", "tridiag.solve_mass")
@@ -2287,7 +2299,7 @@ def phase_pytree(device, api) -> dict:
 
     layer0 = {"layers": [{k: v.cpu() for k, v in tree["layers"][0].items()}]}
     t0 = time.perf_counter()
-    with engine_mod.ExecutionEngine([torch.device("cpu")], backend="torch") as cpu_eng:
+    with engine_mod.ExecutionEngine(devices=[torch.device("cpu")], backend="torch") as cpu_eng:
         cflat, _ = cpu_eng.compress_pytree(layer0)
     cpu_s = time.perf_counter() - t0
     for k, v in cflat.items():
@@ -2658,7 +2670,7 @@ def stream_rows(leaf, tuned: dict, device) -> tuple[int, list[int]]:
     from repro_torch.core import pipeline as pl
 
     axis = max(range(leaf.ndim), key=lambda a: leaf.shape[a])
-    pipe = pl.ChunkedPipeline(compute_fn=None, finish_fn=None, mode="fixed",
+    pipe = pl.ChunkedPipeline(lambda chunk: chunk, mode="fixed",
                               c_fixed_elems=tuned["chunk_elems"], devices=[device])
     return axis, pipe._row_schedule(leaf, axis)
 
@@ -5784,6 +5796,199 @@ def phase_abstractions(device, api, card: str) -> dict:
     return {"calls": calls, "errs": errs, "times": times}
 
 
+def phase_api_gaps(device, api, card: str) -> dict:
+    """Phases 3 and 5, the reference's API as the port now takes it: a 64 MiB
+    cut of the 512^3 field from host memory through the single-phase
+    ``ChunkedPipeline(lambda c: api.compress(c, "zfp", rate=16), mode=
+    "fixed", ...)`` (chunk bytes == the two-phase stream's at the same
+    chunking, ``decompress_chunked`` == the stream's decode); standalone
+    ``zfp.compress``/``mgard.compress`` of a numpy float64 array (the record
+    "float64" as on the CPU, the ratio twice the float32 input's, the
+    payload, stream and decode == the float32 input's); ``pad_to_blocks``
+    in every mode on card tensors == on the CPU; ``iterative`` over an axis
+    of length 0 (both directions, axis 0 and 1) == on the CPU; and
+    ``ExecutionEngine(make_data_mesh())`` given positionally (a world-size-1
+    NCCL group, ended after), its bytes == the ``devices=`` engine's, a
+    device list there raising ``TypeError``.  Every launch counted exactly
+    and held to its plain version; the phase's seconds printed."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import abstractions as ab
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.core import mgard, zfp
+    from repro_torch.core import pipeline as pl
+
+    t_phase = time.perf_counter()
+    calls, errs = {}, {}
+    cpu = torch.device("cpu")
+
+    def same(what: str, a, b) -> None:
+        if not same_bits(a, b):
+            raise PhaseError(f"{what}: the results differ")
+
+    # the single-phase pipeline against the two-phase stream on the same chunking
+    host = main_field(FIELD_EDGE, device)[:GAP_CUT_PLANES].cpu()
+    pipe = pl.ChunkedPipeline(lambda c: api.compress(c, "zfp", rate=RATE), mode="fixed",
+                              c_fixed_elems=GAP_CHUNK_ELEMS, devices=[device])
+    n_chunks = -(-host.numel() // GAP_CHUNK_ELEMS)
+    one, _ = held_run("ChunkedPipeline(compress_fn).run (64 MiB)", lambda: pipe.run(host), calls,
+                      errs, want={"zfp_block.compress_blocks": n_chunks})
+    stream = api.CompressorStream("zfp", mode="fixed", c_fixed_elems=GAP_CHUNK_ELEMS, rate=RATE)
+    two, _ = held_run("CompressorStream.compress (64 MiB)", lambda: stream.compress(host), calls,
+                      errs, want={"zfp_block.compress_blocks": n_chunks})
+    if len(one.chunks) != n_chunks or (one.axis, one.boundaries) != (two.axis, two.boundaries):
+        raise PhaseError(f"single-phase pipeline: {len(one.chunks)} chunks at {one.boundaries} "
+                         f"on axis {one.axis}, the stream's {two.boundaries} on axis {two.axis}")
+    for i, (a, b) in enumerate(zip(one.chunks, two.chunks)):
+        if a.to_bytes() != b.to_bytes():
+            raise PhaseError(f"single-phase pipeline: chunk {i} differs from the two-phase "
+                             "stream's")
+    out, _ = held_run("decompress_chunked (64 MiB)",
+                      lambda: pl.decompress_chunked(one, api.decompress), calls, errs,
+                      want={"zfp_block.decompress_blocks": n_chunks})
+    same("decompress_chunked vs the stream's decode", out,
+         api.CompressorStream.decompress(two))
+    err = float((out.cpu() - host).abs().max()) / float(host.max() - host.min())
+    if not err <= ERR_TOL:
+        raise PhaseError(f"single-phase pipeline: error {err} of the value range > {ERR_TOL}")
+    log(f"phase 3 ok: ChunkedPipeline(compress_fn) on a {tuple(host.shape)} cut: {n_chunks} "
+        f"chunks on axis {one.axis} == the two-phase stream's bytes, decode == the stream's, "
+        f"error {err:.2e} of the range")
+    del host, one, two, out, pipe, stream
+
+    # the standalone API on a numpy float64 array: the record keeps float64
+    x64 = np.random.default_rng(SEED + 301).normal(size=(GAP_WIDE_EDGE,) * 3) * 10
+    x32 = x64.astype(np.float32)
+    z64, _ = held_run("zfp.compress (float64 array)", lambda: zfp.compress(x64, RATE), calls,
+                      errs, want={"zfp_block.compress_blocks": 1})
+    z32, zcpu = zfp.compress(x32, RATE), zfp.compress(x64, RATE, device=cpu)
+    same("zfp.compress payload, float64 vs float32 input", z64.payload, z32.payload)
+    same("zfp.compress emax, float64 vs float32 input", z64.emax, z32.emax)
+    zr = zfp.compression_ratio(z64)
+    if (z64.dtype, zcpu.dtype) != ("float64", "float64") or not (
+            zr == zfp.compression_ratio(zcpu) == 2 * zfp.compression_ratio(z32)):
+        raise PhaseError(f"zfp.compress of float64: record {z64.dtype} (CPU {zcpu.dtype}), "
+                         f"ratio {zr} (CPU {zfp.compression_ratio(zcpu)}, float32 input "
+                         f"{zfp.compression_ratio(z32)})")
+    d64, _ = held_run("zfp.decompress (float64 record)", lambda: zfp.decompress(z64), calls,
+                      errs, want={"zfp_block.decompress_blocks": 1})
+    same("zfp.decompress of the float64 record vs the float32 input's", d64, zfp.decompress(z32))
+    shape = tuple(x64.shape)
+    solves = mgard_solves(shape)
+    m64, _ = held_run("mgard.compress (float64 array)",
+                      lambda: mgard.compress(x64, ABS_MGARD_EB), calls, errs,
+                      want={"tridiag.solve_mass": solves, "quantize_map.quantize": 1,
+                            "histogram.histogram": 1, "huffman_encode.encode_lookup": 1})
+    m32, mcpu = mgard.compress(x32, ABS_MGARD_EB), mgard.compress(x64, ABS_MGARD_EB, device=cpu)
+    same("mgard.compress words, float64 vs float32 input", m64.entropy.words, m32.entropy.words)
+    mr, mcr = mgard.compression_ratio(m64), mgard.compression_ratio(mcpu)
+    # the CPU runs the plain versions: its stream may differ by a word where a
+    # coefficient rounds the other way, so its ratio is held within 1e-3
+    if (m64.dtype, mcpu.dtype) != ("float64", "float64") or mr != 2 * mgard.compression_ratio(
+            m32) or not abs(mr - mcr) <= 1e-3 * mcr:
+        raise PhaseError(f"mgard.compress of float64: record {m64.dtype} (CPU {mcpu.dtype}), "
+                         f"ratio {mr} (CPU {mcr}, float32 input {mgard.compression_ratio(m32)})")
+    o64, _ = held_run("mgard.decompress (float64 record)", lambda: mgard.decompress(m64), calls,
+                      errs, want={"tridiag.solve_mass": solves, "quantize_map.dequantize": 1,
+                                  "huffman_decode.decode_chunks": 1})
+    same("mgard.decompress of the float64 record vs the float32 input's", o64,
+         mgard.decompress(m32))
+    merr = float((o64.cpu() - torch.from_numpy(x32)).abs().max())
+    if o64.dtype != torch.float32 or not merr <= ABS_MGARD_EB:
+        raise PhaseError(f"mgard.decompress of float64: {o64.dtype}, max |error| {merr}")
+    log(f"phase 3 ok: zfp/mgard.compress of a numpy float64 {shape} array record 'float64' as "
+        f"on the CPU, ratios {zr:.4f} / {mr:.4f} (CPU {mcr:.4f}) twice the float32 input's, "
+        f"payload, stream and float32 decode == the float32 input's; mgard max |error| "
+        f"{merr:.3e}")
+
+    # pad_to_blocks in every mode and iterative over an empty axis: card == CPU
+    def pads_and_scans():
+        rng = np.random.default_rng(SEED + 302)
+        inputs = []
+        for shp in GAP_PAD_SHAPES:
+            inputs.append(torch.from_numpy(rng.normal(size=shp).astype(np.float32) * 100))
+            inputs.append(torch.from_numpy(rng.integers(-1000, 1000, shp).astype(np.int32)))
+        for x in inputs:
+            for mode in PAD_MODES:
+                got = ab.pad_to_blocks(x.to(device), ABS_BLOCK, mode=mode)
+                if got.device != torch.device(device):
+                    raise PhaseError(f"pad_to_blocks({mode!r}) left the card")
+                same(f"pad_to_blocks({mode!r}) {tuple(x.shape)} {x.dtype}, card vs CPU", got,
+                     ab.pad_to_blocks(x, ABS_BLOCK, mode=mode))
+
+        def step(carry, s):
+            total, count = carry
+            return (total + s, count + 1), total * 2.0 + s
+
+        for axis in (0, 1):
+            for reverse in (False, True):
+                shp = [64, 64, 64]
+                shp[axis] = 0
+                rest = tuple(n for a, n in enumerate(shp) if a != axis)
+                init = (torch.arange(math.prod(rest), dtype=torch.float32).reshape(rest),
+                        torch.zeros(()))
+                (tc, nc), yc = ab.iterative(torch.zeros(shp), step, init, axis, reverse=reverse)
+                dev_init = tuple(t.to(device) for t in init)
+                (td, nd), yd = ab.iterative(torch.zeros(shp, device=device), step, dev_init,
+                                            axis, reverse=reverse)
+                if td is not dev_init[0] or nd is not dev_init[1] or yd.device != td.device:
+                    raise PhaseError("iterative over an empty axis: the carry or ys moved")
+                same(f"iterative over an empty axis {axis}, card vs CPU", yd, yc)
+                if tuple(yd.shape) != tuple(shp):
+                    raise PhaseError(f"iterative over an empty axis: ys {tuple(yd.shape)}")
+        return len(inputs)
+
+    n_inputs, _ = held_run("pad_to_blocks and iterative (no kernel)", pads_and_scans, calls, errs,
+                           want={})
+    log(f"phase 3 ok: pad_to_blocks in {len(PAD_MODES)} modes on {n_inputs} card tensors "
+        f"({GAP_PAD_SHAPES}, float32 and int32) == the CPU's bit for bit; iterative over an "
+        "empty axis (axes 0 and 1, both directions) == the CPU's, carry unchanged")
+
+    # the engine given its mesh positionally, the reference's order
+    try:
+        engine_mod.ExecutionEngine([device])
+    except TypeError as e:
+        if "devices=" not in str(e):
+            raise PhaseError(f"ExecutionEngine([device]) raised {e!r}, naming no devices=")
+    else:
+        raise PhaseError("ExecutionEngine([device]) took a device list as its mesh")
+    started = not dist.is_initialized()
+    mesh = engine_mod.make_data_mesh()
+    g = torch.Generator(device=device).manual_seed(SEED + 303)
+    tree = {"w": torch.randn((2048, 2048), generator=g, device=device) * 0.02,
+            "b": torch.ones(2048, device=device)}
+    try:
+        with engine_mod.ExecutionEngine(mesh) as on_mesh, \
+                engine_mod.ExecutionEngine(devices=[device]) as plain_eng:
+            if on_mesh.mesh is not mesh or on_mesh.devices != [device]:
+                raise PhaseError(f"ExecutionEngine(mesh): mesh {on_mesh.mesh}, ring "
+                                 f"{on_mesh.devices}")
+            (fm, _st), _ = held_run("ExecutionEngine(mesh) positional .compress_pytree",
+                                    lambda: on_mesh.compress_pytree(tree), calls, errs,
+                                    must=("zfp_block.compress_blocks",))
+            fd, _ = plain_eng.compress_pytree(tree)
+    finally:
+        if started:
+            dist.destroy_process_group()
+    for key, cm in fm.items():
+        equal = (cm.to_bytes() == fd[key].to_bytes()) if hasattr(cm, "to_bytes") \
+            else same_bits(cm, fd[key])
+        if not equal:
+            raise PhaseError(f"ExecutionEngine(mesh): leaf {key} differs from the devices= "
+                             "engine's")
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 3 ok: ExecutionEngine(make_data_mesh()) given positionally: compress_pytree of "
+        f"{len(fm)} leaves == the devices= engine's bytes; a device list there raises TypeError")
+    log(f"phase 5: {card}: the closed API gaps took {seconds:.2f} s (host wall, the plain "
+        f"versions' runs included); launches "
+        f"{json.dumps({k: {n: c for n, c in v.items() if c} for k, v in calls.items()})}")
+    del tree, fm, fd
+    torch.cuda.empty_cache()
+    return {"calls": calls, "errs": errs, "seconds": seconds}
+
+
 def load_example(name: str):
     """``examples/<name>_torch.py`` of this checkout as a module."""
     import importlib.util
@@ -6061,6 +6266,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     abst = phase_abstractions(device, api, card)
     lap("phase 3 and 5, abstractions and the standalone codec API")
+    gaps = phase_api_gaps(device, api, card)
+    lap("phase 3 and 5, the closed API gaps")
     exs = phase_examples(device, api, card)
     lap("phase 3 and 5, examples")
     calibrate.set_calibration_dir(None)
@@ -6079,7 +6286,7 @@ def main() -> int:
                  "recurrentgemma-9b serving": hyb_serve, "recurrentgemma-9b training": hyb_train,
                  "hybrid smoke cut": hyb_smoke, "seamless-m4t-medium": ed,
                  "encdec card vs CPU": ed_cpu, "abstractions and codec API": abst,
-                 "examples": exs}
+                 "closed API gaps": gaps, "examples": exs}
     for k in kernels + huff_kernels + mgard_kernels:
         for run in new_paths.values():
             k["launches"] += sum(counts[k["name"]] for counts in run["calls"].values())

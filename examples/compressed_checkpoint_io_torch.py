@@ -61,7 +61,7 @@ def main(device=None, params=None) -> dict:
     replaces the weights drawn from seed 0.  Returns what it prints."""
     cpu = device is not None and torch.device(device).type == "cpu"
     device = torch.device("cpu") if cpu else adapters.device_for(adapters.AUTO)
-    eng = engine_mod.ExecutionEngine([device], backend=adapters.TORCH) if cpu else None
+    eng = engine_mod.ExecutionEngine(devices=[device], backend=adapters.TORCH) if cpu else None
     label = device_label(device)
     cfg = get_config("qwen1.5-4b").smoke()
     model = build_model(cfg)

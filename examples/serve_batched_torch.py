@@ -29,7 +29,7 @@ def main(device=None, params=None) -> dict:
     cpu = device is not None and torch.device(device).type == "cpu"
     device = torch.device("cpu") if cpu else adapters.device_for(adapters.AUTO)
     # parking runs on an engine of the serving device (the default one wants a card)
-    eng = engine_mod.ExecutionEngine([device], backend=adapters.TORCH) if cpu else None
+    eng = engine_mod.ExecutionEngine(devices=[device], backend=adapters.TORCH) if cpu else None
     cfg = get_config("qwen2.5-3b").smoke()
     model = build_model(cfg)
     if params is None:

@@ -69,6 +69,13 @@ def dtype_name(data: Any) -> str:
     return _NP_NAMES[dtype] if isinstance(dtype, torch.dtype) else str(np.dtype(dtype))
 
 
+def canonical_dtype(name: str) -> torch.dtype:
+    """The torch dtype that an array recorded as numpy dtype ``name`` comes
+    back in: float64, int64 and uint64 as their 32-bit types, as the
+    reference's ``astype`` gives them without 64-bit types."""
+    return getattr(torch, _CANONICAL.get(name, name))
+
+
 def as_tensor(data: Any) -> torch.Tensor:
     """``data`` as a tensor with the reference's canonical dtype.
 

@@ -25,7 +25,7 @@ and an engine built on a DeviceMesh takes its device ring from the mesh's
 ``data`` axis (:func:`data_devices`, :func:`make_data_mesh`)::
 
     eng = ExecutionEngine(devices=[torch.device("cpu")], backend="torch")
-    eng = ExecutionEngine(mesh=make_data_mesh())   # a ("data",) mesh over the card
+    eng = ExecutionEngine(make_data_mesh())   # a ("data",) mesh over the card
     flat, stats = eng.compress_pytree(params)
     sub = eng.submit_encode(spec, x)      # async single reduction
     c = sub.result()
@@ -93,17 +93,31 @@ def _nbytes(arr: Any) -> int:
 
 
 class ExecutionEngine:
-    """Plan-bound, device-fanned, async reduction executor."""
+    """Plan-bound, device-fanned, async reduction executor.
+
+    The parameters are the reference's, in its order; ``devices=``
+    (keyword only) gives the device ring without a mesh.  The first
+    positional argument is a DeviceMesh: a list of devices there raises
+    ``TypeError`` rather than being read as a mesh.
+    """
 
     def __init__(
         self,
-        devices: Sequence[Any] | None = None,
+        mesh=None,
         backend: str = adapters.AUTO,
         max_workers: int | None = None,
         io_workers: int = 1,
         topology=None,
-        mesh=None,
+        *,
+        devices: Sequence[Any] | None = None,
     ):
+        if mesh is not None:
+            from torch.distributed.device_mesh import DeviceMesh  # lazy: distributed
+
+            if not isinstance(mesh, DeviceMesh):
+                raise TypeError(
+                    f"ExecutionEngine's first argument is a DeviceMesh, got "
+                    f"{type(mesh).__name__}; pass a device list as devices=")
         self.backend = adapters.resolve_backend(backend)
         want = "cuda" if self.backend == adapters.CUDA else "cpu"
         #: the DeviceMesh whose ``data`` axis gave the device ring, if any (an

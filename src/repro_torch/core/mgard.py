@@ -433,9 +433,11 @@ def compress(
     """MGARD-X end-to-end compression (paper Algorithm 1) at the absolute
     ``error_bound``, where ``data`` lies (other data: on ``device``, by
     default the card; ``api.place``).  Outliers are stored losslessly
-    (sparse), as MGARD's escape path."""
+    (sparse), as MGARD's escape path.  The record keeps the input's dtype,
+    a 64-bit one too, as :func:`repro_torch.core.zfp.compress` does."""
     from .api import dtype_name, place  # lazy: api sits above this module
 
+    dtype = dtype_name(data)
     data = place(data, device)
     shape = tuple(data.shape)
     coeffs = decompose(data, shape)
@@ -450,14 +452,16 @@ def compress(
     return MGARDCompressed(
         entropy=enc, outlier_idx=out_idx, outlier_val=out_val, bins=bins, shape=shape,
         padded=padded, error_bound=float(error_bound), dict_size=dict_size,
-        dtype=dtype_name(data),
+        dtype=dtype,
     )
 
 
 def decompress(obj: MGARDCompressed) -> torch.Tensor:
     """Inverse of :func:`compress`, on the stream's device: the outliers are
     scattered into the decoded keys there, then the planned dequantize
-    stage and the recomposition run there."""
+    stage and the recomposition run there; a 64-bit record comes back as
+    its 32-bit type (``api.canonical_dtype``)."""
+    from .api import canonical_dtype  # lazy: api sits above this module
     from .stages.library import float32_to  # lazy: stages sit above this module
 
     keys = huffman.decompress(obj.entropy)
@@ -466,7 +470,7 @@ def decompress(obj: MGARDCompressed) -> torch.Tensor:
     dequantize = planned_dequantize_stage(adapters.for_tensor(None, q))
     coeffs, _ = dequantize(q.reshape(obj.padded), level_map(obj.padded, q.device),
                            torch.as_tensor(obj.bins, dtype=torch.float32, device=q.device))
-    return float32_to(recompose(coeffs, obj.shape), getattr(torch, obj.dtype))
+    return float32_to(recompose(coeffs, obj.shape), canonical_dtype(obj.dtype))
 
 
 def compression_ratio(obj: MGARDCompressed) -> float:

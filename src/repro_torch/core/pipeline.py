@@ -416,10 +416,13 @@ class ChunkedPipeline:
     serialization, which also bounds host and device memory and frees the
     slot's buffer.
 
-    ``compute_fn(dev_chunk, slot)`` must return only once its device work is
-    done (honest lane timings depend on it); ``finish_fn(payload, slot)``
-    runs on the io lane.  (The reference also takes a single-phase
-    ``compress_fn``; no caller of the port needs it.)  ``window=1`` is the
+    Two-phase codecs pass ``compute_fn(dev_chunk, slot)``, which must
+    return only once its device work is done (honest lane timings depend on
+    it), and ``finish_fn(payload, slot)``, which runs on the io lane.  The
+    single-phase ``compress_fn(dev_chunk) -> container`` is wrapped into the
+    two: the compute lane calls it and waits for its stream, the io lane
+    moves every tensor of the container's ``arrays`` to the host.  ``slot``
+    is the chunk's window slot (``idx % window``).  ``window=1`` is the
     fully serial schedule.
 
     ``devices`` is the placement ring (chunk *i* on ``devices[i % n]``);
@@ -437,6 +440,7 @@ class ChunkedPipeline:
 
     def __init__(
         self,
+        compress_fn: Callable | None = None,   # (tensor chunk) -> Compressed
         mode: str = "adaptive",
         c_init_elems: int = 1 << 20,
         c_fixed_elems: int = 8 << 20,
@@ -445,13 +449,16 @@ class ChunkedPipeline:
         theta: chunk_model.ThetaModel | None = None,
         devices: Sequence | None = None,
         *,
-        compute_fn: Callable,
-        finish_fn: Callable,
+        compute_fn: Callable | None = None,
+        finish_fn: Callable | None = None,
         executor=None,
         window: int | str = 2,
         chunk_size: int | str | None = None,
         tuner: Callable | None = None,
     ):
+        if compress_fn is None and compute_fn is None:
+            raise ValueError("need compress_fn or compute_fn/finish_fn")
+        self.compress_fn = compress_fn
         self.compute_fn = compute_fn
         self.finish_fn = finish_fn
         self.mode = mode
@@ -532,6 +539,25 @@ class ChunkedPipeline:
             rows.append(n - acc)
         return rows
 
+    # -- phase wrappers ------------------------------------------------------
+
+    def _single_phase_compute(self, chunk: torch.Tensor, slot: int):
+        del slot
+        comp = self.compress_fn(chunk)
+        if chunk.is_cuda:  # the lane's span ends with the chunk's device work
+            torch.cuda.current_stream(chunk.device).synchronize()
+        return comp
+
+    @staticmethod
+    def _single_phase_finish(comp, slot: int):
+        del slot
+        # D2H: the container's tensors on the host
+        arrays = getattr(comp, "arrays", {})
+        for k, v in list(arrays.items()):
+            if isinstance(v, torch.Tensor):
+                arrays[k] = v.cpu()
+        return comp
+
     # -- the scheduler -------------------------------------------------------
 
     def run(self, data: Any) -> ChunkedResult:
@@ -549,7 +575,8 @@ class ChunkedPipeline:
             self.window = 1
         ring = self.devices or [adapters.device_for(adapters.AUTO)]
         stagers = {d: PinnedStager(d, self.window) for d in dict.fromkeys(ring)}
-        compute_fn, finish_fn = self.compute_fn, self.finish_fn
+        compute_fn = self.compute_fn or self._single_phase_compute
+        finish_fn = self.finish_fn or self._single_phase_finish
 
         ex = self.executor
         transient = ex is None

@@ -24,6 +24,8 @@ from .abstractions import map_and_process_param
 _FLT_MIN = torch.finfo(torch.float32).tiny
 _INT32_MAX = 2 ** 31 - 1
 _INT32_MIN = -(2 ** 31)
+# the reference runs JAX without 64-bit types: a 64-bit dtype computes as its 32-bit one
+_NARROW = {torch.float64: torch.float32, torch.int64: torch.int32, torch.uint64: torch.uint32}
 
 
 def flush_subnormal(x: torch.Tensor) -> torch.Tensor:
@@ -81,13 +83,22 @@ def quantize_by_subset(x: torch.Tensor, subset_ids: torch.Tensor, bins: torch.Te
     return saturating_int32(torch.round(quotient))
 
 
-def dequantize_by_subset(q: torch.Tensor, subset_ids: torch.Tensor, bins: torch.Tensor) -> torch.Tensor:
-    """``float32(q) * bins[level]`` (a subnormal bin counts as zero)."""
+def dequantize_by_subset(
+    q: torch.Tensor, subset_ids: torch.Tensor, bins: torch.Tensor, dtype=torch.float32
+) -> torch.Tensor:
+    """``dtype(q) * dtype(bins)[level]``, computed in ``dtype``.
+
+    float32 and bfloat16 count a subnormal bin or product as zero (XLA
+    computes both with float32's denormals-are-zero; float16's subnormals
+    are normal there); a 64-bit ``dtype`` computes in its 32-bit type, as
+    JAX without 64-bit types does.
+    """
+    dtype = _NARROW.get(dtype, dtype)
+    flush = flush_subnormal if dtype in (torch.float32, torch.bfloat16) else (lambda x: x)
     out = map_and_process_param(
-        q.to(torch.float32), subset_ids, lambda v, b: v * b,
-        flush_subnormal(bins.to(torch.float32)),
+        q.to(dtype), subset_ids, lambda v, b: v * b, flush(bins.to(dtype)),
     )
-    return flush_subnormal(out)
+    return flush(out)
 
 
 def signed_to_unsigned(q: torch.Tensor) -> torch.Tensor:

@@ -431,9 +431,12 @@ def decompress_jit(
 def compress(data: torch.Tensor, rate: int = 16, device=None) -> ZFPCompressed:
     """Fixed-rate compress an N-d array (N ≤ 4) where it lies (other data:
     on ``device``, by default the card; ``api.place``): the ``zfp_block``
-    kernel on a CUDA tensor, the plain block path on a CPU tensor."""
+    kernel on a CUDA tensor, the plain block path on a CPU tensor.  The
+    record keeps the input's dtype, a 64-bit one too (the reference's
+    ``str(data.dtype)``), though its values are compressed as float32."""
     from .api import dtype_name, place  # lazy: api sits above this module
 
+    dtype = dtype_name(data)
     data = place(data, device)
     if data.ndim > 4:
         raise ValueError("zfp supports 1-4 dimensional data")
@@ -441,17 +444,18 @@ def compress(data: torch.Tensor, rate: int = 16, device=None) -> ZFPCompressed:
         raise ValueError("rate must be in [1, 32] bits/value")
     payload, emax = compress_jit(data, rate, data.ndim, tuple(data.shape))
     return ZFPCompressed(payload=payload, emax=emax, shape=tuple(data.shape), rate=rate,
-                         dtype=dtype_name(data))
+                         dtype=dtype)
 
 
 def decompress(z: ZFPCompressed) -> torch.Tensor:
     """The array of ``z``, on its payload's device (the kernel there where
     it is a card), in its recorded dtype (converted from float32 as XLA
-    converts)."""
+    converts; a 64-bit record as its 32-bit type, ``api.canonical_dtype``)."""
+    from .api import canonical_dtype  # lazy: api sits above this module
     from .stages.library import float32_to  # lazy: stages sit above this module
 
     out = decompress_jit(z.payload, z.emax, z.rate, z.dims, z.shape)
-    return float32_to(out, getattr(torch, z.dtype))
+    return float32_to(out, canonical_dtype(z.dtype))
 
 
 def compression_ratio(z: ZFPCompressed) -> float:

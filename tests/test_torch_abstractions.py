@@ -6,13 +6,19 @@ Inputs come from numpy with a seed and go through ``repro.core.abstractions``
 ``repro_torch``.  Tolerance: none where ``fn`` is elementwise (outputs
 compared as bit patterns); 2 ulps of float32 (``rtol=2.4e-7`` of the largest
 magnitude) where ``fn`` reduces (a mean, a sum), because the two libraries
-sum in another order.
+sum in another order.  ``pad_to_blocks`` is held to ``jnp.pad`` bit for bit
+in every mode, apart from ``mean`` on float32: there XLA sums an axis longer
+than 32 in another order and folds the mean of one padded dim into the sum
+of the next, so there within the same 2 ulps; ``empty`` leaves the pad unset, so
+only its shape and the original region are compared.  ``iterative`` over an
+axis of length 0 is held to ``lax.scan``.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from repro.core import abstractions as jab
@@ -146,6 +152,116 @@ def test_iterative_reverse_tuple_carry():
     _same(tn, jn)
     _same(ty, jy)
     np.testing.assert_array_equal(ty[-1].numpy(), x[-1])  # the first step visited
+
+
+def _empty_step(carry, s):
+    total, count = carry
+    return (total + s, count + 1), total * 2.0 + s
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_iterative_over_an_empty_axis_is_lax_scan_s(axis, reverse):
+    """No slice: the carry (a tuple here) comes back as given and the ys are
+    an empty stack of the step's slice shape on ``axis``."""
+    shape = [3, 4, 2]
+    shape[axis] = 0
+    x = np.zeros(shape, np.float32)
+    rest = tuple(d for a, d in enumerate(shape) if a != axis)
+    init = (np.arange(np.prod(rest), dtype=np.float32).reshape(rest), np.float32(2))
+    (tt, tn), ty = tab.iterative(torch.from_numpy(x), _empty_step,
+                                 (torch.from_numpy(init[0]), torch.tensor(init[1])), axis,
+                                 reverse=reverse)
+    (jt, jn), jy = jab.iterative(jnp.asarray(x), _empty_step,
+                                 (jnp.asarray(init[0]), jnp.asarray(init[1])), axis,
+                                 reverse=reverse)
+    _same(tt, jt)
+    _same(tn, jn)
+    assert tuple(ty.shape) == jy.shape and ty.dtype == torch.float32 and jy.dtype == jnp.float32
+    assert tuple(ty.shape) == tuple(shape)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_iterative_over_an_empty_axis_dict_ys(reverse):
+    """A dict of ys of two dtypes over an empty axis 1, against ``lax.scan``
+    with its ys moved back (the reference's ``moveaxis`` takes one array)."""
+    x = np.zeros((3, 0, 2), np.float32)
+
+    def step(to_int):
+        return lambda c, s: (c + s, {"sum": c + s, "key": to_int(s), "row": s[0]})
+
+    tc, ty = tab.iterative(torch.from_numpy(x), step(lambda s: s.to(torch.int32)),
+                           torch.ones(3, 2), 1, reverse=reverse)
+    jc, jy = jax.lax.scan(step(lambda s: s.astype(jnp.int32)), jnp.ones((3, 2)),
+                          jnp.moveaxis(jnp.asarray(x), 1, 0), reverse=reverse)
+    jy = jax.tree.map(lambda a: jnp.moveaxis(a, 0, 1), jy)
+    _same(tc, jc)
+    assert set(ty) == set(jy) == {"sum", "key", "row"}
+    for k in ty:
+        assert tuple(ty[k].shape) == jy[k].shape, k
+        assert str(ty[k].dtype) == f"torch.{jy[k].dtype}", k
+    assert tuple(ty["sum"].shape) == (3, 0, 2) and tuple(ty["row"].shape) == (2, 0)
+
+
+# ---------------------------------------------------------------------------
+# pad_to_blocks
+# ---------------------------------------------------------------------------
+
+PAD_MODES = ["constant", "edge", "reflect", "symmetric", "wrap", "maximum", "minimum", "mean",
+             "median", "linear_ramp", "empty"]
+# dims of 1 and 2 padded by up to 3 (the reflections repeat), 1-D to 4-D,
+# an axis past 32, a dim left as it is
+PAD_CASES = [((1,), (4,)), ((2,), (4,)), ((37,), (8,)), ((10, 7), (4, 4)), ((1, 2), (4, 4)),
+             ((3, 13), (2, 5)), ((12, 6), (4, 4)), ((9, 10, 11), (4, 4, 4)),
+             ((2, 5, 1), (4, 4, 4)), ((5, 6, 7, 9), (4, 4, 4, 4))]
+
+
+def _pad_input(shape, dtype, seed) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    if dtype == "int32":
+        return rng.integers(-1000, 1000, shape).astype(np.int32)
+    return (rng.normal(size=shape) * 10.0 ** rng.uniform(-3, 3, shape)).astype(np.float32)
+
+
+def _mean_reordered(shape, block) -> bool:
+    """Where XLA's float32 mean takes another order: two or more dims
+    padded, or a padded axis longer than 32."""
+    padded = [d for d, b in zip(shape, block) if d % b]
+    return len(padded) > 1 or any(d > 32 for d in padded)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+@pytest.mark.parametrize("mode", PAD_MODES)
+def test_pad_to_blocks_equals_jnp_pad(mode, dtype):
+    for i, (shape, block) in enumerate(PAD_CASES):
+        x = _pad_input(shape, dtype, seed=i)
+        t = tab.pad_to_blocks(torch.from_numpy(x), block, mode=mode)
+        j = jab.pad_to_blocks(jnp.asarray(x), block, mode=mode)
+        assert tuple(t.shape) == j.shape and str(t.dtype) == f"torch.{j.dtype}", (shape, mode)
+        if mode == "empty":
+            _same(t[tuple(slice(0, d) for d in shape)], x)
+        elif mode == "mean" and dtype == "float32" and _mean_reordered(shape, block):
+            _close(t, j)
+        else:
+            _same(t, j)
+
+
+@pytest.mark.parametrize("mode", ["mean", "median"])
+def test_pad_to_blocks_integer_statistics_round_half_to_even(mode):
+    """Means and medians of integers that end in .5 round to even, as jnp's."""
+    x = np.array([[1, 2], [2, 3]], np.int32)  # 1.5 -> 2, 2.5 -> 2 along both dims
+    t = tab.pad_to_blocks(torch.from_numpy(x), (4, 4), mode=mode)
+    j = jab.pad_to_blocks(jnp.asarray(x), (4, 4), mode=mode)
+    _same(t, j)
+    assert t[2, 0] == 2 and t[0, 2] == 2
+
+
+def test_pad_to_blocks_keeps_a_fitting_array_and_rejects_other_modes():
+    x = torch.from_numpy(_field((8, 4), seed=9))
+    assert tab.pad_to_blocks(x, (4, 4), mode="reflect") is x
+    for mode in ("bogus", "Edge", "stat"):
+        with pytest.raises(ValueError, match=repr(mode)):
+            tab.pad_to_blocks(torch.zeros(3), (4,), mode=mode)
 
 
 # ---------------------------------------------------------------------------

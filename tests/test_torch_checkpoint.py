@@ -63,7 +63,7 @@ def _tree(seed: int = 0) -> dict:
 
 @pytest.fixture(scope="module")
 def engine():
-    with ExecutionEngine([torch.device("cpu")], backend="torch") as eng:
+    with ExecutionEngine(devices=[torch.device("cpu")], backend="torch") as eng:
         yield eng
 
 

@@ -8,8 +8,14 @@ Inputs come from numpy with a seed.  Tolerance: none for ZFP (payload words,
 emax and decoded floats as bit patterns), the quantizer, the histogram, the
 bit total and the packed stream.  MGARD decomposes in floating point, so it
 is held to its absolute error bound, to the port's own ``mgard`` codec
-container (sections equal), and to cross-decoding within the bound both ways.
+container (sections equal), and to cross-decoding within the bound both ways;
+its compression ratio to the reference's within 1e-3 (a stream may differ by
+a word where a coefficient rounds the other way).  A float64, int64 or
+uint64 input keeps its dtype in the record, and so its itemsize in the
+ratio, and decodes as the 32-bit type, in both packages.
 """
+
+import warnings
 
 import os
 import subprocess
@@ -88,6 +94,56 @@ def test_zfp_compress_other_dtypes_byte_identical(dtype):
     assert t.dtype == j.dtype == dtype
     np.testing.assert_array_equal(_bits(tzfp.decompress(t)),
                                   _bits(np.asarray(jzfp.decompress(j))))
+
+
+def _wide(dtype: str, shape, seed=11) -> np.ndarray:
+    """A seeded numpy array of a 64-bit ``dtype``, as a user hands one in."""
+    rng = np.random.default_rng(seed)
+    if dtype == "float64":
+        return rng.normal(size=shape) * 10
+    lo = -1000 if dtype == "int64" else 0
+    return rng.integers(lo, lo + 2000, shape).astype(dtype)
+
+
+def _ref(fn, *args, **kw):
+    with warnings.catch_warnings():  # JAX warns as it narrows a 64-bit array
+        warnings.simplefilter("ignore", UserWarning)
+        return fn(*args, **kw)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "int64", "uint64"])
+def test_zfp_standalone_64_bit_input_records_its_dtype(dtype):
+    """The record keeps the input's dtype, so the ratio counts its 8 bytes a
+    value; the payload is the 32-bit array's and decodes as the 32-bit type."""
+    x = _wide(dtype, ZFP_SHAPES[3])
+    t = tzfp.compress(x, rate=16, device="cpu")
+    j = _ref(jzfp.compress, x, rate=16)
+    assert t.dtype == j.dtype == dtype
+    np.testing.assert_array_equal(_bits(t.payload), np.asarray(j.payload))
+    np.testing.assert_array_equal(t.emax.numpy(), np.asarray(j.emax))
+    narrow = tzfp.compress(torch.from_numpy(x).to(getattr(torch, f"{dtype[:-2]}32")), rate=16)
+    assert torch.equal(narrow.payload, t.payload) and torch.equal(narrow.emax, t.emax)
+    assert tzfp.compression_ratio(t) == jzfp.compression_ratio(j)
+    assert tzfp.compression_ratio(t) == 2 * tzfp.compression_ratio(narrow)
+    tout, jout = tzfp.decompress(t), np.asarray(_ref(jzfp.decompress, j))
+    assert str(tout.dtype) == f"torch.{jout.dtype}" == f"torch.{dtype[:-2]}32"
+    np.testing.assert_array_equal(_bits(tout), _bits(jout))
+
+
+@pytest.mark.parametrize("dtype", ["float64", "int64", "uint64"])
+def test_mgard_standalone_64_bit_input_records_its_dtype(dtype):
+    x = _wide(dtype, (17, 9, 5), seed=12)
+    t = tmgard.compress(x, 1e-2, device="cpu")
+    j = _ref(jmgard.compress, x, 1e-2)
+    assert t.dtype == j.dtype == dtype
+    assert tmgard.compression_ratio(t) == x.size * 8 / t.nbytes()
+    assert tmgard.compression_ratio(t) == pytest.approx(jmgard.compression_ratio(j), rel=1e-3)
+    tout, jout = tmgard.decompress(t), np.asarray(_ref(jmgard.decompress, j))
+    assert str(tout.dtype) == f"torch.{jout.dtype}" == f"torch.{dtype[:-2]}32"
+    # an integer record truncates the decoded floats: within the bound plus one
+    slack = 1e-2 if dtype == "float64" else 1.0 + 1e-2
+    assert np.abs(tout.numpy().astype(np.float64) - x).max() <= slack
+    assert np.abs(jout.astype(np.float64) - x).max() <= slack
 
 
 def test_zfp_compress_jit_adapters_agree_and_errors():
@@ -233,6 +289,29 @@ def test_quantize_dequantize_bit_identical(bin_size):
             _bits(np.asarray(jq.dequantize(jnp.asarray(jqv), bin_size, dtype=dtype))))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16", "float64", "int32"])
+def test_dequantize_by_subset_in_every_dtype_bit_identical(dtype):
+    """``q * bins[level]`` computed in ``dtype``: float32 and bfloat16 with
+    XLA's subnormal flush (a subnormal bin, tiny products), float16's own
+    subnormals kept, float64 as float32 (JAX without 64-bit types)."""
+    rng = np.random.default_rng(13)
+    q = rng.integers(-70000, 70000, 4096).astype(np.int32)
+    q[:64] = rng.integers(-2 ** 31, 2 ** 31 - 1, 64)
+    levels = rng.integers(0, 12, 4096).astype(np.int32)
+    bins = (10.0 ** rng.uniform(-45, 2, 12)).astype(np.float32)
+    bins[3], bins[4] = 1e-39, 3e-6   # a float32 subnormal; float16 subnormal products
+    t = tq.dequantize_by_subset(torch.from_numpy(q), torch.from_numpy(levels),
+                                torch.from_numpy(bins), dtype=getattr(torch, dtype))
+    j = np.asarray(_ref(jq.dequantize_by_subset, jnp.asarray(q), jnp.asarray(levels),
+                        jnp.asarray(bins), dtype=getattr(jnp, dtype)))
+    assert str(t.dtype) == f"torch.{j.dtype}"
+    got = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(j))
+    if dtype == "float32":   # the default is the quantize_map kernel's oracle
+        np.testing.assert_array_equal(_bits(t), _bits(tq.dequantize_by_subset(
+            torch.from_numpy(q), torch.from_numpy(levels), torch.from_numpy(bins))))
+
+
 def test_quantize_integer_input_bit_identical():
     x = np.random.default_rng(4).integers(-1000, 1000, 333).astype(np.int32)
     np.testing.assert_array_equal(tq.quantize(torch.from_numpy(x), 3.0).numpy(),
@@ -328,7 +407,7 @@ assert E.data_devices(m) == [torch.device("cpu")]
 tree = {"w": torch.from_numpy(np.random.default_rng(0).normal(size=(128, 96)).astype(np.float32)),
         "b": torch.zeros(7)}
 with E.ExecutionEngine(mesh=m, backend="torch") as a, \
-        E.ExecutionEngine([torch.device("cpu")], backend="torch") as b:
+        E.ExecutionEngine(devices=[torch.device("cpu")], backend="torch") as b:
     assert a.mesh is m and b.mesh is None and a.devices == b.devices
     fa, _ = a.compress_pytree(tree)
     fb, _ = b.compress_pytree(tree)

@@ -677,7 +677,7 @@ def test_cuda_pytree_matches_torch_backend(cuda_device):
         return api.default_select(key, arr)
 
     with engine.ExecutionEngine() as eng, \
-            engine.ExecutionEngine([torch.device("cpu")], backend="torch") as cpu:
+            engine.ExecutionEngine(devices=[torch.device("cpu")], backend="torch") as cpu:
         flat, stats = eng.compress_pytree(tree, select)
         want, _ = cpu.compress_pytree(tree, select)
         assert list(flat) == list(want) and stats["sharded_leaves"] == 5 + 3
@@ -846,7 +846,7 @@ def test_cuda_service_bytes_match_torch_backend(cuda_device):
         return api.default_select(key, arr)
 
     with engine.ExecutionEngine() as eng, \
-            engine.ExecutionEngine([torch.device("cpu")], backend="torch") as cpu:
+            engine.ExecutionEngine(devices=[torch.device("cpu")], backend="torch") as cpu:
         with ReductionService(eng, batch_window=0.05) as svc:
             subs = [svc.submit_compress(t, select) for t in trees]
             outs = [s.result(timeout=120) for s in subs]

@@ -15,8 +15,13 @@ mapping.  The executor cases are the reference's (shutdown, drain,
 ``submit_after``, callbacks, priority stats).
 """
 
+import inspect
+import os
+import subprocess
+import sys
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -78,7 +83,7 @@ def _np(x) -> np.ndarray:
 @pytest.fixture(scope="module")
 def run():
     tree = _tree()
-    eng = tengine.ExecutionEngine(CPU, backend="torch")
+    eng = tengine.ExecutionEngine(devices=CPU, backend="torch")
     jeng = JEngine()
     TCMM.clear()
     JCMM.clear()
@@ -199,7 +204,7 @@ def test_owned_only_keeps_reference_leaves(monkeypatch, n_hosts):
     monkeypatch.setenv(tmesh.ENV_HOST_COUNT, str(n_hosts))
     for host in range(n_hosts):
         monkeypatch.setenv(tmesh.ENV_HOST_ID, str(host))
-        with tengine.ExecutionEngine(CPU, backend="torch") as eng, JEngine() as jeng:
+        with tengine.ExecutionEngine(devices=CPU, backend="torch") as eng, JEngine() as jeng:
             order, raw, jobs, stats = eng.encode_leaf_jobs(tree, _select, owned_only=True)
             jorder, jraw, jjobs, jstats = jeng.encode_leaf_jobs(tree, _jselect, owned_only=True)
         assert order == jorder and sorted(raw) == sorted(jraw)
@@ -214,7 +219,7 @@ def test_mgard_bucket_runs_batched_and_matches_serial():
     tree = {"a": rng.normal(size=(9, 9, 9)).astype(np.float32),
             "b": rng.normal(size=(9, 9, 9)).astype(np.float32)}
     select = lambda k, a: ("mgard", {"error_bound": 1e-2})  # noqa: E731
-    with tengine.ExecutionEngine(CPU, backend="torch") as eng:
+    with tengine.ExecutionEngine(devices=CPU, backend="torch") as eng:
         flat, stats = eng.compress_pytree(tree, select)
         out = eng.decompress_pytree(flat, tree)
         assert stats["sharded_leaves"] == 2 and eng.stats()["sharded_decoded_leaves"] == 2
@@ -227,7 +232,7 @@ def test_mgard_bucket_runs_batched_and_matches_serial():
 
 def test_submit_result_futures():
     f = np.sin(np.linspace(0, 9, 16 ** 3)).reshape(16, 16, 16).astype(np.float32)
-    with tengine.ExecutionEngine(CPU, backend="torch") as eng:
+    with tengine.ExecutionEngine(devices=CPU, backend="torch") as eng:
         spec = eng.make_spec(f, "zfp", rate=8)
         assert spec.backend == "torch"
         subs = [eng.submit_encode(spec, f) for _ in range(4)]
@@ -245,13 +250,54 @@ def test_submit_result_futures():
         assert stream.pipeline.auto_chunk and stream.pipeline.auto_window
 
 
+_MESH_FIRST_SCRIPT = r"""
+import numpy as np, torch, torch.distributed as dist
+from repro_torch.core import engine as E
+
+m = E.make_data_mesh([torch.device("cpu")])   # a world-size-1 gloo group
+tree = {"w": torch.from_numpy(np.random.default_rng(0).normal(size=(64, 96)).astype(np.float32)),
+        "b": torch.zeros(5)}
+with E.ExecutionEngine(m, "torch") as a, E.ExecutionEngine(mesh=m, backend="torch") as b:
+    assert a.mesh is m and b.mesh is m and a.backend == b.backend == "torch"
+    assert a.devices == b.devices == [torch.device("cpu")]
+    fa, sa = a.compress_pytree(tree)
+    fb, sb = b.compress_pytree(tree)
+    assert fa["w"].to_bytes() == fb["w"].to_bytes() and torch.equal(fa["b"], fb["b"])
+dist.destroy_process_group()
+print("MESH FIRST OK")
+"""
+
+
+def test_engine_takes_a_mesh_first_as_the_reference():
+    """``ExecutionEngine(mesh, backend, ...)`` in the reference's order: a
+    mesh given positionally is the engine's mesh (in a subprocess, since a
+    process group must not start in the test process), and its bytes equal
+    those of ``mesh=``."""
+    assert list(inspect.signature(tengine.ExecutionEngine).parameters)[:5] == list(
+        inspect.signature(JEngine).parameters)
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parents[1] / "src"))
+    out = subprocess.run([sys.executable, "-c", _MESH_FIRST_SCRIPT], capture_output=True,
+                         text=True, env=env, timeout=240)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert "MESH FIRST OK" in out.stdout
+
+
+@pytest.mark.parametrize("ring", [CPU, tuple(CPU), [None]])
+def test_engine_reads_a_device_list_only_as_devices(ring):
+    """A device list where the mesh goes raises, naming ``devices=``."""
+    with pytest.raises(TypeError, match="devices="):
+        tengine.ExecutionEngine(ring, backend="torch")
+    with tengine.ExecutionEngine(devices=CPU, backend="torch") as eng:
+        assert eng.mesh is None and eng.devices == CPU
+
+
 def test_default_engine_and_entry_points(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(ValueError, match="CUDA"):
         tengine.ExecutionEngine()
     with pytest.raises(ValueError, match="cpu devices"):
-        tengine.ExecutionEngine([torch.device("meta")], backend="torch")
-    eng = tengine.ExecutionEngine(CPU, backend="torch")
+        tengine.ExecutionEngine(devices=[torch.device("meta")], backend="torch")
+    eng = tengine.ExecutionEngine(devices=CPU, backend="torch")
     old = tengine.set_default_engine(eng)
     try:
         assert tengine.default_engine() is eng

@@ -279,7 +279,7 @@ def test_checkpoint_cross_restores_in_the_reference(tmp_path, pair):
     most of a minute here) restores in ``repro`` under the same keys,
     ``tail::0::...`` included, to the values the port restores itself."""
     _jm, jparams, _m, params = pair
-    with ExecutionEngine([CPU], backend="torch") as eng:
+    with ExecutionEngine(devices=[CPU], backend="torch") as eng:
         mgr = CheckpointManager(tmp_path / "ck", CheckpointPolicy(lossless_small=0), engine=eng)
         manifest = mgr.save(1, params)
         mine, _ = mgr.restore(1)

@@ -321,7 +321,7 @@ def test_serve_park_and_restore(arch, pairs, tmp_path):
 
     cache = engine.cache
     jcache = jax.tree.map(lambda t: jnp.asarray(t.numpy()), cache)
-    with tengine.ExecutionEngine([CPU], backend="torch") as eng:
+    with tengine.ExecutionEngine(devices=[CPU], backend="torch") as eng:
         flat, _stats = compress_kv_cache(cache, rate=12, engine=eng)
         jflat, _jstats = jengine.compress_kv_cache(jcache, rate=12)
         assert list(flat) == list(jflat) and all("dense" not in k for k in flat) == (

@@ -44,7 +44,7 @@ TIMEOUT = 30.0
 
 @pytest.fixture(scope="module")
 def eng():
-    with tengine.ExecutionEngine([torch.device("cpu")], backend="torch") as e:
+    with tengine.ExecutionEngine(devices=[torch.device("cpu")], backend="torch") as e:
         yield e
 
 
@@ -353,7 +353,7 @@ class _GatedIOExecutor:
 @pytest.mark.parametrize("reader", ["fetch", "release"])
 def test_park_async_readers_wait_for_inflight_park(tmp_path, reader):
     gate = threading.Event()
-    with tengine.ExecutionEngine([torch.device("cpu")], backend="torch") as e:
+    with tengine.ExecutionEngine(devices=[torch.device("cpu")], backend="torch") as e:
         e.executor = _GatedIOExecutor(e.executor, gate)
         store = KVPageStore(capacity_bytes=64 << 20, spill_dir=tmp_path, rate=16, engine=e)
         cache = _session_cache(3)

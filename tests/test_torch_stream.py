@@ -11,8 +11,10 @@ bound and cross-decodes.  Each package reads the other's ``to_bytes`` and
 ``to_file`` streams lazily (``materialized``, ``preads``).  The scheduler
 cases are the reference's: compute overlaps the previous chunk's
 serialization, the in-flight window is bounded, a failing chunk surfaces its
-exception.  The plain Huffman decode costs ~0.5 s a stream on the CPU, so
-Huffman streams are decoded once each.
+exception.  The reference's single-phase ``ChunkedPipeline(compress_fn,
+...)`` writes the reference's chunk bytes and the two-phase stream's, and
+round-trips through ``decompress_chunked``.  The plain Huffman decode costs
+~0.5 s a stream on the CPU, so Huffman streams are decoded once each.
 """
 
 import threading
@@ -23,6 +25,7 @@ import pytest
 import torch
 
 from repro.core import api as japi
+from repro.core import pipeline as jpl
 from repro_torch.core import api as tapi
 from repro_torch.core import engine as tengine
 from repro_torch.core import pipeline as tpl
@@ -295,7 +298,7 @@ def test_engine_stream_defaults_to_auto(tmp_path):
             h2d=tcm.AffineCost(1e-5, 5e9), serialize=tcm.AffineCost(2e-5, 3e9),
             output_fraction=0.5)
         store.window_overhead_s = 1e-5
-        with tengine.ExecutionEngine(CPU, backend="torch") as eng:
+        with tengine.ExecutionEngine(devices=CPU, backend="torch") as eng:
             stream = eng.stream("huffman-bytes")
             assert stream.pipeline.auto_chunk and stream.pipeline.auto_window
             assert stream.backend == "torch"
@@ -308,6 +311,53 @@ def test_engine_stream_defaults_to_auto(tmp_path):
             np.testing.assert_array_equal(out.numpy(), data)
     finally:
         tcal.set_calibration_dir(None)
+
+
+@pytest.mark.parametrize("window", [1, 2])
+def test_single_phase_pipeline_writes_the_reference_s_bytes(window):
+    """The reference's ``test_chunked_compress_roundtrip`` form: each chunk
+    through ``compress_fn`` on the compute lane, its arrays on the host after
+    the io lane; the chunks equal the reference's and the two-phase stream's
+    at the same chunking, and decode back within the reference's bound."""
+    data = _field()
+    tres = tpl.ChunkedPipeline(lambda c: tapi.compress(c, "zfp", rate=16, backend="torch"),
+                               mode="fixed", c_fixed_elems=CHUNK, devices=CPU,
+                               window=window).run(data)
+    jres = jpl.ChunkedPipeline(lambda c: japi.compress(c, "zfp", rate=16), mode="fixed",
+                               c_fixed_elems=CHUNK, window=window).run(data)
+    two = _tstream("zfp", window=window).compress(data)
+    assert len(tres.chunks) == 6
+    assert (tres.axis, tres.boundaries, tres.shape) == (jres.axis, jres.boundaries, jres.shape)
+    assert (tres.boundaries, tres.shape) == (two.boundaries, two.shape)
+    blobs = [c.to_bytes() for c in tres.chunks]
+    assert blobs == [c.to_bytes() for c in jres.chunks] == [c.to_bytes() for c in two.chunks]
+    assert all(isinstance(a, np.ndarray) for c in tres.chunks for a in c.arrays.values())
+    out = tpl.decompress_chunked(tres, lambda c: tapi.decompress(c, backend="torch"))
+    assert out.shape == data.shape and np.abs(out.numpy() - data).max() < 2e-3
+    assert torch.equal(out, tapi.CompressorStream.decompress(two, backend="torch"))
+    assert all(set(t.spans) == {"h2d", "compute", "serialize"} for t in tres.timings)
+
+
+def test_single_phase_finish_moves_tensors_to_the_host():
+    """A container whose ``arrays`` hold tensors comes out of the io lane
+    with them on the host, values unchanged."""
+    class Box:
+        def __init__(self, chunk):
+            self.arrays = {"sum": chunk.sum(0), "first": chunk[0].clone()}
+
+    data = np.arange(16 * 8, dtype=np.float32).reshape(16, 8)   # cut along axis 0
+    res = tpl.ChunkedPipeline(Box, mode="fixed", c_fixed_elems=2 * 8, devices=CPU).run(data)
+    assert len(res.chunks) == 8
+    for i, box in enumerate(res.chunks):
+        assert all(a.device.type == "cpu" for a in box.arrays.values())
+        np.testing.assert_array_equal(box.arrays["first"].numpy(), data[2 * i])
+
+
+def test_pipeline_needs_compress_fn_or_the_two_phases():
+    for pipe in (tpl.ChunkedPipeline, jpl.ChunkedPipeline):
+        with pytest.raises(ValueError, match="need compress_fn or compute_fn/finish_fn"):
+            pipe(mode="fixed")
+    assert tpl.ChunkedPipeline(lambda c: c).compress_fn is not None
 
 
 def test_stream_needs_a_card_unless_torch():

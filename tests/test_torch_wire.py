@@ -2,7 +2,7 @@
 ``repro_torch.serving.client``) against the reference's.
 
 A ``repro`` client drives a port server (engine
-``ExecutionEngine([torch.device("cpu")], backend="torch")``) and a port
+``ExecutionEngine(devices=[torch.device("cpu")], backend="torch")``) and a port
 client drives a ``repro`` server: container bytes over either socket equal
 the in-process results of both packages (ZFP byte for byte, as the codecs
 are).  The port server's fault containment is the reference's: malformed
@@ -41,7 +41,7 @@ TIMEOUT = 30.0
 
 @pytest.fixture(scope="module")
 def eng():
-    with tengine.ExecutionEngine([torch.device("cpu")], backend="torch") as e:
+    with tengine.ExecutionEngine(devices=[torch.device("cpu")], backend="torch") as e:
         yield e
 
 
