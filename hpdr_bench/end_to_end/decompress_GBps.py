@@ -1,0 +1,10 @@
+"""All field bytes reconstructed in the window over all the time of its decompress phases."""
+
+from ..stats import phase_rate_gbps
+
+
+def read(window):
+    phases = [p for p in window.phases if p.name == "decompress"]
+    if not phases:
+        return None
+    return phase_rate_gbps([p.field_bytes for p in phases], [p.seconds for p in phases])
