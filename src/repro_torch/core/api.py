@@ -37,6 +37,7 @@ from typing import Any, Callable, Iterator, Sequence
 import numpy as np
 import torch
 
+from ..runtime.trace import span
 from . import adapters
 from . import pipeline as pl
 from .codecs import available_methods, get_codec  # noqa: F401
@@ -116,11 +117,12 @@ def make_spec(data: Any, method: str, **params: Any) -> ReductionSpec:
 
 
 def _build_context(key, codec: Codec, spec: ReductionSpec) -> ReductionContext:
-    plan = codec.plan(spec)
-    if plan.device.type == "cuda":
-        # the plan's tables were copied on this thread's stream; other
-        # threads' streams read them as soon as the CMM holds the plan
-        torch.cuda.current_stream(plan.device).synchronize()
+    with span("api.plan_build"):  # one a CMM miss
+        plan = codec.plan(spec)
+        if plan.device.type == "cuda":
+            # the plan's tables were copied on this thread's stream; other
+            # threads' streams read them as soon as the CMM holds the plan
+            torch.cuda.current_stream(plan.device).synchronize()
     return ReductionContext(key=key, plan=plan, buffers=plan.workspace)
 
 
@@ -134,18 +136,20 @@ def get_plan(spec: ReductionSpec) -> ReductionPlan:
 
 def encode(spec: ReductionSpec, data: Any) -> Compressed:
     """Compress ``data`` according to ``spec`` (plan reused via the CMM)."""
-    return get_codec(spec.method).encode(get_plan(spec), as_tensor(data))
+    with span("api.encode"):
+        return get_codec(spec.method).encode(get_plan(spec), as_tensor(data))
 
 
 def encode_profiled(
     spec: ReductionSpec, data: Any
 ) -> tuple[Compressed, dict[str, float], TransferStats]:
     """Encode with per-stage wall seconds and host↔device transfer bytes."""
-    codec = get_codec(spec.method)
-    plan = get_plan(spec)
-    env = CallEnv(plan)
-    profile: dict[str, float] = {}
-    c = codec.encode(plan, as_tensor(data), env=env, profile=profile)
+    with span("api.encode"):
+        codec = get_codec(spec.method)
+        plan = get_plan(spec)
+        env = CallEnv(plan)
+        profile: dict[str, float] = {}
+        c = codec.encode(plan, as_tensor(data), env=env, profile=profile)
     return c, profile, env.transfers
 
 
@@ -163,18 +167,20 @@ def decode(c: Compressed, backend: str | None = None) -> torch.Tensor:
     Any backend decodes any stream; ``backend`` defaults to ``auto``
     (``cuda``).
     """
-    codec, plan = _decode_plan(c, backend)
-    return codec.decode(plan, c)
+    with span("api.decode"):
+        codec, plan = _decode_plan(c, backend)
+        return codec.decode(plan, c)
 
 
 def decode_profiled(
     c: Compressed, backend: str | None = None
 ) -> tuple[torch.Tensor, dict[str, float], TransferStats]:
     """Decode with per-stage wall seconds and host↔device transfer bytes."""
-    codec, plan = _decode_plan(c, backend)
-    env = CallEnv(plan)
-    profile: dict[str, float] = {}
-    out = codec.decode(plan, c, env=env, profile=profile)
+    with span("api.decode"):
+        codec, plan = _decode_plan(c, backend)
+        env = CallEnv(plan)
+        profile: dict[str, float] = {}
+        out = codec.decode(plan, c, env=env, profile=profile)
     return out, profile, env.transfers
 
 

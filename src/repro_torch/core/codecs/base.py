@@ -25,6 +25,7 @@ from typing import Any
 
 import torch
 
+from ...runtime.trace import span
 from .. import adapters
 from ..container import Compressed
 from ..context import context_key
@@ -198,7 +199,8 @@ class Codec:
         the stream's two-phase path writes the same bytes by construction."""
         state, env = self.encode_begin(plan, data, env=env, profile=profile)
         t0 = time.perf_counter()
-        c = self.encode_finish(plan, state, env)
+        with span("codec.fetch"):
+            c = self.encode_finish(plan, state, env)
         if profile is not None:  # the sections' copy to host memory
             profile["fetch"] = profile.get("fetch", 0.0) + time.perf_counter() - t0
         return c

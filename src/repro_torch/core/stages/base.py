@@ -36,6 +36,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from ...runtime.trace import span
+
 
 def _nbytes(a: Any) -> int:
     return int(getattr(a, "nbytes", 0))
@@ -219,12 +221,15 @@ class CompiledPipeline:
         return state
 
     def _timed(self, profile, name: str, fn, *args) -> dict:
-        if profile is None:
-            return fn(*args)
-        t0 = time.perf_counter()
-        out = fn(*args)
-        if self.plan.device.type == "cuda":
-            torch.cuda.synchronize(self.plan.device)
+        """``fn(*args)`` in the stage span ``stage.<name>``; with
+        ``profile``, its wall seconds (the card synchronised) under ``name``."""
+        with span("stage." + name):
+            if profile is None:
+                return fn(*args)
+            t0 = time.perf_counter()
+            out = fn(*args)
+            if self.plan.device.type == "cuda":
+                torch.cuda.synchronize(self.plan.device)
         profile[name] = profile.get(name, 0.0) + (time.perf_counter() - t0)
         return out
 
@@ -253,13 +258,15 @@ class CompiledPipeline:
     @staticmethod
     def _host_step(st: Stage, env: CallEnv, state: dict) -> dict:
         fetched = {}
-        for k in st.fetches:
-            v = state[k]
-            if v.device.type != "cpu":
-                env.transfers.count_d2h(v)
-            v = v.cpu()
-            # numpy has no bfloat16: its values are exact in float32
-            fetched[k] = (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+        if st.fetches:
+            with span(f"stage.{st.name}.fetch"):  # where the host waits on the card
+                for k in st.fetches:
+                    v = state[k]
+                    if v.device.type != "cpu":
+                        env.transfers.count_d2h(v)
+                    v = v.cpu()
+                    # numpy has no bfloat16: its values are exact in float32
+                    fetched[k] = (v.float() if v.dtype == torch.bfloat16 else v).numpy()
         st.host_apply(env, fetched)
         return {}
 
@@ -308,18 +315,19 @@ class CompiledPipeline:
         of that leaf alone returns.
         """
         stages = self.graph.stages
-        rows = [self._stage_in(env, s0) for env, s0 in zip(envs, states0)]
+        rows = [self._timed(None, "stage_in", self._stage_in, env, s0)
+                for env, s0 in zip(envs, states0)]
         if self.n_stacked:
             stacked = self._stack(rows)
             for st in stages[: self.n_stacked]:
-                stacked.update(st.apply_stacked(envs[0], stacked))
+                stacked.update(self._timed(None, st.name, st.apply_stacked, envs[0], stacked))
             rows = [{k: v[i] for k, v in stacked.items()} for i in range(len(envs))]
         for env, row in zip(envs, rows):
             for st in stages[self.n_stacked:]:
                 if st.device:
-                    row.update(st.apply(env, row))
+                    row.update(self._timed(None, st.name, st.apply, env, row))
                 else:
-                    self._host_step(st, env, row)
+                    self._timed(None, st.name, self._host_step, st, env, row)
         return rows
 
     def invert_batched(self, states0: list[dict[str, Any]], envs: list[CallEnv]) -> list[dict]:
@@ -332,17 +340,19 @@ class CompiledPipeline:
         for env in envs:
             for st in stages:
                 if not st.device:
-                    st.host_prepare(env)
-        rows = [self._stage_in(env, s0) for env, s0 in zip(envs, states0)]
+                    self._timed(None, st.name, st.host_prepare, env)
+        rows = [self._timed(None, "stage_in", self._stage_in, env, s0)
+                for env, s0 in zip(envs, states0)]
         for env, row in zip(envs, rows):
             for st in reversed(stages[self.n_stacked:]):
                 if st.device and st.inv_writes:
-                    row.update(st.invert(env, row))
+                    row.update(self._timed(None, f"invert[{st.name}]", st.invert, env, row))
         stacked_inv = [st for st in reversed(stages[: self.n_stacked]) if st.inv_writes]
         if stacked_inv:
             stacked = self._stack(rows)
             for st in stacked_inv:
-                stacked.update(st.invert_stacked(envs[0], stacked))
+                stacked.update(self._timed(None, f"invert[{st.name}]", st.invert_stacked,
+                                           envs[0], stacked))
             rows = [{k: v[i] for k, v in stacked.items()} for i in range(len(envs))]
         return rows
 

@@ -42,6 +42,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..runtime.trace import span
 from . import adapters
 from . import bitstream as bs
 from . import zfp_tables
@@ -300,13 +301,15 @@ def compress_field(
     """
     from ..kernels.zfp_block import ops as zfp_block_ops  # lazy: layer order
 
-    padded = pad_to_blocks(data.reshape(shape), (4,) * dims)
-    emax = integer_block_emax(padded, dims) if padded.dtype in SIGNED_INTS else None
-    padded = padded.to(torch.float32).contiguous()
-    if padded.data_ptr() % 16:  # the kernel's bulk copies need an aligned base
-        padded = padded.clone()
-    return zfp_block_ops.compress_field(padded, rate, dims, adapter, perm=perm, scale=scale,
-                                        emax=emax)
+    with span("zfp.pad"):
+        padded = pad_to_blocks(data.reshape(shape), (4,) * dims)
+        emax = integer_block_emax(padded, dims) if padded.dtype in SIGNED_INTS else None
+        padded = padded.to(torch.float32).contiguous()
+        if padded.data_ptr() % 16:  # the kernel's bulk copies need an aligned base
+            padded = padded.clone()
+    with span("zfp.launch"):
+        return zfp_block_ops.compress_field(padded, rate, dims, adapter, perm=perm,
+                                            scale=scale, emax=emax)
 
 
 def decompress_field(
@@ -317,10 +320,11 @@ def decompress_field(
     ``scale`` is the decode scale table.  The crop is a view."""
     from ..kernels.zfp_block import ops as zfp_block_ops  # lazy: layer order
 
-    full = zfp_block_ops.decompress_field(
-        payload, emax, rate, dims, padded_shape(shape, (4,) * dims), adapter,
-        perm=perm, scale=scale,
-    )
+    with span("zfp.launch"):
+        full = zfp_block_ops.decompress_field(
+            payload, emax, rate, dims, padded_shape(shape, (4,) * dims), adapter,
+            perm=perm, scale=scale,
+        )
     return full[tuple(slice(0, d) for d in shape)]
 
 
@@ -436,15 +440,17 @@ def compress(data: torch.Tensor, rate: int = 16, device=None) -> ZFPCompressed:
     ``str(data.dtype)``), though its values are compressed as float32."""
     from .api import dtype_name, place  # lazy: api sits above this module
 
-    dtype = dtype_name(data)
-    data = place(data, device)
-    if data.ndim > 4:
-        raise ValueError("zfp supports 1-4 dimensional data")
-    if not 1 <= rate <= 32:
-        raise ValueError("rate must be in [1, 32] bits/value")
-    payload, emax = compress_jit(data, rate, data.ndim, tuple(data.shape))
-    return ZFPCompressed(payload=payload, emax=emax, shape=tuple(data.shape), rate=rate,
-                         dtype=dtype)
+    with span("zfp.compress"):
+        with span("zfp.place"):
+            dtype = dtype_name(data)
+            data = place(data, device)
+        if data.ndim > 4:
+            raise ValueError("zfp supports 1-4 dimensional data")
+        if not 1 <= rate <= 32:
+            raise ValueError("rate must be in [1, 32] bits/value")
+        payload, emax = compress_jit(data, rate, data.ndim, tuple(data.shape))
+        return ZFPCompressed(payload=payload, emax=emax, shape=tuple(data.shape), rate=rate,
+                             dtype=dtype)
 
 
 def decompress(z: ZFPCompressed) -> torch.Tensor:
@@ -454,8 +460,10 @@ def decompress(z: ZFPCompressed) -> torch.Tensor:
     from .api import canonical_dtype  # lazy: api sits above this module
     from .stages.library import float32_to  # lazy: stages sit above this module
 
-    out = decompress_jit(z.payload, z.emax, z.rate, z.dims, z.shape)
-    return float32_to(out, canonical_dtype(z.dtype))
+    with span("zfp.decompress"):
+        out = decompress_jit(z.payload, z.emax, z.rate, z.dims, z.shape)
+        with span("zfp.cast"):
+            return float32_to(out, canonical_dtype(z.dtype))
 
 
 def compression_ratio(z: ZFPCompressed) -> float:
