@@ -283,7 +283,8 @@ any fails:
      form, each kernel's ``-Xptxas -v`` line and shared memory; for
      solve_mass the dense
      ``torch.linalg.solve``, for lerp a stride-2 ``conv1d`` without TF32:
-     yardsticks the port never calls), the plain ``pack_stream`` and the
+     yardsticks the port never calls), ``pack_stream`` beside its plain
+     version at 2^26 keys and at MGARD's 513^3 keys (device time too), the
      host codebook build, the histogram (beside ``torch.bincount``) and
      decode_chunks on all three key sets, in device time too, every MGARD
      solve of one direction level by level (with ``torch.profiler``'s device
@@ -445,6 +446,7 @@ ED_BATCH, ED_ENC_SEQ, ED_DEC_SEQ = 8, 512, 128
 ED_SERVE_BATCH, ED_DECODE_STEPS = 4, 64
 ED_CHECK_STEPS = 8                  # the smoke cut's decode steps, card vs CPU
 STATE_ERR_TOL = 1e-2                # a lossy state checkpoint: of a leaf's largest |value|
+ENCODE_LOOKUP, PACK_STREAM = "huffman_encode.encode_lookup", "huffman_encode.pack_stream"
 LOSSY_KERNELS = ("zfp_block.compress_blocks", "zfp_block.decompress_blocks", "histogram.histogram",
                  "huffman_encode.encode_lookup", "huffman_decode.decode_chunks")
 MGARD_KERNELS = {  # name: (TPU kernel it replaces, CUDA source)
@@ -476,13 +478,17 @@ GAP_PAD_SHAPES = ((61, 62, 63), (1, 2, 5))   # padded by 3, 2 and 1; dims of 1 a
 PAD_MODES = ("constant", "edge", "reflect", "symmetric", "wrap", "maximum", "minimum", "mean",
              "median", "linear_ramp", "empty")
 HELD_KERNELS = ("zfp_block.compress_blocks", "zfp_block.decompress_blocks", "histogram.histogram",
-                "huffman_encode.encode_lookup", "huffman_decode.decode_chunks",
+                "huffman_encode.encode_lookup", "huffman_encode.pack_stream",
+                "huffman_decode.decode_chunks",
                 "quantize_map.quantize", "quantize_map.dequantize", "tridiag.solve_mass")
 HUFF_KERNELS = {  # name: (TPU kernel it replaces, CUDA source)
     "histogram.histogram": ("src/repro/kernels/histogram/kernel.py:39",
                             "src/repro_torch/kernels/histogram/csrc/histogram.cu"),
     "huffman_encode.encode_lookup": (
         "src/repro/kernels/huffman_encode/kernel.py:31",
+        "src/repro_torch/kernels/huffman_encode/csrc/huffman_encode.cu"),
+    "huffman_encode.pack_stream": (
+        "no TPU kernel (XLA in the reference: src/repro/kernels/huffman_encode/ref.py:21)",
         "src/repro_torch/kernels/huffman_encode/csrc/huffman_encode.cu"),
     "huffman_decode.decode_chunks": (
         "src/repro/kernels/huffman_decode/kernel.py:58",
@@ -877,8 +883,9 @@ def check_decode(what: str, keys, words, offsets, tables, chunk_size: int) -> fl
 
 
 def phase_huffman_kernels_vs_plain(device) -> None:
-    """Phase 2, Huffman: histogram, encode_lookup and decode_chunks against
-    their plain versions on the card (tolerance 0)."""
+    """Phase 2, Huffman: histogram, encode_lookup, pack_stream (at each of
+    CHECK_CHUNKS) and decode_chunks against their plain versions on the card
+    (tolerance 0)."""
     import torch
 
     from repro_torch.core import huffman
@@ -909,6 +916,12 @@ def phase_huffman_kernels_vs_plain(device) -> None:
         ep = enc_ref.encode_lookup(probe, *huffman.codebook_tables(book, device))
         errs = {"histogram": int_err(hk, hist_ref.histogram(probe, nb)),
                 "codes": int_err(ek[0], ep[0]), "lengths": int_err(ek[1], ep[1])}
+        num_words = max(1, -(-int(ep[1].to(torch.int64).sum()) // 32))
+        for chunk in CHECK_CHUNKS:
+            got = enc_kernel.pack_stream(*ek, num_words, chunk)
+            want = enc_ref.pack_stream(*ep, num_words, chunk)
+            errs[f"pack_stream, chunk {chunk}"] = max(int_err(got[0], want[0]),
+                                                      int_err(got[1], want[1]))
         if any(errs.values()):
             raise PhaseError(f"Huffman kernels differ from their plain versions: {what}: {errs}")
         if n == CHECK_COUNTS[-1]:
@@ -945,7 +958,8 @@ def phase_huffman_kernels_vs_plain(device) -> None:
                                  f"first key {start}")
     log(f"phase 2 ok: histogram == plain version on the card under contention and at its "
         f"limits ({', '.join(w for w, _, _ in contention)}), each from all four alignments")
-    log(f"phase 2 ok: histogram, encode_lookup == plain versions on the card for {checked} "
+    log(f"phase 2 ok: histogram, encode_lookup, pack_stream (chunks {CHECK_CHUNKS}) == plain "
+        f"versions on the card for {checked} "
         f"(alphabet, count) cases, out-of-range keys included; decode_chunks == plain "
         f"version (whole output) at chunks {CHECK_CHUNKS}, codes within the "
         f"{dec_ref.LUT_BITS}-bit table only, escaping it, up to 32 bits, empty stream "
@@ -992,9 +1006,11 @@ def policy_keys(x, method: str):
 
 
 def check_entropy_kernels(name: str, keys, nb: int, c, device) -> dict:
-    """histogram, encode_lookup and decode_chunks against their plain versions
-    on one main-path run's keys (alphabet ``nb``) and container ``c``, whose
-    codebook must be the one these keys give (tolerance 0)."""
+    """histogram, encode_lookup, pack_stream and decode_chunks against their
+    plain versions on one main-path run's keys (alphabet ``nb``) and
+    container ``c``, whose codebook must be the one these keys give, and
+    pack_stream against the container's words and chunk offsets too
+    (tolerance 0)."""
     import numpy as np
     import torch
 
@@ -1016,9 +1032,14 @@ def check_entropy_kernels(name: str, keys, nb: int, c, device) -> dict:
     words = torch.from_numpy(c.arrays["words"].view("int32")).to(device)
     offsets = torch.from_numpy(c.arrays["chunk_offsets"]).to(device)
     tables = huffman.padded_tables(huffman.decode_tables(c.arrays["length_table"], device))
+    packed = enc_kernel.pack_stream(codes, lens, words.numel(), chunk)
+    plain = enc_ref.pack_stream(pc, pl, words.numel(), chunk)
     errs = {
         "histogram.histogram": int_err(freq, hist_ref.histogram(keys, nb)),
         "huffman_encode.encode_lookup": max(int_err(codes, pc), int_err(lens, pl)),
+        "huffman_encode.pack_stream": max(
+            int_err(packed[0], plain[0]), int_err(packed[1], plain[1]),
+            int_err(packed[0], words), int_err(packed[1], offsets)),
         "huffman_decode.decode_chunks": check_decode(name, keys, words, offsets, tables, chunk),
     }
     if any(errs.values()):
@@ -1082,7 +1103,7 @@ def phase_huffman_main_path(device, api) -> list[dict]:
 
 def phase_huffman_timings(api, run: dict, card: str) -> list[dict]:
     """Phase 5, Huffman: one main-path run's kernels, plain versions,
-    library calls, pack_stream, codebook and end to end."""
+    library calls, codebook and end to end."""
     import torch
 
     from repro_torch.core import huffman
@@ -1107,6 +1128,8 @@ def phase_huffman_timings(api, run: dict, card: str) -> list[dict]:
         "histogram.histogram": median_ms(lambda: hist_kernel.histogram(keys, nb)),
         "huffman_encode.encode_lookup": median_ms(
             lambda: enc_kernel.encode_lookup(keys, codes_t, lens_t)),
+        "huffman_encode.pack_stream": median_ms(
+            lambda: enc_kernel.pack_stream(codes, lens, num_words, chunk)),
         "huffman_decode.decode_chunks": median_ms(
             lambda: dec_kernel.decode_chunks(words, offsets, *tables, chunk, max_len)),
     }
@@ -1114,6 +1137,8 @@ def phase_huffman_timings(api, run: dict, card: str) -> list[dict]:
         "histogram.histogram": median_ms(lambda: hist_ref.histogram(keys, nb)),
         "huffman_encode.encode_lookup": median_ms(
             lambda: enc_ref.encode_lookup(keys, codes_t, lens_t)),
+        "huffman_encode.pack_stream": median_ms(
+            lambda: enc_ref.pack_stream(codes, lens, num_words, chunk)),
         "huffman_decode.decode_chunks": median_ms(
             lambda: dec_ref.decode_chunks(words, offsets, *tables, chunk, max_len),
             runs=1, warmup=0),
@@ -1121,9 +1146,9 @@ def phase_huffman_timings(api, run: dict, card: str) -> list[dict]:
     library_ms = {
         "histogram.histogram": median_ms(lambda: torch.bincount(keys, minlength=nb)),
         "huffman_encode.encode_lookup": median_ms(lambda: (codes_t[keys], lens_t[keys])),
+        "huffman_encode.pack_stream": None,
         "huffman_decode.decode_chunks": None,
     }
-    pack_ms = median_ms(lambda: enc_ref.pack_stream(codes, lens, num_words, chunk))
     freq_np = run["freq"].cpu().numpy()
     codebook_ms = median_wall_ms(lambda: huffman.build_codebook(freq_np))
     e2e_compress = median_wall_ms(lambda: api.compress_leaf(x, method))
@@ -1132,11 +1157,13 @@ def phase_huffman_timings(api, run: dict, card: str) -> list[dict]:
     moved = {  # each input read once, each output written once
         "histogram.histogram": 4 * n + 4 * nb,
         "huffman_encode.encode_lookup": 12 * n + 8 * nb,
+        "huffman_encode.pack_stream": pack_bytes(n, num_words, n_chunks),
         "huffman_decode.decode_chunks": decode_bytes(run),
     }
     ops = {  # integer operations on this run's data
         "histogram.histogram": 4 * n,             # range check, match, popcount, add
         "huffman_encode.encode_lookup": 4 * n,    # clamp, two probes, store
+        "huffman_encode.pack_stream": 8 * n,      # scan, mask, two shifts, two ORs, stores
         "huffman_decode.decode_chunks": int(n_chunks * chunk * (14 + 4 * bits_per_key)),
     }
     out = []
@@ -1159,8 +1186,8 @@ def phase_huffman_timings(api, run: dict, card: str) -> list[dict]:
     xp, policy_method, _ = api.leaf_policy(x, method)
     _, enc_stages, enc_moved = api.encode_profiled(api.make_spec(xp, policy_method), xp)
     _, dec_stages, dec_moved = api.decode_profiled(c)
-    log(f"phase 5 [{card}] {run['name']}: plain pack_stream {pack_ms:.4f} ms, host codebook "
-        f"build {codebook_ms:.4f} ms (wall, alphabet {nb})")
+    log(f"phase 5 [{card}] {run['name']}: host codebook build {codebook_ms:.4f} ms (wall, "
+        f"alphabet {nb})")
     log(f"phase 5 [{card}] {run['name']} one profiled call: encode stages {enc_stages} s, "
         f"transfers {enc_moved.as_dict()}; decode stages {dec_stages} s, "
         f"transfers {dec_moved.as_dict()}")
@@ -1170,6 +1197,35 @@ def phase_huffman_timings(api, run: dict, card: str) -> list[dict]:
         f"decompress_leaf {e2e_decompress:.4f} ms ({nbytes / e2e_decompress / 1e6:.1f} GB/s "
         "of output)")
     return out
+
+
+def pack_bytes(n: int, num_words: int, n_chunks: int) -> int:
+    """pack_stream's least traffic: codes and lengths read once, words and
+    chunk offsets written once."""
+    return 8 * n + 4 * num_words + 4 * n_chunks
+
+
+def pack_timings(name: str, codes, lens, num_words: int, chunk: int, card: str) -> None:
+    """Phase 5: pack_stream on one main-path run's codes in events around a
+    call (median of TIMED_RUNS) and in device time (its three kernels,
+    torch.profiler), beside its bound and the plain version."""
+    from repro_torch.kernels.huffman_encode import kernel as enc_kernel
+    from repro_torch.kernels.huffman_encode import ref as enc_ref
+
+    n = codes.numel()
+    ms = median_ms(lambda: enc_kernel.pack_stream(codes, lens, num_words, chunk))
+    # two calls profiled, the second's three kernels kept: a session now and
+    # then misses its first device event
+    device = kernel_device_ms(lambda: [enc_kernel.pack_stream(codes, lens, num_words, chunk)
+                                       for _ in range(2)], ("pack_",))[-3:]
+    plain_ms = median_ms(lambda: enc_ref.pack_stream(codes, lens, num_words, chunk), runs=3)
+    bound_ms = pack_bytes(n, num_words, -(-n // chunk)) / HBM_BYTES_PER_S * 1e3
+    dev = (f"{sum(device):.4f} ms in {len(device)} kernels "
+           f"({', '.join(f'{t:.4f}' for t in device)})" if len(device) == 3 else
+           f"not measured ({len(device)} kernel events)")
+    log(f"phase 5 [{card}] {name} huffman_encode.pack_stream at {n} symbols ({num_words} words, "
+        f"chunk {chunk}): kernel {ms:.4f} ms (events), device {dev}, plain version "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes), {bound_ms / ms:.1%} of the bound")
 
 
 def histogram_timings(name: str, keys, nb: int, card: str, ms: float | None = None,
@@ -1386,6 +1442,7 @@ def held_to_plain(names: tuple[str, ...] = DECODE_SIDE):
                                         (zk.decompress_field, zr.decompress_field)],
         "histogram.histogram": [(hk.histogram, hr.histogram)],
         "huffman_encode.encode_lookup": [(ek.encode_lookup, er.encode_lookup)],
+        "huffman_encode.pack_stream": [(ek.pack_stream, er.pack_stream)],
         "huffman_decode.decode_chunks": [(dk.decode_chunks, dr.decode_chunks)],
         "quantize_map.quantize": [(qk.quantize, qr.quantize)],
         "quantize_map.dequantize": [(qk.dequantize, qr.dequantize)],
@@ -1716,6 +1773,7 @@ def phase_mgard_main_path(device, api) -> dict:
     solves = 3 * mgard.total_levels(tuple(padded_field.shape))  # per direction
     want = {"quantize_map.quantize": 1, "quantize_map.dequantize": 1,
             "histogram.histogram": 1, "huffman_encode.encode_lookup": 1,
+            "huffman_encode.pack_stream": 1,
             "huffman_decode.decode_chunks": 1, "tridiag.solve_mass": 2 * solves,
             "mgard_lerp.lerp_coefficients": 1}
     if any(counts[k] != v for k, v in want.items()):
@@ -1759,7 +1817,7 @@ def phase_mgard_main_path(device, api) -> dict:
         f"{solves} solve_mass launches per direction; quantize, dequantize, solve_mass "
         f"{tuple(coarse.shape)} h 2 and on the three axis views of all "
         f"{len(level_views(plan_thomas))} levels, lerp_coefficients {tuple(rows.shape)}, and histogram, "
-        f"encode_lookup, decode_chunks on this run's {entropy_keys.numel()} keys (alphabet "
+        f"encode_lookup, pack_stream, decode_chunks on this run's {entropy_keys.numel()} keys (alphabet "
         f"{dict_size}, {len(c.arrays['chunk_offsets'])} chunks, codebook == the container's) "
         "== plain versions (tolerance 0)")
 
@@ -1794,7 +1852,7 @@ def phase_mgard_main_path(device, api) -> dict:
             "counts": counts, "errs": errs, "plan": plan, "coeffs": coeffs, "keys": keys,
             "entropy_keys": entropy_keys, "dict_size": dict_size,
             "lmap": lmap, "bins": bins, "rows": rows, "coarse": coarse, "thomas": thomas,
-            **{k: ent[k] for k in ("words", "offsets", "tables", "chunk")}}
+            **{k: ent[k] for k in ("words", "offsets", "tables", "chunk", "codes", "lens")}}
 
 
 def phase_dtypes(device, api) -> None:
@@ -1972,6 +2030,7 @@ def phase_mgard_timings(api, run: dict, card: str) -> list[dict]:
         log(f"phase 5 [{card}] mgard tridiag.solve_mass device time: not measured "
             f"({len(device)} kernel events)")
     histogram_timings(run["name"], run["entropy_keys"], run["dict_size"], card)
+    pack_timings(run["name"], run["codes"], run["lens"], run["words"].numel(), run["chunk"], card)
     decode_timings(run, card)
 
     spec = api.make_spec(field, "mgard")
@@ -2010,7 +2069,9 @@ def mgard_solves(shape: tuple) -> int:
 
 def check_counts(what: str, counts: dict, want: dict) -> None:
     """Every kernel in ``want`` launched exactly that often, every other
-    kernel not at all."""
+    kernel not at all.  ``pack_stream`` packs what each ``encode_lookup``
+    launch encoded: where ``want`` does not name it, it launches as often."""
+    want = {PACK_STREAM: want.get(ENCODE_LOOKUP, 0), **want}
     extra = {k: n for k, n in counts.items() if n and k not in want}
     if any(counts[k] != n for k, n in want.items()) or extra:
         raise PhaseError(f"{what}: launches {counts}, expected {want} and no other")

@@ -13,7 +13,9 @@ Pipeline: histogram → two-phase codebook → encode → compact serialization.
   * encode         the ``huffman_encode`` kernel: per-key (code, length)
                    gather from the canonical codebook.
   * serialize      exclusive scan of the lengths + disjoint-bit word packing
-                   (:func:`repro_torch.kernels.huffman_encode.ref.pack_stream`).
+                   (the ``huffman_encode`` pack kernel on the card; its plain
+                   version :func:`repro_torch.kernels.huffman_encode.ref.pack_stream`
+                   on the CPU).
 
 Decoding is self-synchronising per fixed-size symbol chunk (the bit offset
 of every chunk is stored), so the ``huffman_decode`` kernel decodes all
@@ -271,21 +273,17 @@ def encode(
     """Encode ``keys`` (int in [0, K)) into a compact bitstream; ``adapter``
     binds the lookup (``None``: where the keys lie)."""
     from ..kernels.huffman_encode import ops as encode_ops  # lazy: layer order
-    from ..kernels.huffman_encode import ref as encode_ref
 
     keys = keys.reshape(-1).to(torch.int32)
+    adapter = adapters.for_tensor(adapter, keys)
     codes_t, lens_t = codebook_tables(book, keys.device)
-    code, length = encode_ops.encode_lookup(keys, codes_t, lens_t,
-                                            adapter=adapters.for_tensor(adapter, keys))
+    code, length = encode_ops.encode_lookup(keys, codes_t, lens_t, adapter=adapter)
     total_bits = int(length.to(torch.int64).sum())  # one scalar crosses to the host
     if total_bits > MAX_TOTAL_BITS:
         raise ValueError(_too_long(total_bits))
     num_words = max(1, bs.words_needed(total_bits))
-    if keys.numel() == 0:
-        words = torch.zeros(num_words, dtype=torch.int32, device=keys.device)
-        chunk_offsets = torch.zeros(0, dtype=torch.int32, device=keys.device)
-    else:
-        words, chunk_offsets = encode_ref.pack_stream(code, length, num_words, chunk_size)
+    words, chunk_offsets = adapters.dispatch("huffman_pack_stream", adapter)(
+        code, length, num_words, chunk_size)
     return Encoded(
         words=words,
         total_bits=total_bits,

@@ -33,6 +33,7 @@ import math
 import numpy as np
 import torch
 
+from .. import adapters
 from .. import bitstream as bs
 from .. import huffman
 from .base import CallEnv, Stage
@@ -440,8 +441,9 @@ class HuffmanEntropy(Stage):
 
 
 class BitPack(Stage):
-    """Prefix-sum offsets + disjoint-bit word packing (DEM global stage),
-    in plain PyTorch on every backend (the reference leaves it to XLA).
+    """Prefix-sum offsets + disjoint-bit word packing (DEM global stage): the
+    ``huffman_encode`` pack kernel on ``cuda``, plain PyTorch on ``torch``
+    (the reference leaves it to XLA).
 
     The word buffer is exactly ``num_words`` long (the host knows the exact
     bit count), so the container's fetch moves only the compressed size.
@@ -455,16 +457,10 @@ class BitPack(Stage):
         self.chunk_size = int(chunk_size)
 
     def apply(self, env: CallEnv, state: dict) -> dict:
-        from ...kernels.huffman_encode import ref as encode_ref
+        from ...kernels.huffman_encode import ops  # noqa: F401  (registers the op)
 
-        codes, lens = state["codes"], state["lens"]
-        num_words = env.static("num_words")
-        if lens.shape[0] == 0:
-            return {
-                "words": torch.zeros(num_words, dtype=torch.int32, device=lens.device),
-                "chunk_offsets": torch.zeros(0, dtype=torch.int32, device=lens.device),
-            }
-        words, chunk_offsets = encode_ref.pack_stream(codes, lens, num_words, self.chunk_size)
+        words, chunk_offsets = adapters.dispatch("huffman_pack_stream", env.backend)(
+            state["codes"], state["lens"], env.static("num_words"), self.chunk_size)
         return {"words": words, "chunk_offsets": chunk_offsets}
 
     def stage_meta(self, plan) -> dict:

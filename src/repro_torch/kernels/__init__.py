@@ -9,7 +9,8 @@ Each kernel package has:
 Kernels:
   zfp_block      — ZFP-X per-4^d-block compress/decompress
   histogram      — Huffman-X key-frequency histogram
-  huffman_encode — Huffman-X per-key codebook gather (+ plain pack_stream)
+  huffman_encode — Huffman-X per-key codebook gather and pack_stream (scan +
+                   word packing; no TPU kernel: the reference leaves it to XLA)
   huffman_decode — Huffman-X chunk-parallel canonical decode
   quantize_map   — MGARD-X per-level quantize / dequantize (Map&Process)
   tridiag        — MGARD-X batched Thomas solve of the 1-D mass matrix

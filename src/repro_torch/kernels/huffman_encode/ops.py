@@ -1,8 +1,7 @@
 """Adapter-dispatched entry point for the huffman_encode kernel (counterpart
 of ``repro.kernels.huffman_encode.ops``): ``torch`` runs the plain version,
-``cuda`` the CUDA kernel.  ``pack_stream`` has no kernel in either
-package (the reference leaves it to XLA): both backends register its plain
-version."""
+``cuda`` the CUDA kernels.  ``pack_stream`` has a kernel only in the port
+(the reference leaves it to XLA)."""
 
 from __future__ import annotations
 
@@ -14,7 +13,7 @@ from . import kernel, ref
 adapters.register("huffman_encode_lookup", adapters.TORCH)(ref.encode_lookup)
 adapters.register("huffman_encode_lookup", adapters.CUDA)(kernel.encode_lookup)
 adapters.register("huffman_pack_stream", adapters.TORCH)(ref.pack_stream)
-adapters.register("huffman_pack_stream", adapters.CUDA)(ref.pack_stream)
+adapters.register("huffman_pack_stream", adapters.CUDA)(kernel.pack_stream)
 
 
 def encode_lookup(

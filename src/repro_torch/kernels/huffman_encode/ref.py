@@ -1,10 +1,10 @@
 """Plain PyTorch versions of the huffman_encode ops (counterpart of
 ``repro.kernels.huffman_encode.ref``).
 
-:func:`encode_lookup` is the CUDA kernel's oracle and the ``torch``
-backend's implementation.  :func:`pack_stream`, the serialization that
-follows it, has no kernel in either package (the reference leaves it to
-XLA): it stays plain PyTorch on every backend.
+:func:`encode_lookup` and :func:`pack_stream`, the serialization that
+follows it, are the CUDA kernels' oracles and the ``torch`` backend's
+implementations (the reference has a Pallas kernel for the lookup only and
+leaves the packing to XLA).
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ against themselves, and the placed train step over a world-size-1 NCCL
 group against the unplaced one).
 
 Kernels: ``zfp_block`` (encode, decode), ``histogram``, ``huffman_encode``
-(``encode_lookup``), ``huffman_decode`` (``decode_chunks``), ``quantize_map``
+(``encode_lookup``, ``pack_stream``), ``huffman_decode`` (``decode_chunks``), ``quantize_map``
 (``quantize``, ``dequantize``), ``tridiag`` (``solve_mass``) and
 ``mgard_lerp`` (``lerp_coefficients``).
 
@@ -288,6 +288,134 @@ def test_encode_lookup_kernel_matches_plain_version(cuda_device, num_keys):
         want_c, want_l = enc_ref.encode_lookup(k, codes_t, lens_t)
         assert torch.equal(got_c.cpu(), want_c) and torch.equal(got_l.cpu(), want_l)
     assert enc_kernel.launches["encode_lookup"] == before + 2
+
+
+PACK_SIZES = (1, enc_kernel.PACK_TILE - 1, enc_kernel.PACK_TILE + 1, 100_003)  # one symbol;
+# a tile less one; one past a tile edge; many tiles
+
+
+def _pack_lengths(kind: str, n: int, rng) -> np.ndarray:
+    """Code lengths in [0, 32]: uniform; only 0 and 32; short codes (many to
+    a word); mostly empty with a few long codes (tiles of a few bits); and
+    1-bit codes with long ones across every tile edge (codes that straddle
+    a tile's first and last word)."""
+    if kind == "uniform":
+        lens = rng.integers(0, 33, n)
+    elif kind == "0-and-32":
+        lens = rng.choice([0, 32], n)
+    elif kind == "short":
+        lens = rng.integers(1, 4, n)
+    elif kind == "sparse":
+        lens = np.where(rng.random(n) < 0.002, rng.integers(1, 33, n), 0)
+    else:
+        lens = np.ones(n, np.int64)
+        lens[enc_kernel.PACK_TILE - 1::enc_kernel.PACK_TILE] = 32
+        lens[enc_kernel.PACK_TILE::enc_kernel.PACK_TILE] = 31
+        lens[:3] = np.array([31, 30, 29])[: min(n, 3)]
+    lens[-1] = max(int(lens[-1]), 1)  # the plain version indexes past a word-aligned end
+    return lens.astype(np.int32)
+
+
+def _pack_on_card(cuda_device, codes, lens, num_words: int, chunk_size: int) -> None:
+    """pack_stream kernel == plain version: words and chunk offsets, tolerance
+    0, in one launch; the caching allocator hands the call memory just filled
+    with ones, so a word the kernel leaves unwritten shows."""
+    codes, lens = torch.as_tensor(codes), torch.as_tensor(lens)
+    torch.full((num_words + 4096,), -1, dtype=torch.int32, device=cuda_device)
+    before = enc_kernel.launches["pack_stream"]
+    got_w, got_o = enc_kernel.pack_stream(codes.to(cuda_device), lens.to(cuda_device), num_words,
+                                          chunk_size)
+    torch.cuda.synchronize()
+    assert enc_kernel.launches["pack_stream"] == before + 1
+    want_w, want_o = enc_ref.pack_stream(codes, lens, num_words, chunk_size)
+    assert got_w.dtype == got_o.dtype == torch.int32
+    assert torch.equal(got_w.cpu(), want_w)
+    assert torch.equal(got_o.cpu(), want_o)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk_size", [7, 256, 4096])
+@pytest.mark.parametrize("kind", ["uniform", "0-and-32", "short", "sparse", "tile-edges"])
+@pytest.mark.parametrize("n", PACK_SIZES)
+def test_pack_stream_kernel_matches_plain_version(cuda_device, n, kind, chunk_size):
+    rng = np.random.default_rng(n + len(kind) + chunk_size)
+    lens = _pack_lengths(kind, n, rng)
+    codes = rng.integers(-(1 << 31), 1 << 31, n).astype(np.int32)  # stray high bits
+    num_words = max(1, -(-int(lens.astype(np.int64).sum()) // 32))
+    _pack_on_card(cuda_device, codes, lens, num_words, chunk_size)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("extra", [1, 5, 70_000])
+def test_pack_stream_kernel_zeroes_words_past_the_stream(cuda_device, extra):
+    """``num_words`` above the need (the words past the last code are zero),
+    with empty codes after the last one."""
+    rng = np.random.default_rng(extra)
+    lens = rng.integers(0, 33, 20_011).astype(np.int32)
+    lens[-100:] = 0
+    codes = rng.integers(-(1 << 31), 1 << 31, lens.size).astype(np.int32)
+    need = -(-int(lens.astype(np.int64).sum()) // 32)
+    _pack_on_card(cuda_device, codes, lens, need + extra, 256)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk_size", [7, 256, 4096])
+def test_pack_stream_kernel_fibonacci_codes_of_32_bits(cuda_device, chunk_size):
+    fib = [1, 1]
+    while len(fib) < 40:
+        fib.append(fib[-1] + fib[-2])
+    book = huffman.build_codebook(np.array(fib, np.int64))
+    assert book.max_len == 32
+    keys = np.random.default_rng(chunk_size).integers(0, 40, 30_001).astype(np.int32)
+    codes, lens = enc_ref.encode_lookup(torch.from_numpy(keys),
+                                        *huffman.codebook_tables(book, "cpu"))
+    _pack_on_card(cuda_device, codes, lens, max(1, -(-int(lens.sum()) // 32)), chunk_size)
+
+
+@pytest.mark.gpu
+def test_pack_stream_kernel_at_2_27_laplace_keys(cuda_device):
+    """2^27 discrete-Laplace keys (MGARD's scale), packed on the card by the
+    kernel and by the plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(27)
+    u = torch.rand(1 << 27, generator=g, device=cuda_device) - 0.5
+    keys = (32768 - 3.0 * torch.sign(u) * torch.log1p(-2 * u.abs())).round().clamp(0, 65535)
+    keys = keys.to(torch.int32)
+    del u
+    book = huffman.build_codebook(torch.bincount(keys, minlength=65536).cpu().numpy())
+    codes, lens = enc_ref.encode_lookup(keys, *huffman.codebook_tables(book, cuda_device))
+    del keys
+    num_words = max(1, -(-int(lens.to(torch.int64).sum()) // 32))
+    before = enc_kernel.launches["pack_stream"]
+    got_w, got_o = enc_kernel.pack_stream(codes, lens, num_words, 4096)
+    torch.cuda.synchronize()
+    assert enc_kernel.launches["pack_stream"] == before + 1
+    want_w, want_o = enc_ref.pack_stream(codes, lens, num_words, 4096)
+    assert torch.equal(got_w, want_w) and torch.equal(got_o, want_o)
+
+
+@pytest.mark.gpu
+def test_pack_stream_kernel_runs_on_the_main_paths(cuda_device):
+    """``huffman.encode``, ``BitPack`` under ``compress_leaf`` and MGARD's
+    ``compress`` of card tensors pack through the kernel, once a call, with
+    the ``torch`` backend's bytes; CPU tensors launch nothing."""
+    keys = _skewed_keys(3000, 50_000, seed=41)
+    book = huffman.build_codebook(np.bincount(keys, minlength=3000))
+    before = enc_kernel.launches["pack_stream"]
+    enc = huffman.encode(torch.from_numpy(keys).to(cuda_device), book)
+    want = huffman.encode(torch.from_numpy(keys), book)
+    assert enc_kernel.launches["pack_stream"] == before + 1
+    assert torch.equal(enc.words.cpu(), want.words)
+    assert torch.equal(enc.chunk_offsets.cpu(), want.chunk_offsets)
+    x = torch.from_numpy(keys.reshape(50, 1000))
+    c = api.compress_leaf(x.to(cuda_device), "huffman")
+    assert enc_kernel.launches["pack_stream"] == before + 2
+    assert c.to_bytes() == api.compress_leaf(x, "huffman", backend="torch").to_bytes()
+    g = np.meshgrid(*[np.linspace(0, 3, 33)] * 3, indexing="ij")
+    f = torch.from_numpy(np.sin(sum(g)).astype(np.float32))
+    c = api.compress(f.to(cuda_device), "mgard")
+    assert enc_kernel.launches["pack_stream"] == before + 3
+    assert c.to_bytes() == api.compress(f, "mgard", backend="torch").to_bytes()
+    assert enc_kernel.launches["pack_stream"] == before + 3
 
 
 def _stream(keys: np.ndarray, chunk_size: int, freq: np.ndarray | None = None):

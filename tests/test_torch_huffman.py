@@ -43,6 +43,7 @@ from repro_torch.core.stages.base import CallEnv
 from repro_torch.core.stages.library import CodebookBuild
 from repro_torch.kernels.histogram import ref as thist_ref
 from repro_torch.kernels.huffman_decode import ref as tdec_ref
+from repro_torch.kernels.huffman_encode import kernel as tenc_kernel
 from repro_torch.kernels.huffman_encode import ref as tenc_ref
 
 torch.set_num_threads(2)
@@ -282,6 +283,54 @@ def test_pack_stream_twin_matches_reference(case):
                                         _tensor(np.asarray(lens)), num_words, 256)
     assert np.array_equal(_u32(got_w), np.asarray(words))
     assert np.array_equal(got_o.numpy(), np.asarray(offsets))
+
+
+def test_pack_stream_kernel_wrapper_takes_the_plain_version_on_cpu():
+    """A CPU tensor goes to the plain version, bit for bit, and launches
+    nothing; the ``torch`` backend's op gives the same."""
+    from repro_torch.core import adapters
+
+    rng = np.random.default_rng(11)
+    _, codes, lens, words, offsets = _reference_stream(
+        (rng.zipf(1.4, 3001) % 50).astype(np.int32), 7)
+    codes, lens = _tensor(np.asarray(codes).view(np.int32)), _tensor(np.asarray(lens))
+    before = dict(tenc_kernel.launches)
+    for pack in (tenc_kernel.pack_stream, adapters.dispatch("huffman_pack_stream", "torch")):
+        got_w, got_o = pack(codes, lens, int(words.shape[0]), 7)
+        assert np.array_equal(_u32(got_w), np.asarray(words))
+        assert np.array_equal(got_o.numpy(), np.asarray(offsets))
+    assert tenc_kernel.launches == before
+
+
+def test_pack_stream_kernel_wrapper_empty_stream():
+    empty = torch.zeros(0, dtype=torch.int32)
+    before = dict(tenc_kernel.launches)
+    words, offsets = tenc_kernel.pack_stream(empty, empty, 3, 4096)
+    assert words.dtype == offsets.dtype == torch.int32
+    assert words.tolist() == [0, 0, 0] and offsets.shape == (0,)
+    assert tenc_kernel.launches == before
+
+
+@pytest.mark.parametrize("codes,lens,num_words,chunk_size,error,match", [
+    (torch.zeros(4, dtype=torch.int64), torch.ones(4, dtype=torch.int32), 1, 4, TypeError,
+     "codes has dtype"),
+    (torch.zeros(4, dtype=torch.int32), torch.ones(4, dtype=torch.int16), 1, 4, TypeError,
+     "lens has dtype"),
+    (torch.zeros(5, dtype=torch.int32), torch.ones(4, dtype=torch.int32), 1, 4, ValueError,
+     "codes has shape"),
+    (torch.zeros((2, 2), dtype=torch.int32), torch.ones((2, 2), dtype=torch.int32), 1, 4,
+     ValueError, "lens has shape"),
+    (torch.zeros(8, dtype=torch.int32)[::2], torch.ones(4, dtype=torch.int32), 1, 4,
+     ValueError, "contiguous"),
+    (torch.zeros(4, dtype=torch.int32), torch.ones(4, dtype=torch.int32), -1, 4, ValueError,
+     "num_words"),
+    (torch.zeros(4, dtype=torch.int32), torch.ones(4, dtype=torch.int32), 1, 0, ValueError,
+     "chunk_size"),
+])
+def test_pack_stream_kernel_wrapper_checks_its_inputs(codes, lens, num_words, chunk_size, error,
+                                                      match):
+    with pytest.raises(error, match=match):
+        tenc_kernel.pack_stream(codes, lens, num_words, chunk_size)
 
 
 @pytest.mark.parametrize("case", ["skewed", "single-symbol", "fibonacci-32"])
