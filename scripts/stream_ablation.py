@@ -97,7 +97,7 @@ def stream_turns(cs, api, pl, host, card: str) -> None:
             if ready is None:
                 return out, ready
             lazy = NoWaitEvent()
-            lazy.record(self._stream if not chunk.is_cuda
+            lazy.record(self.stream if not chunk.is_cuda
                         else torch.cuda.current_stream(out.device))
             return out, lazy
 

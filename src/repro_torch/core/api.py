@@ -531,7 +531,7 @@ class CompressorStream:
         plan = get_plan(spec)
         if plan.pipeline is None:  # codec without a stage graph: one phase
             return ("container", codec.encode(plan, chunk))
-        state, env = codec.encode_begin(plan, chunk)
+        state, env = codec.encode_begin(plan, chunk, env=CallEnv(plan, graphs=True))
         # synchronise here, on the compute lane: serialization must only see
         # finished device buffers, and lane timings must be honest
         if chunk.is_cuda:
@@ -556,9 +556,34 @@ class CompressorStream:
         return self.pipeline.run(data)
 
     @staticmethod
-    def decompress(result: pl.ChunkedResult, backend: str | None = None) -> torch.Tensor:
-        """The chunks decoded (on ``backend``'s device) and concatenated."""
-        return pl.decompress_chunked(result, lambda c: decode(c, backend))
+    def decompress(result: pl.ChunkedResult, backend: str | None = None, *,
+                   out: torch.Tensor | None = None,
+                   timings: list | None = None) -> torch.Tensor:
+        """The field of ``result`` on ``backend``'s device, read back on the
+        pipeline's reconstruction run
+        (:func:`~repro_torch.core.pipeline.reconstruct_chunked`): chunk
+        *i+1* is deserialised, its host tables built and its sections staged
+        through a page-locked slot buffer on the calling thread while chunk
+        *i* decodes on the compute lane into its own slice of the output,
+        within the stream's ``window`` (2 for a stream read back from bytes
+        or a file).  The values are those of :func:`decode` of each chunk.
+
+        ``out``, a contiguous tensor of the stream's shape and decoded dtype
+        on that device, receives the field, as MGARD-X's
+        ``output_pre_allocated`` and ``zfp_decompress`` write into an array
+        the caller holds; by default one is allocated up front.  A wrong
+        ``out`` raises :class:`ValueError` before any work.  On the card the
+        call returns once the caller's current stream is ordered after every
+        chunk's work, so that stream may read ``out`` at once.  ``timings``,
+        a list, receives each chunk's :class:`~repro_torch.core.pipeline.
+        ChunkTiming` (``h2d`` the staging, ``compute`` the decode); on the
+        card filling it waits for the last chunk's work.
+        """
+        device = adapters.device_for(backend or adapters.AUTO)
+        out = _restore_target(result, device, out)
+        return pl.reconstruct_chunked(
+            result, lambda c: _stage_chunk(c, backend), _decode_staged, out,
+            window=result.window or 2, timings=timings)
 
     # -- framed multi-chunk byte format -------------------------------------
 
@@ -717,6 +742,60 @@ class CompressorStream:
             axis=int(meta["axis"]),
             shape=tuple(meta["shape"]),
         )
+
+
+def _restore_target(result: pl.ChunkedResult, device: torch.device,
+                    out: torch.Tensor | None) -> torch.Tensor:
+    """The tensor a stream's field is decoded into: ``out`` once checked, or
+    a new one of the stream's shape and decoded dtype on ``device``."""
+    shape = tuple(int(n) for n in result.shape)
+    dtype = canonical_dtype(result.chunks[0].meta["dtype"]) if len(result.chunks) else None
+    if out is None:
+        return torch.empty(shape, dtype=dtype or torch.float32, device=device)
+    if not isinstance(out, torch.Tensor):
+        raise ValueError(f"out must be a tensor, got {type(out).__name__}")
+    problems = []
+    if tuple(out.shape) != shape:
+        problems.append(f"shape {tuple(out.shape)}, the stream's is {shape}")
+    if dtype is not None and out.dtype != dtype:
+        problems.append(f"dtype {out.dtype}, the stream decodes to {dtype}")
+    if out.device != device:
+        problems.append(f"device {out.device}, the decode runs on {device}")
+    if not out.is_contiguous():
+        problems.append("not contiguous")
+    if problems:
+        raise ValueError("out: " + "; ".join(problems))
+    return out
+
+
+def _stage_chunk(c: Compressed, backend: str | None) -> tuple[tuple, dict]:
+    """A stream chunk's host side, on the reconstruction run's main thread:
+    ``((codec, plan, c, env), sections)``, its decode prepared
+    (:meth:`Codec.decode_prepare`) with every operand already on the plan's
+    device, so the compute lane does no host work and no copy.  A codec that
+    decodes otherwise (``mgard-progressive``) comes with ``env`` None and no
+    sections, and is decoded whole on the lane."""
+    codec, plan = _decode_plan(c, backend)
+    prepared = codec.decode_prepare(plan, c, env=CallEnv(plan, graphs=True))
+    if prepared is None:
+        return (codec, plan, c, None), {}
+    sections, env = prepared
+    for name in list(env.operands):
+        env.operand(name)
+    return (codec, plan, c, env), sections
+
+
+def _decode_staged(payload: tuple, sections: dict) -> torch.Tensor:
+    """A stream chunk's decode on the compute lane, from its staged sections."""
+    codec, plan, c, env = payload
+    if env is None:
+        return codec.decode(plan, c)
+    if plan.device.type == "cuda":  # tables made on the copy stream, read on this one
+        stream = torch.cuda.current_stream(plan.device)
+        for t in env.operands.values():
+            if isinstance(t, torch.Tensor) and t.is_cuda:
+                t.record_stream(stream)
+    return codec.decode_prepared(plan, c, sections, env)
 
 
 class LazyChunks(Sequence):

@@ -213,13 +213,48 @@ class Codec:
         env: Any = None,
         profile: dict | None = None,
     ) -> torch.Tensor:
-        """Run the inverse pipeline on the container's sections."""
+        """Run the inverse pipeline on the container's sections: exactly
+        :meth:`decode_prepare` followed by :meth:`decode_prepared`."""
+        state0, env = self.decode_prepare(plan, c, env=env, profile=profile)
+        return self.decode_prepared(plan, c, state0, env, profile=profile)
+
+    def decode_prepare(
+        self,
+        plan: ReductionPlan,
+        c: Compressed,
+        *,
+        env: Any = None,
+        profile: dict | None = None,
+    ) -> tuple[dict, Any] | None:
+        """The host half of :meth:`decode`: ``(state0, env)``, the
+        container's sections that seed the inverse pipeline and the call's
+        environment with every host stage's operands prepared.  ``None`` for
+        a codec that decodes otherwise (it overrides :meth:`decode`), which
+        a caller then decodes whole.  The stream's read-back runs this on
+        its main thread and :meth:`decode_prepared` on its compute lane."""
         from ..stages.base import CallEnv  # local: codecs ↔ stages layering
 
+        if plan.pipeline is None or type(self).decode is not Codec.decode:
+            return None
         state0, meta = self.decode_state(plan, c)
         env = env if env is not None else CallEnv(plan)
         env.meta.update(meta)
-        state, env = plan.pipeline.invert(state0, env=env, profile=profile)
+        plan.pipeline.prepare(env, profile)
+        return state0, env
+
+    def decode_prepared(
+        self,
+        plan: ReductionPlan,
+        c: Compressed,
+        state0: dict,
+        env: Any,
+        *,
+        profile: dict | None = None,
+    ) -> torch.Tensor:
+        """The device half of :meth:`decode`, after :meth:`decode_prepare`:
+        the sections moved to the plan's device (one already there is taken
+        as it lies), the device stages' inverses, the decoded tensor."""
+        state, env = plan.pipeline.invert_prepared(state0, env, profile)
         return self.finish_decode(plan, env, state, c)
 
     def decode_spec(self, c: Compressed) -> ReductionSpec:

@@ -80,8 +80,12 @@ def histogram_op(keys: torch.Tensor, num_bins: int, adapter: str | None = None) 
 
 
 def _huffman_code_lengths(freq: np.ndarray) -> np.ndarray:
-    """Phase 1: code lengths from frequencies (heap merge; the reference's
-    tie-breaks: equal weights pop leaves by index, internals by creation)."""
+    """Phase 1: code lengths from frequencies, by the reference's heap merge
+    and its tie-breaks (equal weights pop leaves by index, then internal
+    nodes by creation), run as two queues: the leaves sorted by (weight,
+    index), and the internal nodes in creation order, whose weights never
+    decrease.  A tie between the fronts pops the leaf, as the heap does (a
+    leaf's tie-break is its index, below every internal node's id)."""
     freq = np.asarray(freq, dtype=np.int64)
     n = freq.shape[0]
     lengths = np.zeros(n, dtype=np.int32)
@@ -91,26 +95,30 @@ def _huffman_code_lengths(freq: np.ndarray) -> np.ndarray:
     if nz.size == 1:
         lengths[nz[0]] = 1
         return lengths
-    heap = [(int(freq[i]), int(i), int(i)) for i in nz]
-    heapq.heapify(heap)
-    parent = np.full(n + nz.size, -1, dtype=np.int64)
-    next_id = n
-    while len(heap) > 1:
-        w1, _, a = heapq.heappop(heap)
-        w2, _, b = heapq.heappop(heap)
-        parent[a] = next_id
-        parent[b] = next_id
-        heapq.heappush(heap, (w1 + w2, next_id, next_id))
-        next_id += 1
-    # parents have higher ids than their children: walk from the top down
-    depth = np.zeros(next_id, dtype=np.int32)
-    par = parent[:next_id].tolist()
-    dl = depth.tolist()
-    for node in range(next_id - 2, -1, -1):
-        if par[node] >= 0:
-            dl[node] = dl[par[node]] + 1
-    depth = np.asarray(dl, dtype=np.int32)
-    lengths[nz] = depth[nz]
+    leaves = nz[np.argsort(freq[nz], kind="stable")]
+    leaf_w = freq[leaves].tolist()
+    m = len(leaf_w)
+    leaf_parent = [0] * m
+    node_w: list[int] = []       # internal nodes, in creation order
+    node_parent = [0] * (m - 1)
+    a = b = 0                    # the two queues' fronts
+    for k in range(m - 1):
+        w = 0
+        for _ in range(2):
+            if a < m and (b == k or leaf_w[a] <= node_w[b]):
+                w += leaf_w[a]
+                leaf_parent[a] = k
+                a += 1
+            else:
+                w += node_w[b]
+                node_parent[b] = k
+                b += 1
+        node_w.append(w)
+    # a parent is made after its children: walk down from the root (m − 2)
+    depth = [0] * (m - 1)
+    for k in range(m - 3, -1, -1):
+        depth[k] = depth[node_parent[k]] + 1
+    lengths[leaves] = np.asarray(depth, dtype=np.int32)[leaf_parent] + 1
     return lengths
 
 

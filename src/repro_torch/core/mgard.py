@@ -41,8 +41,10 @@ rounding, not bit for bit.
 from __future__ import annotations
 
 import math
+import threading
 from dataclasses import dataclass
 from functools import lru_cache
+from typing import Any
 
 import numpy as np
 import torch
@@ -291,6 +293,82 @@ def _recompose_level(view: torch.Tensor, h: float,
         interp = interp_1d(interp, a)
     # coarse nodes: mc was zeroed there and interp(coarse) = coarse → exact
     return mc + interp
+
+
+class GraphedTransform:
+    """``fn(x, *args)`` on a CUDA tensor, replayed from a CUDA graph.
+
+    A chunk's :func:`decompose` or :func:`recompose` is some 700 small torch
+    operations; launched one by one from a stream's compute lane, their host
+    cost, not the card, sets the lane's pace.  The first call of an input
+    shape runs ``fn`` as it is (it loads the kernels); the second captures
+    it once, on a side stream, into a graph with a static input and output;
+    every later call copies its input in, replays the graph on the current
+    stream and returns a copy of the output.  A replay waits on the event
+    recorded after the previous replay's output copy, so threads may share
+    one instance.  The kernels are the eager call's, so the values are the
+    same bit for bit.  ``args`` are the same at every call (a plan's
+    tables).  A CPU tensor runs ``fn``.
+    """
+
+    def __init__(self, fn):
+        self.fn = fn
+        self._lock = threading.Lock()
+        self._graphs: dict[tuple, Any] = {}
+
+    def __call__(self, x: torch.Tensor, *args) -> torch.Tensor:
+        if not x.is_cuda:
+            return self.fn(x, *args)
+        key = (tuple(x.shape), x.stride(), x.dtype, x.device)
+        with self._lock:
+            entry = self._graphs.get(key)
+            if entry is None:
+                self._graphs[key] = "eager"
+                return self.fn(x, *args)
+            if entry == "eager":
+                entry = self._graphs[key] = self._capture(x, args)
+            stream = torch.cuda.current_stream(x.device)
+            if entry["done"] is not None:
+                stream.wait_event(entry["done"])
+            entry["input"].copy_(x)
+            entry["graph"].replay()
+            out = entry["output"].clone()
+            entry["done"] = torch.cuda.Event()
+            entry["done"].record(stream)
+            _count_replayed(entry["launches"])
+            return out
+
+    def _capture(self, x: torch.Tensor, args: tuple) -> dict:
+        from ..kernels.tridiag import kernel as tridiag_kernel  # lazy: layer order
+
+        current = torch.cuda.current_stream(x.device)
+        side = torch.cuda.Stream(x.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            static_in = x.clone()
+            graph = torch.cuda.CUDAGraph()
+            before = dict(tridiag_kernel.launches)
+            # thread-local: the stream's other lanes go on copying meanwhile
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                static_out = self.fn(static_in, *args)
+            finally:
+                graph.capture_end()
+            captured = {k: tridiag_kernel.launches[k] - n for k, n in before.items()}
+            _count_replayed({k: -n for k, n in captured.items()})  # captured, not run
+        current.wait_stream(side)
+        return {"graph": graph, "input": static_in, "output": static_out,
+                "launches": captured, "done": None}
+
+
+def _count_replayed(counts: dict[str, int]) -> None:
+    """Add a replay's kernel launches to the ``tridiag`` wrapper's counters."""
+    from ..kernels import _launch  # lazy: layer order
+    from ..kernels.tridiag import kernel as tridiag_kernel
+
+    with _launch._COUNT_LOCK:
+        for k, n in counts.items():
+            tridiag_kernel.launches[k] += n
 
 
 def decompose(u: torch.Tensor, shape: tuple[int, ...],

@@ -24,19 +24,26 @@ Two execution surfaces:
     stream waits on the copy's event), and fetched into page-locked memory
     and serialised on the io lane, bounded at ``window`` in-flight chunks.
     Used by ``api.CompressorStream`` and the checkpoint writer.
+  * :func:`reconstruct_chunked` — the reconstruction run of Fig. 9 (bottom):
+    chunk *i+1*'s sections are staged through its slot's page-locked buffer
+    while chunk *i* decodes on the compute lane, and each chunk is written
+    into its own slice of one output tensor.
 """
 
 from __future__ import annotations
 
+import ctypes
 import threading
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
 
+from ..runtime.trace import span
 from . import adapters, chunk_model
 
 H2D, D2H, COMPUTE = "h2d", "d2h", "compute"
@@ -272,6 +279,33 @@ def host_tensor(data: Any) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+SECTION_ALIGN = 256  # bytes: every staged section starts where any dtype's view may
+COPY_THREADS = 4     # threads of a large copy into a page-locked buffer
+COPY_SPLIT = 4 << 20  # bytes: a copy at least this long is split over them
+_copy_pool: ThreadPoolExecutor | None = None
+_copy_pool_lock = threading.Lock()
+
+
+def copy_to_pinned(dst: int, src: int, nbytes: int) -> None:
+    """``nbytes`` from host address ``src`` to host address ``dst`` (a slot's
+    page-locked buffer), split over :data:`COPY_THREADS` threads of
+    ``ctypes.memmove``, which runs without the GIL.  Torch's own host copy
+    runs on the intra-op pool, whose threads the stream's lanes compete
+    with; a few dedicated threads copy as fast and more steadily."""
+    global _copy_pool
+    if nbytes < COPY_SPLIT:
+        ctypes.memmove(dst, src, nbytes)
+        return
+    with _copy_pool_lock:
+        if _copy_pool is None:
+            _copy_pool = ThreadPoolExecutor(COPY_THREADS, thread_name_prefix="hpdr-copy")
+    step = -(-nbytes // COPY_THREADS // 4096) * 4096
+    parts = [_copy_pool.submit(ctypes.memmove, dst + i, src + i, min(step, nbytes - i))
+             for i in range(0, nbytes, step)]
+    for p in parts:
+        p.result()
+
+
 class PinnedStager:
     """Stage host chunks onto one device, one page-locked buffer per slot.
 
@@ -291,7 +325,18 @@ class PinnedStager:
         self.cuda = self.device.type == "cuda"
         self._bufs: list[torch.Tensor | None] = [None] * max(1, int(window))
         self._events: list[Any] = [None] * len(self._bufs)
-        self._stream = torch.cuda.Stream(self.device) if self.cuda else None
+        self.stream = torch.cuda.Stream(self.device) if self.cuda else None
+
+    def _slot_buffer(self, slot: int, nbytes: int) -> torch.Tensor:
+        """The page-locked buffer of ``slot``, at least ``nbytes`` long, once
+        the slot's previous copy has completed."""
+        if self._events[slot] is not None:
+            self._events[slot].synchronize()  # the slot's previous copy is done
+        buf = self._bufs[slot]
+        if buf is None or buf.numel() < nbytes:
+            buf = torch.empty(max(nbytes, 1), dtype=torch.uint8, pin_memory=True)
+            self._bufs[slot] = buf
+        return buf
 
     def stage(self, chunk: torch.Tensor, slot: int) -> tuple[torch.Tensor, Any]:
         """``(chunk on the device, event its copy completes at or None)``."""
@@ -304,21 +349,50 @@ class PinnedStager:
             return out, ready
         slot %= len(self._bufs)
         nbytes = chunk.numel() * chunk.element_size()
-        if self._events[slot] is not None:
-            self._events[slot].synchronize()  # the slot's previous copy is done
-        buf = self._bufs[slot]
-        if buf is None or buf.numel() < nbytes:
-            buf = torch.empty(max(nbytes, 1), dtype=torch.uint8, pin_memory=True)
-            self._bufs[slot] = buf
+        buf = self._slot_buffer(slot, nbytes)
         pinned = buf[:nbytes].view(chunk.dtype).view(chunk.shape)
-        pinned.copy_(chunk)
-        with torch.cuda.stream(self._stream):
+        if chunk.is_contiguous():
+            copy_to_pinned(pinned.data_ptr(), chunk.data_ptr(), nbytes)
+        else:
+            pinned.copy_(chunk)
+        with torch.cuda.stream(self.stream):
             out = torch.empty(chunk.shape, dtype=chunk.dtype, device=self.device)
             out.copy_(pinned, non_blocking=True)
         ready = torch.cuda.Event()
-        ready.record(self._stream)
+        ready.record(self.stream)
         self._events[slot] = ready
         return out, ready
+
+    def stage_sections(self, sections: dict[str, Any], slot: int) -> tuple[dict, Any]:
+        """``(sections on the device, event their copy completes at or None)``.
+
+        On a CUDA device the numpy arrays are packed into the slot's
+        page-locked buffer, each at an offset aligned to
+        :data:`SECTION_ALIGN` bytes, and go to the card in one copy on the
+        copy stream; each comes back as a view of its dtype and shape into
+        one device buffer.  On the CPU they are returned as they are.
+        """
+        if not self.cuda or not sections:
+            return dict(sections), None
+        slot %= len(self._bufs)
+        layout, total = [], 0
+        for key, v in sections.items():
+            a = np.ascontiguousarray(v)
+            total = -(-total // SECTION_ALIGN) * SECTION_ALIGN
+            layout.append((key, total, a.reshape(-1).view(np.uint8), a.dtype.name, a.shape))
+            total += a.nbytes
+        buf = self._slot_buffer(slot, total)
+        for _key, off, raw, _dtype, _shape in layout:
+            copy_to_pinned(buf.data_ptr() + off, raw.ctypes.data, raw.size)
+        with torch.cuda.stream(self.stream):
+            dev = torch.empty(total, dtype=torch.uint8, device=self.device)
+            dev.copy_(buf[:total], non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record(self.stream)
+        self._events[slot] = ready
+        return {key: dev[off:off + raw.size].view(getattr(torch, dtype)).view(shape)
+                for key, off, raw, dtype, shape in layout}, ready
+
 
 
 def wait_staged(chunk: torch.Tensor, ready: Any) -> None:
@@ -341,18 +415,25 @@ class ChunkTiming:
     """Per-chunk lane timings.
 
     ``spans`` holds the ``(start, end)`` interval of each lane's work for
-    this chunk, in seconds relative to the run start.  ``h2d`` ends when the
-    chunk's copy to the card has completed, ``compute`` when its kernels
-    have, and ``serialize`` covers the fetch into page-locked memory and the
-    container build; ``d2h`` mirrors ``serialize``, as in the reference.
+    this chunk, in seconds relative to the run start.  ``h2d`` is the main
+    thread's staging: the copy into the slot's page-locked buffer and the
+    launch of the DMA, which the compute lane's stream waits on, not the
+    host; ``compute`` ends when the chunk's kernels have completed, and ``serialize`` covers the io lane's one span: the fetch into
+    page-locked memory and the container build, which are not timed apart.
+    ``d2h`` is the reference's name for that same span, not a second one.
+    A reconstruction run (:func:`reconstruct_chunked`) has no io lane: its
+    ``serialize`` is 0.
     """
 
     h2d: float
     compute: float
-    d2h: float
     nbytes: int
     serialize: float = 0.0
     spans: dict = field(default_factory=dict)
+
+    @property
+    def d2h(self) -> float:
+        return self.serialize
 
 
 def _itemsize(dtype_name: str) -> int:
@@ -382,17 +463,25 @@ class ChunkedResult:
 
     def lane_seconds(self) -> dict[str, float]:
         """Summed per-lane busy time across chunks (the serial-sum bound)."""
-        out = {"h2d": 0.0, "compute": 0.0, "serialize": 0.0}
-        for t in self.timings:
-            out["h2d"] += t.h2d
-            out["compute"] += t.compute
-            out["serialize"] += t.serialize
-        return out
+        return lane_seconds(self.timings)
 
     def overlap_efficiency(self) -> float:
         """Serial sum of lane times / pipelined wall clock (>1 = overlap)."""
-        total = sum(self.lane_seconds().values())
-        return total / self.wall_time if self.wall_time else 1.0
+        return overlap_efficiency(self.timings, self.wall_time)
+
+
+def lane_seconds(timings: Sequence[ChunkTiming]) -> dict[str, float]:
+    """Each lane's busy seconds summed over a run's chunks."""
+    return {"h2d": sum(t.h2d for t in timings), "compute": sum(t.compute for t in timings),
+            "serialize": sum(t.serialize for t in timings)}
+
+
+def overlap_efficiency(timings: Sequence[ChunkTiming], wall: float | None = None) -> float:
+    """The lanes' summed busy seconds over the run's ``wall`` seconds (by
+    default to the last lane span's end): 1 is a serial run."""
+    if wall is None:
+        wall = max((end for t in timings for _start, end in t.spans.values()), default=0.0)
+    return sum(lane_seconds(timings).values()) / wall if wall else 1.0
 
 
 class ChunkedPipeline:
@@ -402,7 +491,7 @@ class ChunkedPipeline:
 
       main thread   slice + staging through the slot's page-locked buffer
                     and an asynchronous copy on the copy stream (the H2D
-                    DMA; the span ends when the copy has completed)
+                    DMA, which the host does not wait for)
       compute lane  ``compute_fn`` (R_i), on a CUDA stream of the task's
                     own that first waits on the staging copy's event
       io lane       ``finish_fn``: D2H fetch + container serialization
@@ -624,7 +713,8 @@ class ChunkedPipeline:
                     # bounded in-flight window: stage chunk i only once
                     # chunk i−window has fully left the pipeline (which
                     # also frees its slot's staging buffer)
-                    subs[idx - self.window].result()
+                    with span("pipeline.wait"):
+                        subs[idx - self.window].result()
                 host_chunk = data.narrow(axis, start, r)
                 with lock:
                     state["inflight"] += 1
@@ -633,9 +723,8 @@ class ChunkedPipeline:
                 rec["nbytes"] = host_chunk.numel() * host_chunk.element_size()
                 dev = ring[idx % len(ring)]
                 t0 = now()
-                dev_chunk, ready = stagers[dev].stage(host_chunk, idx % self.window)
-                if ready is not None:
-                    ready.synchronize()  # the h2d span ends with the copy
+                with span("pipeline.stage"):  # the DMA runs on: the lane's stream waits on it
+                    dev_chunk, ready = stagers[dev].stage(host_chunk, idx % self.window)
                 rec["spans"]["h2d"] = (t0, now())
                 comp_sub = ex.submit(compute_task, idx, dev_chunk, ready, device=dev)
                 del dev_chunk
@@ -652,8 +741,8 @@ class ChunkedPipeline:
             sp = rec["spans"]
             dur = lambda k: sp[k][1] - sp[k][0] if k in sp else 0.0  # noqa: E731
             timings.append(ChunkTiming(
-                h2d=dur("h2d"), compute=dur("compute"), d2h=dur("serialize"),
-                serialize=dur("serialize"), nbytes=rec["nbytes"], spans=sp,
+                h2d=dur("h2d"), compute=dur("compute"), serialize=dur("serialize"),
+                nbytes=rec["nbytes"], spans=sp,
             ))
         wall = now()
         if self.tuned is not None:
@@ -676,5 +765,136 @@ class ChunkedPipeline:
 
 
 def decompress_chunked(result: ChunkedResult, decompress_fn: Callable) -> torch.Tensor:
+    """Every chunk through ``decompress_fn`` in order, on the calling thread,
+    concatenated: the serial reconstruction (:func:`reconstruct_chunked`
+    gives the same values, pipelined)."""
     parts = [decompress_fn(c) for c in result.chunks]
     return torch.cat(parts, dim=result.axis)
+
+
+def reconstruct_chunked(
+    result: ChunkedResult,
+    stage_fn: Callable,
+    decode_fn: Callable,
+    out: torch.Tensor,
+    *,
+    window: int = 2,
+    timings: list | None = None,
+) -> torch.Tensor:
+    """The reconstruction DAG of paper Fig. 9 (bottom) run for real: every
+    chunk of ``result`` decoded into its own slice of ``out`` along
+    ``result.axis``, with no concatenation; returns ``out``.
+
+      main thread   ``stage_fn(container) -> (payload, sections)``: the
+                    chunk's deserialisation and host preparation; then its
+                    ``sections`` (host arrays) staged through the slot's
+                    page-locked buffer in one copy on the copy stream (D_i)
+      compute lane  ``decode_fn(payload, staged sections) -> tensor`` (R_i)
+                    and its write into ``out`` (O_i), one chunk at a time
+
+    Chunk *i+1* stages while chunk *i* decodes, in
+    :func:`build_reconstruction_dag`'s issue order.  Staging chunk *i*
+    waits until chunk *i−window* has completed (``window=1`` is the serial
+    schedule).  ``stage_fn`` runs with the copy stream current, so a host
+    preparation's own copies (decode tables) go there, not behind the decodes.
+
+    On the card the lane works on a stream of its own, ordered after the
+    caller's current stream, and keeps one chunk queued ahead: it enqueues
+    chunk *i* and then waits for chunk *i−1*, so the card is not left idle
+    between chunks and chunk decodes never overlap each other (the HDEM
+    rule of one reduction at a time per device).  The run returns once
+    the caller's current stream is ordered after every chunk's work; the
+    last chunk may still be running.  On the CPU everything is synchronous.
+
+    ``timings``, a list, receives each chunk's :class:`ChunkTiming`:
+    ``h2d`` the main thread's staging (host clock, to the copy's launch)
+    and ``compute`` the decode and write, on the card from CUDA
+    events on the lane's stream measured from one recorded there at the
+    run's start (reading them waits for the last chunk's work).
+    """
+    from ..runtime import executor as ex_mod  # runtime import: peer layer
+
+    device = out.device
+    cuda = device.type == "cuda"
+    window = max(1, int(window))
+    n = len(result.chunks)
+    ends = list(result.boundaries[1:]) + [result.shape[result.axis]]
+    stager = PinnedStager(device, window)
+    t_wall = time.perf_counter()
+    now = lambda: time.perf_counter() - t_wall  # noqa: E731
+    records: list[dict] = [{"nbytes": 0, "spans": {}} for _ in range(n)]
+    done: list[Any] = [None] * n
+    if cuda:
+        caller = torch.cuda.current_stream(device)
+        lane = torch.cuda.Stream(device)
+        lane.wait_stream(caller)  # the caller's earlier work on ``out`` comes first
+        base = torch.cuda.Event(enable_timing=True)
+        base.record(lane)
+
+    def write(idx: int, payload, staged: dict, ready) -> None:
+        if ready is not None:
+            stream = torch.cuda.current_stream(device)
+            stream.wait_event(ready)
+            for t in staged.values():
+                t.record_stream(stream)
+        part = decode_fn(payload, staged)
+        start = result.boundaries[idx]
+        target = out.narrow(result.axis, start, ends[idx] - start)
+        if part.shape != target.shape or part.dtype != target.dtype:
+            raise ValueError(f"chunk {idx} decodes to {tuple(part.shape)} {part.dtype}, its "
+                             f"slice of the output is {tuple(target.shape)} {target.dtype}")
+        target.copy_(part)
+
+    def compute_task(idx: int, payload, staged: dict, ready) -> None:
+        t0 = now()
+        if not cuda:
+            write(idx, payload, staged, ready)
+        else:
+            with torch.cuda.device(device), torch.cuda.stream(lane):
+                begin = torch.cuda.Event(enable_timing=True)
+                begin.record(lane)
+                write(idx, payload, staged, ready)
+                end = torch.cuda.Event(enable_timing=True)
+                end.record(lane)
+            records[idx]["events"] = (begin, end)
+            done[idx] = end
+            if idx > 0 and done[idx - 1] is not None:
+                done[idx - 1].synchronize()  # chunk idx is queued behind it
+        records[idx]["spans"]["compute"] = (t0, now())
+
+    # one compute worker: chunk decodes never run side by side on the device
+    ex = ex_mod.DeviceExecutor([torch.device("cpu")], max_workers=1, io_workers=1)
+    subs: list = []
+    try:
+        for idx, c in enumerate(result.chunks):
+            if idx >= window:
+                with span("pipeline.wait"):  # chunk idx−window has left the card
+                    subs[idx - window].result()
+                    if done[idx - window] is not None:
+                        done[idx - window].synchronize()
+            t0 = now()
+            with span("pipeline.restore_stage"):
+                with torch.cuda.stream(stager.stream):  # None on the CPU: no-op
+                    payload, sections = stage_fn(c)
+                staged, ready = stager.stage_sections(sections, idx % window)
+            records[idx]["spans"]["h2d"] = (t0, now())
+            records[idx]["nbytes"] = sum(int(v.nbytes) for v in sections.values())
+            subs.append(ex.submit(compute_task, idx, payload, staged, ready))
+            del staged, payload
+        for s in subs:
+            s.result()
+    finally:
+        ex.shutdown()
+    if cuda:
+        caller.wait_stream(lane)  # the caller's next work on ``out`` waits for every chunk
+    if timings is not None:
+        for rec in records:
+            sp = dict(rec["spans"])
+            if cuda:
+                begin, end = rec["events"]
+                end.synchronize()
+                sp["compute"] = (base.elapsed_time(begin) / 1e3, base.elapsed_time(end) / 1e3)
+            timings.append(ChunkTiming(h2d=sp["h2d"][1] - sp["h2d"][0],
+                                       compute=sp["compute"][1] - sp["compute"][0],
+                                       nbytes=rec["nbytes"], spans=sp))
+    return out

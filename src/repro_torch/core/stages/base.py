@@ -82,12 +82,18 @@ class CallEnv:
                        and counted as H2D (:meth:`operand`);
       * ``statics``  — python ints later stages need (the packed word
                        count, the alphabet size).
+
+    ``graphs`` asks the stages that can for their device transforms replayed
+    from CUDA graphs (``mgard.GraphedTransform``): the stream's lanes set it,
+    where a chunk's launches would otherwise pace the lane.
     """
 
-    __slots__ = ("plan", "spec", "meta", "operands", "statics", "transfers")
+    __slots__ = ("plan", "spec", "meta", "operands", "statics", "transfers", "graphs")
 
-    def __init__(self, plan: Any, transfers: TransferStats | None = None):
+    def __init__(self, plan: Any, transfers: TransferStats | None = None, *,
+                 graphs: bool = False):
         self.plan = plan
+        self.graphs = graphs
         self.spec = plan.spec
         self.meta: dict[str, Any] = {}
         self.operands: dict[str, Any] = {}
@@ -283,9 +289,25 @@ class CompiledPipeline:
         reverse order.
         """
         env = env or CallEnv(self.plan)
+        self.prepare(env, profile)
+        return self.invert_prepared(state0, env, profile)
+
+    def prepare(self, env: CallEnv, profile: dict[str, float] | None = None) -> None:
+        """The decode direction's host side: every host stage prepares its
+        operands from ``env.meta`` (decode tables, bins)."""
         for st in self.graph.stages:
             if not st.device:
                 self._timed(profile, st.name, st.host_prepare, env)
+
+    def invert_prepared(
+        self,
+        state0: dict[str, Any],
+        env: CallEnv,
+        profile: dict[str, float] | None = None,
+    ) -> tuple[dict[str, torch.Tensor], CallEnv]:
+        """:meth:`invert` after :meth:`prepare` ran on ``env``: the sections
+        moved to the plan's device (a section already there is taken as it
+        lies, with no copy), then the device stages' inverses."""
         state = self._timed(profile, "stage_in", self._stage_in, env, state0)
         for st in reversed(self.graph.stages):
             if st.device and st.inv_writes:

@@ -211,21 +211,28 @@ class MgardDecorrelate(Stage):
         self.shape = tuple(shape)
 
     def planned(self, plan) -> None:
-        self._dtype = getattr(torch, plan.spec.dtype)
-
-    def apply(self, env: CallEnv, state: dict) -> dict:
         from .. import mgard
 
+        self._dtype = getattr(torch, plan.spec.dtype)
+        self._graphed = {"decompose": mgard.GraphedTransform(mgard.decompose),
+                         "recompose": mgard.GraphedTransform(mgard.recompose)}
+
+    def _transform(self, env: CallEnv, name: str):
+        from .. import mgard
+
+        return self._graphed[name] if env.graphs else getattr(mgard, name)
+
+    def apply(self, env: CallEnv, state: dict) -> dict:
         data = state["data"]
+        decompose = self._transform(env, "decompose")
         return {
-            "coeffs": mgard.decompose(data, self.shape, env.workspace("thomas")),
+            "coeffs": decompose(data, self.shape, env.workspace("thomas")),
             "value_range": value_range(data),
         }
 
     def invert(self, env: CallEnv, state: dict) -> dict:
-        from .. import mgard
-
-        out = mgard.recompose(state["coeffs"], self.shape, env.workspace("thomas"))
+        recompose = self._transform(env, "recompose")
+        out = recompose(state["coeffs"], self.shape, env.workspace("thomas"))
         return {"data": float32_to(out, self._dtype)}
 
     def stage_meta(self, plan) -> dict:

@@ -217,6 +217,10 @@ ADDED_PARAMS = {
     "pinned": "the io lane's fetch into page-locked host memory for the card's copy",
     "perm": "the ZFP coefficient order handed in once, not rebuilt a call",
     "scale": "the ZFP transform's scale handed in once, not rebuilt a call",
+    "out": "the caller's card array a stream's field is decoded into (MGARD-X's "
+           "output_pre_allocated)",
+    "timings": "the stream read-back's per-chunk lane timings, filled on request",
+    "graphs": "the stream's lanes replay MGARD's transforms from CUDA graphs",
 }
 
 # a reference parameter the port names otherwise wherever it occurs, with its
